@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Drives the port's serving path (``repro_torch``; no JAX, nothing of the
+JAX package) at the full width of qwen3-0.6b and exits non-zero on any
+failure.  Phases, each printing its result:
+
+  1. card    nvidia-smi name and power limit, torch's device name/count;
+             fails without CUDA.
+  2. build   nvcc builds every kernel of the path from
+             src/repro_torch/csrc (one nvcc per source, in parallel) into
+             build/kernels/.
+  3. kernels each CUDA kernel against its plain PyTorch version at the
+             serving path's shapes and on a small matrix (GQA/MQA, hd
+             64/80/128, window, softcap, ragged S and L, fp32 and bf16;
+             tolerance 2e-4 fp32 with TF32 off, 2e-2 bf16), and timed
+             beside the plain version and one library call.
+  4. parity  full-width fp32 qwen3-0.6b served twice on the same seeded
+             weights and prompts, with the kernels and with the plain
+             attention: greedy tokens and masks identical, logprobs
+             within 1e-3, both kernels launched.
+  5. serve   ``repro_torch.launch.serve`` on qwen3-0.6b in bf16 (batch 48,
+             wave 16, prompt 256, 64 new tokens); launch counts are zeroed
+             just before and read just after.
+
+Then one JSON line with every kernel's numbers, the card line, and the
+last line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+ARCH = "qwen3-0.6b"
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
+    """Mean CUDA-event time of one call, L2 flushed before each call (the
+    serving path meets every layer's K/V cold)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def tol(dtype, torch) -> float:
+    return 2e-2 if dtype == torch.bfloat16 else 2e-4
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a "
+             "CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.nn.functional as F
+
+    from repro_torch.configs import archs
+    from repro_torch.genserve import adapter
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.rl.rollout import SamplerConfig
+
+    t_all = time.monotonic()
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"[1 card] {card} | torch: {kind} x{count} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.monotonic()
+    secs = build.build()
+    print(f"[2 build] {len(build.SOURCES)} sources -> {build.BUILD_DIR} in "
+          f"{time.monotonic() - t0:.1f}s "
+          f"({', '.join(f'{k} {v:.1f}s' for k, v in secs.items()) or 'cached'})",
+          flush=True)
+
+    # ---- 3. kernels vs plain versions -----------------------------------
+    g = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    bf16 = torch.bfloat16
+    cfg = archs.get(ARCH)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    W, P, N = 16, 256, 64
+    results = {}
+
+    # prefill at the serving path's shape: one admission wave, causal
+    q, k, v = (randn(W, P, n, hd, dtype=bf16) for n in (H, KV, KV))
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    check(bool(torch.isfinite(out).all()) and err <= tol(bf16, torch),
+          f"flash_attention main-path shape: max abs err {err}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), torch,
+                 flush)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                       torch, flush)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), torch, flush)
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+    flops = 4.0 * W * H * hd * (P * (P + 1) // 2)     # unmasked pairs only
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FLOPS[str(bf16)] * 1e3
+    results["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:26",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=lib_ms)
+    print(f"[3 kernels] flash_attention q{tuple(q.shape)} k{tuple(k.shape)} "
+          f"bf16 causal: err {err:.3g} (tol 2e-2) | kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+
+    # decode at the serving path's shape: W slots, cache L = P + N, bias
+    # from real per-slot positions of a full (non-ring) cache
+    L = P + N
+    pos = torch.randint(P, L, (W,), generator=g, device=dev)
+    q = randn(W, H, hd, dtype=bf16)
+    k, v = (randn(W, L, KV, hd, dtype=bf16) for _ in range(2))
+    k_pos, valid = cache_mod.ring_slot_positions(L, None, pos)
+    bias = attn.decode_bias(pos[:, None], k_pos, causal=True, window=None,
+                            k_valid=valid, batch=W).contiguous()
+    out = dec.decode_attention(q, k, v, bias)
+    ref = dec.decode_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    check(bool(torch.isfinite(out).all()) and err <= tol(bf16, torch),
+          f"decode_attention main-path shape: max abs err {err}")
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), \
+        v.transpose(1, 2).contiguous()
+    mask4 = bias.to(bf16)[:, None, None, :]
+    ms = time_ms(lambda: dec.decode_attention(q, k, v, bias), torch, flush)
+    plain_ms = time_ms(lambda: dec.decode_attention_plain(q, k, v, bias),
+                       torch, flush)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask4, enable_gqa=True), torch, flush)
+    n_valid = int((bias == 0).sum())                  # K/V rows needed
+    row_bytes = KV * hd * k.element_size()
+    nbytes = (q.numel() * q.element_size() + out.numel() * out.element_size()
+              + bias.numel() * 4 + 2 * n_valid * row_bytes)
+    flops = 4.0 * H * hd * n_valid
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FLOPS[str(bf16)] * 1e3
+    results["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:21",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=lib_ms)
+    print(f"[3 kernels] decode_attention q{tuple(q.shape)} k{tuple(k.shape)} "
+          f"bf16, {n_valid} valid rows: err {err:.3g} (tol 2e-2) | kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+          f"bound {max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB)",
+          flush=True)
+
+    # small matrix: GQA/MQA, hd 64/80/128, window, caps, ragged S / L
+    n_cases = 0
+    for dtype in (torch.float32, bf16):
+        for B, S, h_, kv_, d_, causal, window, cap in [
+                (2, 300, 4, 2, 64, True, None, None),
+                (1, 100, 4, 1, 128, True, 64, None),
+                (2, 200, 4, 2, 80, True, None, 50.0),
+                (1, 77, 8, 8, 128, False, None, None),
+                (1, 130, 4, 2, 64, True, 64, 30.0)]:
+            q, k, v = (randn(B, S, n, d_, dtype=dtype) for n in (h_, kv_, kv_))
+            out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     cap=cap)
+            ref = fa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, cap=cap)
+            err = max_err(out, ref)
+            check(err <= tol(dtype, torch),
+                  f"flash_attention B{B} S{S} H{h_}:{kv_} hd{d_} causal="
+                  f"{causal} window={window} cap={cap} {dtype}: err {err}")
+            n_cases += 1
+        for B, h_, kv_, d_, L_, cap, window in [
+                (2, 4, 2, 64, 300, None, None),
+                (1, 4, 1, 80, 200, 30.0, None),
+                (3, 8, 2, 128, 1000, 50.0, None),
+                (4, 4, 4, 64, 77, None, None),
+                (2, 4, 2, 128, 64, 30.0, 64)]:
+            q = randn(B, h_, d_, dtype=dtype)
+            k, v = (randn(B, L_, kv_, d_, dtype=dtype) for _ in range(2))
+            p_ = torch.randint(0, 3 * L_, (B,), generator=g, device=dev)
+            kp, ok = cache_mod.ring_slot_positions(L_, window, p_)
+            bias = attn.decode_bias(p_[:, None], kp, causal=True,
+                                    window=window, k_valid=ok,
+                                    batch=B).contiguous()
+            out = dec.decode_attention(q, k, v, bias, cap=cap)
+            ref = dec.decode_attention_plain(q, k, v, bias, cap=cap)
+            err = max_err(out, ref)
+            check(err <= tol(dtype, torch),
+                  f"decode_attention B{B} H{h_}:{kv_} hd{d_} L{L_} cap={cap} "
+                  f"window={window} {dtype}: err {err}")
+            n_cases += 1
+    torch.cuda.synchronize()
+    print(f"[3 kernels] small matrix: {n_cases} cases agree with the plain "
+          f"versions (fp32 2e-4, bf16 2e-2)", flush=True)
+
+    # ---- 4. whole-path parity, fp32, full width -------------------------
+    params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (12, 64),
+                            generator=torch.Generator().manual_seed(0))
+    sampler = SamplerConfig(max_new_tokens=16, greedy=True)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        attn.set_attention_impl(impl)
+        fa.launches = dec.launches = 0
+        ro, st = adapter.generate(params, cfg, prompts, None, sampler,
+                                  wave=8, decode_chunk=4, fast_path=False,
+                                  device=dev)
+        torch.cuda.synchronize()
+        runs[impl] = (ro, st, fa.launches, dec.launches)
+    attn.set_attention_impl("kernel")
+    (rk, sk, nf, nd), (rp, sp, pf, pd) = runs["kernel"], runs["plain"]
+    check(nf > 0 and nd > 0, f"fp32 kernel run launched flash {nf}, "
+          f"decode {nd} times")
+    check(pf == 0 and pd == 0, "the plain run launched a kernel")
+    same_tok = torch.equal(rk["gen_tokens"], rp["gen_tokens"])
+    same_mask = torch.equal(rk["mask"], rp["mask"])
+    lp_err = max_err(rk["logprobs"], rp["logprobs"])
+    print(f"[4 parity] {ARCH} fp32 full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}), 12 requests, wave 8, prompt 64, 16 new: tokens "
+          f"identical={same_tok} masks identical={same_mask} logprob max "
+          f"diff {lp_err:.3g} (tol 1e-3); kernel run launched flash {nf}, "
+          f"decode {nd}; prefills {sk['prefills']}, decode rounds "
+          f"{sk['decode_steps']}", flush=True)
+    check(same_tok and same_mask and lp_err <= 1e-3,
+          "fp32 kernel and plain serving runs disagree")
+    check(sk["occupancy_trace"] == sp["occupancy_trace"],
+          "fp32 runs disagree on the occupancy trace")
+    del params, runs, rk, rp
+    torch.cuda.empty_cache()
+
+    # ---- 5. the serving path, bf16, full width ---------------------------
+    argv = ["--arch", ARCH, "--batch", "48", "--wave", str(W),
+            "--prompt-len", str(P), "--new-tokens", str(N),
+            "--decode-chunk", "4", "--seed", "0"]
+    fa.launches = dec.launches = 0
+    rep = serve_mod.main(argv)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": dec.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"the serving run did not launch every kernel: {launches}")
+    gen = rep["gen_tokens"]
+    check(tuple(gen.shape) == (48, N) and int(gen.min()) >= 0
+          and int(gen.max()) < cfg.vocab_size,
+          f"bad generated tokens {tuple(gen.shape)}")
+    check(bool(torch.isfinite(rep["logprobs"]).all())
+          and float(rep["logprobs"].max()) <= 1e-6,
+          "non-finite or positive logprobs")
+    check(float(rep["mask"].sum()) == 48 * N, "budgets not fully served")
+    print(f"[5 serve] {ARCH} bf16 batch 48 wave {W} prompt {P} new {N}: "
+          f"{rep['tok_s']:.1f} valid tok/s ({rep['valid_tokens']:.0f} tokens "
+          f"in {rep['seconds']:.3f} s), TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f}"
+          f" ms p95 {rep['ttft_p95_s'] * 1e3:.1f} ms, {rep['decode_rounds']} "
+          f"decode rounds, {rep['prefills']} prefills, occupancy "
+          f"{rep['mean_occupancy']:.2f} (ideal {rep['ideal_occupancy']:.2f}), "
+          f"peak {rep['peak_bytes'] / 2**30:.2f} GiB | card {card}",
+          flush=True)
+    print(f"[5 serve] kernel launches in the serving run (3 passes: warm-up,"
+          f" timed, TTFT): {launches}", flush=True)
+
+    for name, n in launches.items():
+        results[name]["launches"] = n
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in results.values()]}))
+    print(f"[done] {time.monotonic() - t_all:.1f}s", flush=True)
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,140 @@
+"""Shared neural-net building blocks (plain functions on tensors).
+
+Port of ``repro.models.layers``.  Parameters are nested dicts of tensors
+with the JAX package's names and layouts; every block has an
+``init_*(gen, cfg, ...) -> params`` (same distributions as the JAX
+inits, drawn from an explicit ``torch.Generator``) and an apply function.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import FFN, ModelConfig
+
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               dtype=torch.float32):
+    """Truncated-normal (±2σ) fan-in init, drawn in fp32 then cast."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0])
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    """fp32 inside, cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dtype)
+
+
+def softcap(x, cap: Optional[float]):
+    """Gemma2-style logit soft capping."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(float(theta), exps)        # fp32, as the JAX version
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, hd]; positions: [..., S] int.  Split halves (not
+    interleaved), computed in fp32, cast back."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)             # [hd/2]
+    angles = positions[..., None].float() * freqs             # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]                     # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embeddings(gen, cfg: ModelConfig, dtype):
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: feature frontends are not yet ported")
+    p = {"tokens": dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                              scale=0.02, dtype=dtype)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                  dtype=dtype)
+    return p
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    emb = params["tokens"][tokens]
+    if cfg.frontend == "tokens":
+        # the √d_model factor is rounded to the param dtype first (on the
+        # host: a device scalar would cost a blocking copy every step)
+        emb = emb * float(torch.tensor(math.sqrt(cfg.d_model),
+                                       dtype=emb.dtype))
+    return emb
+
+
+def unembed(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        logits = x @ params["tokens"].T
+    else:
+        logits = x @ params["lm_head"]
+    return softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward variants
+# ---------------------------------------------------------------------------
+
+def init_ffn(gen, cfg: ModelConfig, kind: FFN, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    if kind in (FFN.SWIGLU, FFN.GEGLU):
+        return {"w_gate": dense_init(gen, (d, f), dtype=dtype),
+                "w_up": dense_init(gen, (d, f), dtype=dtype),
+                "w_down": dense_init(gen, (f, d), dtype=dtype)}
+    if kind in (FFN.SQUARED_RELU, FFN.GELU):
+        return {"w_up": dense_init(gen, (d, f), dtype=dtype),
+                "w_down": dense_init(gen, (f, d), dtype=dtype)}
+    raise NotImplementedError(f"FFN {kind.value} is not yet ported")
+
+
+def apply_ffn(params, cfg: ModelConfig, kind: FFN, x):
+    """The four dense FFNs (``repro.models.layers.apply_ffn:136-149``)."""
+    if kind == FFN.SWIGLU:
+        return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
+            @ params["w_down"]
+    if kind == FFN.GEGLU:
+        return (F.gelu(x @ params["w_gate"], approximate="tanh")
+                * (x @ params["w_up"])) @ params["w_down"]
+    if kind == FFN.SQUARED_RELU:
+        h = F.relu(x @ params["w_up"])
+        return (h * h) @ params["w_down"]
+    if kind == FFN.GELU:
+        return F.gelu(x @ params["w_up"], approximate="tanh") \
+            @ params["w_down"]
+    raise NotImplementedError(f"FFN {kind.value} is not yet ported")

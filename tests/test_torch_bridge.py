@@ -1,0 +1,113 @@
+"""Port hygiene and the weight bridge: JAX params -> repro_torch -> JAX is
+bit-exact; the port imports no JAX and nothing of ``repro``; importing the
+kernel build module needs no ``nvcc``."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs.archs import QWEN3_0_6B, SMOKE  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.models.config import reduced  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import archs as tarchs  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("name", ["qwen3-smoke", "gemma2-smoke",
+                                  "qwen3-reduced-bf16"])
+def test_round_trip_bit_exact(name):
+    cfg = {"qwen3-smoke": SMOKE["qwen3-0.6b"],
+           "gemma2-smoke": SMOKE["gemma2-27b"],
+           "qwen3-reduced-bf16": dataclasses.replace(
+               reduced(QWEN3_0_6B), dtype="bfloat16")}[name]
+    params = JT.init_params(jax.random.PRNGKey(3), cfg)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    tp = bridge.from_numpy_params(tree, cfg, "cpu")
+    back = bridge.to_numpy_params(tp)
+    src = dict(_leaves(tree))
+    dst = dict(_leaves(back))
+    assert src.keys() == dst.keys()
+    for path, a in src.items():
+        b = dst[path]
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), path
+    # the stacked [R, ...] block layout is kept
+    R = cfg.n_pattern_repeats
+    assert all(t.shape[0] == R for p, t in _leaves(tp) if p[0] == "blocks")
+    if cfg.dtype == "bfloat16":
+        assert tp["embed"]["tokens"].dtype == torch.bfloat16
+        assert back["embed"]["tokens"].dtype.name == "bfloat16"
+
+
+def test_bridge_rejects_unstacked_blocks():
+    cfg = SMOKE["qwen3-0.6b"]
+    tree = jax.tree_util.tree_map(
+        np.asarray, JT.init_params(jax.random.PRNGKey(0), cfg))
+    tree["blocks"]["layer0"]["norm1"]["scale"] = np.ones((7, cfg.d_model))
+    with pytest.raises(ValueError, match="repeats"):
+        bridge.from_numpy_params(tree, cfg, "cpu")
+
+
+def test_configs_copy_matches_reference():
+    from repro.configs import archs as jarchs
+    assert set(tarchs.ARCHS) == set(jarchs.ARCHS)
+    for name in jarchs.ARCHS:
+        for smoke in (False, True):
+            a = dataclasses.asdict(jarchs.get(name, smoke=smoke))
+            b = dataclasses.asdict(tarchs.get(name, smoke=smoke))
+            assert repr(a) == repr(b), name
+
+
+def _run(code, env=None):
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(SRC),
+                               **(env or {})})
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' "
+        "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "print(len(mods), bad)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    n, bad = r.stdout.split(" ", 1)
+    assert int(n) >= 20 and bad.strip() == "[]", r.stdout
+
+
+def test_kernel_build_module_needs_no_nvcc(tmp_path):
+    """Importing the build module, the kernel wrappers and the model compiles
+    nothing and looks for no compiler (PATH and CUDA_HOME hold none)."""
+    code = ("import subprocess\n"
+            "subprocess.Popen = None   # any compiler launch would fail\n"
+            "import repro_torch.kernels.build as b, "
+            "repro_torch.kernels.ops, repro_torch.models.attention\n"
+            "assert not b._LIBS\n"
+            "print('imported')\n")
+    r = _run(code, env={"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
+    assert r.returncode == 0, r.stderr
+    assert "imported" in r.stdout

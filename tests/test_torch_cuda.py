@@ -1,0 +1,132 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card (``-m cuda``; each test skips without a card).  Imports no JAX,
+so it runs on a machine that has only the port:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance 2e-4 in fp32 (TF32 off) and 2e-2 in bf16, as
+``tests/test_kernels.py:20-22``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.decode_attention import ops as t_decode  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as t_flash  # noqa: E402
+
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-4)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,cap", [
+    (2, 300, 4, 2, 64, True, None, None), (1, 100, 4, 1, 80, True, 64, 50.0),
+    (2, 256, 16, 8, 128, True, None, None), (1, 77, 4, 4, 48, False, None, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda(B, S, H, KV, hd, causal, window, cap, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = DT[dtype]
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dt) for s in
+               ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    out = t_flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  cap=cap)
+    ref = t_flash.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, cap=cap)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,hd,L,cap", [
+    (2, 4, 2, 64, 300, None), (1, 8, 8, 80, 512, 30.0),
+    (16, 16, 8, 128, 320, None), (3, 4, 1, 128, 1000, 30.0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_cuda(B, H, KV, hd, L, cap, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = DT[dtype]
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dt) for s in
+               ((B, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    keep = torch.rand((B, L), generator=g, device=dev) < 0.75
+    bias = torch.where(keep, 0.0, -1e30).float()
+    out = t_decode.decode_attention(q, k, v, bias, cap=cap)
+    ref = t_decode.decode_attention_plain(q, k, v, bias, cap=cap)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd,window", [(1, 64, None), (64, 32, None),
+                                         (65, 48, 1), (129, 96, 64)])
+def test_flash_attention_cuda_edges(S, hd, window):
+    """Sequence lengths at and around the 64-row tile, every instantiated
+    head dim, and the narrowest window (a row attends to itself only)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=dev) for s in
+               ((2, S, 4, hd), (2, S, 2, hd), (2, S, 2, hd)))
+    out = t_flash.flash_attention(q, k, v, causal=True, window=window)
+    ref = t_flash.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               **tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 64, 65, 200])
+def test_decode_attention_cuda_edges(L):
+    """L at and around the tile, and a row whose every entry is masked:
+    the finite NEG_INF makes it a uniform average over exactly L keys."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, H, KV, hd = 3, 16, 1, 64
+    q = torch.randn((B, H, hd), generator=g, device=dev)
+    k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev)
+            for _ in range(2))
+    bias = torch.zeros((B, L), device=dev)
+    bias[1] = -1e30
+    bias[2, L // 2:] = -1e30
+    out = t_decode.decode_attention(q, k, v, bias)
+    ref = t_decode.decode_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               **tol("float32"))
+    torch.testing.assert_close(out[1], v[1].mean(0).expand(H, hd),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    """Checks run before any build or launch (so they hold on the CPU
+    too, through the wrappers' validators)."""
+    q = torch.zeros((1, 4, 2, 40))
+    with pytest.raises(ValueError, match="head dim"):
+        t_flash._check(q, q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = torch.zeros((1, 2, 4, 64)).transpose(1, 2)
+        t_flash._check(qt, qt, qt)
+    with pytest.raises(TypeError):
+        t_flash._check(q.half(), q.half(), q.half())
+    k = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="bias"):
+        t_decode._check(torch.zeros((1, 4, 64)), k, k, torch.zeros((1, 7)))
+    with pytest.raises(TypeError, match="bias"):
+        t_decode._check(torch.zeros((1, 4, 64)), k, k,
+                        torch.zeros((1, 8), dtype=torch.float64))

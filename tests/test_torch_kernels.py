@@ -1,0 +1,193 @@
+"""The port's attention kernels against the JAX Pallas kernels.
+
+On the CPU the port's wrappers take their plain PyTorch versions and the
+JAX kernels run Pallas in interpret mode (``repro.kernels.backend``), as
+``tests/test_kernels.py`` runs them: the same inputs, made with numpy
+from a seed, go through both.  Tolerance 2e-4 in fp32 and 2e-2 in bf16
+(``tests/test_kernels.py:20-22``).  ``tests/test_torch_cuda.py`` holds
+the hand-written CUDA kernels against the plain versions on the card.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.decode_attention.ops import decode_attention as j_decode  # noqa: E402
+from repro.kernels.flash_attention.ops import flash_attention as j_flash  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import cache as jcache  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as t_decode  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as t_flash  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+DT = {"float32": (np.float32, jnp.float32, torch.float32),
+      "bfloat16": (ml_dtypes.bfloat16, jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-4)
+
+
+def _normal(rng, shape, dtype):
+    """Same values on both sides: numpy draws, rounded to `dtype`."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    return a.astype(DT[dtype][0])
+
+
+def _t(a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _np32(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("H,KV,causal,window,cap", [
+    (4, 2, True, None, None),      # GQA
+    (4, 1, True, 64, None),        # MQA + window
+    (4, 2, True, None, 50.0),      # softcap
+    (4, 2, False, None, None),     # non-causal
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_vs_pallas(H, KV, causal, window, cap, dtype):
+    B, S, hd = 1, 300, 80
+    rng = np.random.default_rng(11)
+    q = _normal(rng, (B, S, H, hd), dtype)
+    k = _normal(rng, (B, S, KV, hd), dtype)
+    v = _normal(rng, (B, S, KV, hd), dtype)
+    ref = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, window=window, cap=cap)
+    out = t_flash.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                                  window=window, cap=cap)
+    assert out.dtype == DT[dtype][2] and out.shape == (B, S, H, hd)
+    np.testing.assert_allclose(_np32(out), _np32(ref), **tol(dtype))
+
+
+@pytest.mark.parametrize("H,KV,hd,L,cap", [
+    (4, 2, 64, 300, None), (4, 1, 80, 300, 30.0), (8, 2, 128, 700, 30.0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_vs_pallas(H, KV, hd, L, cap, dtype):
+    B = 2
+    rng = np.random.default_rng(5)
+    q = _normal(rng, (B, H, hd), dtype)
+    k = _normal(rng, (B, L, KV, hd), dtype)
+    v = _normal(rng, (B, L, KV, hd), dtype)
+    bias = np.where(rng.random((B, L)) < 0.75, 0.0, -1e30).astype(np.float32)
+    ref = j_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   jnp.asarray(bias), cap=cap)
+    out = t_decode.decode_attention(_t(q), _t(k), _t(v), _t(bias), cap=cap)
+    assert out.dtype == DT[dtype][2] and out.shape == (B, H, hd)
+    np.testing.assert_allclose(_np32(out), _np32(ref), **tol(dtype))
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    rng = np.random.default_rng(0)
+    q = _t(_normal(rng, (1, 8, 2, 32), "float32"))
+    n_f, n_d = t_flash.launches, t_decode.launches
+    t_flash.flash_attention(q, q, q)
+    t_decode.decode_attention(q[:, 0], q, q, torch.zeros(1, 8))
+    assert (t_flash.launches, t_decode.launches) == (n_f, n_d)
+
+
+def test_kernel_path_in_model_attention():
+    """Port of test_pallas_path_in_model_attention: the "kernel" impl
+    agrees with the "plain" impl and with the JAX jnp path."""
+    rng = np.random.default_rng(7)
+    B, S, H, KV, hd = 1, 128, 4, 2, 64
+    q = _normal(rng, (B, S, H, hd), "float32")
+    k = _normal(rng, (B, S, KV, hd), "float32")
+    v = _normal(rng, (B, S, KV, hd), "float32")
+    pos = np.arange(S)
+    ref = jattn.multihead_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(pos),
+                                    jnp.asarray(pos), causal=True)
+    tp = torch.arange(S)
+    plain = tattn.multihead_attention(_t(q), _t(k), _t(v), tp, tp,
+                                      causal=True, force_impl="plain")
+    kern = tattn.multihead_attention(_t(q), _t(k), _t(v), tp, tp,
+                                     causal=True, force_impl="kernel")
+    np.testing.assert_allclose(plain.numpy(), np.asarray(ref),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(kern.numpy(), plain.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["decode-ring", "decode-full-scalar",
+                                  "prefill", "per-row-chunk",
+                                  "chunked-k-valid"])
+def test_routing_vs_jax_pallas(case):
+    """``multihead_attention(force_impl="pallas")`` (JAX) against the
+    port's ``"kernel"`` impl on CPU tensors, through each routing case."""
+    rng = np.random.default_rng(3)
+    B, H, KV, hd, window, cap = 3, 4, 2, 64, None, None
+    kw = {}
+    if case == "decode-ring":
+        L, window, cap = 16, 16, 50.0
+        pos = np.array([3, 17, 40])
+        kp, valid = jcache.ring_slot_positions(L, window, jnp.asarray(pos))
+        q_pos, k_pos, Sq, Sk = pos[:, None], np.asarray(kp), 1, L
+        kw["k_valid"] = np.asarray(valid)
+    elif case == "decode-full-scalar":
+        L, pos = 24, 9
+        kp, valid = jcache.ring_slot_positions(L, None, pos)
+        q_pos, k_pos, Sq, Sk = np.full((1,), pos), np.asarray(kp), 1, L
+        kw["k_valid"] = np.asarray(valid)
+    elif case == "prefill":
+        Sq = Sk = 40
+        window, cap = 16, 50.0
+        q_pos = k_pos = np.arange(Sq)
+    elif case == "per-row-chunk":
+        Sq, Sk = 4, 12
+        q_pos = np.array([[8, 9, 10, 11], [2, 3, 4, 5], [0, 1, 2, 3]])
+        k_pos = np.concatenate([np.tile(np.arange(8), (3, 1)), q_pos], 1)
+        kw["k_valid"] = k_pos <= q_pos[:, -1:]
+    else:   # shared positions with a 1-D k_valid -> chunked path
+        Sq = Sk = 24
+        q_pos = k_pos = np.arange(Sq)
+        kw["k_valid"] = np.arange(Sk) % 5 != 3
+    q = _normal(rng, (B, Sq, H, hd), "float32")
+    k = _normal(rng, (B, Sk, KV, hd), "float32")
+    v = _normal(rng, (B, Sk, KV, hd), "float32")
+    ref = jattn.multihead_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
+        jnp.asarray(k_pos), causal=True, window=window, cap=cap,
+        force_impl="pallas",
+        **{n: jnp.asarray(a) for n, a in kw.items()})
+    out = tattn.multihead_attention(
+        _t(q), _t(k), _t(v), _t(q_pos), _t(k_pos),
+        causal=True, window=window, cap=cap, force_impl="kernel",
+        **{n: _t(a) for n, a in kw.items()})
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_chunked_attention_vs_jax():
+    """The plain blockwise path with ragged chunks (q/k not a multiple of
+    the chunk) against the JAX chunked_attention."""
+    rng = np.random.default_rng(4)
+    B, S, H, KV, hd = 2, 45, 4, 2, 32
+    q = _normal(rng, (B, S, H, hd), "float32")
+    k = _normal(rng, (B, S, KV, hd), "float32")
+    v = _normal(rng, (B, S, KV, hd), "float32")
+    pos = np.arange(S)
+    kv_ = np.arange(S) % 7 != 2
+    ref = jattn.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        jnp.asarray(pos), causal=True, window=20, cap=30.0, q_chunk=16,
+        k_chunk=16, k_valid=jnp.asarray(kv_))
+    out = tattn.chunked_attention(
+        _t(q), _t(k), _t(v), torch.as_tensor(pos), torch.as_tensor(pos),
+        causal=True, window=20, cap=30.0, q_chunk=16, k_chunk=16,
+        k_valid=torch.as_tensor(kv_))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=2e-4, atol=2e-4)
