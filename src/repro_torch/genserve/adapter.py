@@ -47,11 +47,7 @@ def wave_stats_from_mask(mask, wave: Optional[int] = None
             "decode_steps": int(N),
             "slot_steps": int(m.sum()),
             "mean_occupancy": occ,
-            "busy_occupancy": occ,
             "occupancy_trace": [int(c) for c in trace],
-            "prefill_trace": [], "prefill_rounds": 0,
-            "prefill_slot_steps": 0, "prefill_chunk": 0,
-            "prefill_rounds_per_req": 0.0,
             "max_new_tokens": int(N), "ttft": {}, "queue_wait": {},
             "rounds": [], "prefills": 1, "admitted": B, "retired": B}
 
@@ -79,14 +75,17 @@ def generate(params, cfg: ModelConfig, prompts,
     `wave` defaults to ``core.plan.decode_wave(B)``; batches no larger
     than the wave take the single-wave reference path unless
     ``fast_path=False``, per-request budgets or any engine-only option
-    force the engine.  Options the port does not run yet (chunked
-    admission, paged cache, prefix reuse, speculative decoding, meshes,
-    slot failures, cancels) raise ``NotImplementedError``."""
+    force the engine.  Admission is FIFO.  Options the port does not run
+    yet (shortest-job-first admission, chunked admission, paged cache,
+    prefix reuse, speculative decoding, meshes, slot failures, cancels)
+    raise ``NotImplementedError``."""
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"params live on {_params_device(params)}, "
                          f"generate was asked to run on {dev}")
-    for name, val in (("mesh", mesh), ("slot_failures", slot_failures),
+    for name, val in (("admission", admission != "fifo"),
+                      ("sjf_aging", sjf_aging),
+                      ("mesh", mesh), ("slot_failures", slot_failures),
                       ("cancels", cancels), ("spec_k", spec_k),
                       ("prefill_chunk", prefill_chunk),
                       ("page_size", page_size),
@@ -104,6 +103,5 @@ def generate(params, cfg: ModelConfig, prompts,
                           decode_chunk=decode_chunk,
                           temperature=sampler.temperature,
                           eos_token=sampler.eos_token, greedy=sampler.greedy,
-                          admission=admission, measure_ttft=measure_ttft,
-                          sjf_aging=sjf_aging)
+                          measure_ttft=measure_ttft)
     return serve(params, cfg, prompts, gen, gcfg, gen_lens=gen_lens)

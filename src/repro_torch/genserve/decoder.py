@@ -32,13 +32,12 @@ still holds a valid entry 0, so no attention row is fully masked.
 The host loop owns membership: it reads back the ``occupied`` vector
 after every round (the round's one device sync), retires finished
 requests via the ``scheduler.SlotTable`` and back-fills freed slots from
-the admission queue (FIFO, or shortest-job-first with
-``admission="sjf"``).
+the admission queue in arrival order.
 
 Not yet ported: chunked admission, the paged cache and prefix reuse,
-speculative decoding, the vmapped decode path, meshes, slot failures
-and cancels (``adapter.generate`` and the launcher refuse them with
-``NotImplementedError``).
+speculative decoding, the vmapped decode path, shortest-job-first
+admission, meshes, slot failures and cancels (``adapter.generate`` and
+the launcher refuse them with ``NotImplementedError``).
 
 Sampling draws from one ``torch.Generator`` in event order; greedy
 decoding is token-exact against the JAX engine.
@@ -74,16 +73,12 @@ class GenServeConfig:
     temperature: float = 1.0
     eos_token: Optional[int] = None
     greedy: bool = False
-    admission: str = "fifo"          # "fifo" | "sjf" queue policy
     measure_ttft: bool = False       # stamp per-request time-to-first-token
     #                                  (a device sync per admit batch)
-    sjf_aging: int = 0               # sjf anti-starvation (0 = pure sjf)
 
     def validate(self) -> None:
         if self.wave < 1 or self.max_new_tokens < 1 or self.decode_chunk < 1:
             raise ValueError(f"bad engine config {self}")
-        if self.admission not in ("fifo", "sjf") or self.sjf_aging < 0:
-            raise ValueError(f"bad admission policy {self.admission!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +198,7 @@ def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
     K = min(gcfg.decode_chunk, N)
     limits = np.full((B,), N, np.int64) if gen_lens is None \
         else np.clip(np.asarray(gen_lens, np.int64), 1, N)
-    queue = RequestQueue([Request(i, int(limits[i])) for i in range(B)],
-                         policy=gcfg.admission, aging=gcfg.sjf_aging)
+    queue = RequestQueue([Request(i, int(limits[i])) for i in range(B)])
     table = SlotTable(W)
     progs = _Programs(cfg, gcfg, P, B)
     state = _init_state(cfg, gcfg, P, B, dtype, device)
@@ -292,24 +286,11 @@ def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
              "decode_steps": table.decode_steps,
              "slot_steps": table.slot_steps,
              "mean_occupancy": table.mean_occupancy(),
-             "busy_occupancy": table.busy_occupancy(),
              "occupancy_trace": list(table.occupancy_trace),
-             "prefill_trace": list(table.prefill_trace),
-             "prefill_rounds": table.prefill_rounds,
-             "prefill_slot_steps": table.prefill_slot_steps,
-             "prefill_chunk": 0, "prompt_len": P,
-             "max_new_tokens": N,
-             "prefill_rounds_per_req": 0.0,
+             "prompt_len": P, "max_new_tokens": N,
              "ttft": ttft, "queue_wait": queue_wait,
              "rounds": rounds, "prefills": n_prefills,
-             "admitted": table.admitted, "retired": table.retired,
-             "requeued": table.requeued, "cancelled": table.cancelled,
-             "page_size": 0, "prefix_cache": False,
-             "prefix_hit_rate": table.prefix_hit_rate(),
-             "prefill_tokens_skipped": table.prefix_hit_tokens,
-             "prompt_tokens": table.prompt_tokens,
-             "spec_k": 0, "spec_proposed": 0, "spec_accepted": 0,
-             "spec_tokens": 0, "accept_rate": 0.0}
+             "admitted": table.admitted, "retired": table.retired}
     obs_metrics.counter("gen.tokens").inc(table.slot_steps)
     obs_metrics.counter("gen.requests").inc(table.retired)
     obs_metrics.histogram("gen.wave_occupancy").observe(

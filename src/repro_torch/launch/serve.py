@@ -92,12 +92,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def run(args: argparse.Namespace) -> Dict[str, object]:
-    """Warm-up, timed run and TTFT run of the serving path; returns the
-    report (and prints it)."""
+def prepare(args: argparse.Namespace):
+    """The serving run of `args`: returns (device, cfg, dtype, wave,
+    gen), where ``gen(**kw)`` serves every prompt once through
+    ``genserve.generate`` on the seeded random weights."""
     device = resolve_device(args.device)
-    if args.trace:
-        obs_trace.enable()
     cfg = archs.get(args.arch, smoke=args.smoke)
     if cfg.is_encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
@@ -123,6 +122,15 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
                                  decode_chunk=args.decode_chunk,
                                  device=device, **kw)
 
+    return device, cfg, dtype, wave, gen
+
+
+def run(args: argparse.Namespace) -> Dict[str, object]:
+    """Warm-up, timed run and TTFT run of the serving path; returns the
+    report (and prints it)."""
+    if args.trace:
+        obs_trace.enable()
+    device, cfg, dtype, wave, gen = prepare(args)
     gen()                    # warm-up: kernel build and load, allocator
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -148,8 +156,7 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
           f"dtype={str(dtype).replace('torch.', '')}")
     print(f"generated {tuple(ro['gen_tokens'].shape)} in {dt:.3f}s "
           f"({valid / dt:.1f} valid tok/s; {stats['decode_steps']} decode "
-          f"rounds, {stats['prefills']} prefill injections, "
-          f"{stats.get('prefill_rounds', 0)} prefill-chunk rounds)")
+          f"rounds, {stats['prefills']} prefill injections)")
     snap = obs_metrics.snapshot()
     ttft_h = snap.get("gen.ttft_s") or {}
     qw = snap.get("gen.queue_wait_s") or {}

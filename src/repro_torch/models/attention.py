@@ -225,12 +225,17 @@ def decode_bias(q_pos, k_pos, *, causal=True, window=None, k_valid=None,
 
 
 def multihead_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
-                        cap=None, k_valid=None, force_impl=None):
+                        cap=None, k_valid=None, bias=None, force_impl=None):
+    """Dispatch per the module table.  `bias` is an optional precomputed
+    ``decode_bias`` [B, Sk] for the Sq == 1 kernel path (``decode_step``
+    builds one per step and shares it across layers); the other paths
+    build their masks from the positions."""
     impl = force_impl or _IMPL
     Sq, Sk = q.shape[1], k.shape[1]
     if impl == "kernel" and Sq == 1:
-        bias = decode_bias(q_pos, k_pos, causal=causal, window=window,
-                           k_valid=k_valid, batch=q.shape[0])
+        if bias is None:
+            bias = decode_bias(q_pos, k_pos, causal=causal, window=window,
+                               k_valid=k_valid, batch=q.shape[0])
         out = kernel_ops.flash_decode_attention(q[:, 0], k, v, bias,
                                                 cap=cap)
         return out[:, None]

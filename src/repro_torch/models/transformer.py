@@ -142,23 +142,32 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
 # Decode (single token)
 # ---------------------------------------------------------------------------
 
-def _layer_decode(p, cfg: ModelConfig, spec, x, ck, cv, pos, *, long_mode):
+def _decode_mask(pos, q_pos, cache_len: int, window: Optional[int],
+                 batch: int):
+    """Key positions, slot validity and the flash-decode bias [B, L] of
+    one decode step over a cache of ``cache_len`` slots.  Every layer
+    with the same cache length and window shares them, so
+    ``decode_step`` builds them once per step."""
+    k_pos, valid = cache_mod.ring_slot_positions(cache_len, window, pos,
+                                                 device=q_pos.device)
+    bias = attn_mod.decode_bias(q_pos, k_pos, causal=True, window=window,
+                                k_valid=valid, batch=batch).contiguous()
+    return k_pos, valid, bias
+
+
+def _layer_decode(p, cfg: ModelConfig, spec, x, ck, cv, pos, q_pos, window,
+                  mask):
     """x: [B, 1, d]; ck/cv: this layer's cache [B, L, KV, hd], written in
     place at `pos` (an int, or a [B] tensor of per-row positions: every
-    slot keeps its own RoPE phase, ring offset and validity mask)."""
-    per_slot = torch.is_tensor(pos) and pos.ndim > 0
-    q_pos = (pos[:, None] if per_slot
-             else torch.full((1,), int(pos), dtype=torch.int64,
-                             device=x.device))
+    slot keeps its own RoPE phase, ring offset and validity mask);
+    `mask`: this step's ``_decode_mask`` for the layer's cache."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    window = cache_mod.effective_window(cfg, spec, long_mode)
     q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
     cache_mod.write_kv(ck, cv, k, v, pos, window)
-    k_pos, valid = cache_mod.ring_slot_positions(ck.shape[1], window, pos,
-                                                 device=x.device)
+    k_pos, valid, bias = mask
     y = attn_mod.multihead_attention(
         q, ck, cv, q_pos, k_pos, causal=True, window=window,
-        cap=cfg.attn_softcap, k_valid=valid)
+        cap=cfg.attn_softcap, k_valid=valid, bias=bias)
     x = x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
@@ -175,12 +184,22 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     check_supported(cfg)
     pos = cache["pos"]
     x = embed_tokens(params["embed"], cfg, tokens)
+    per_slot = torch.is_tensor(pos) and pos.ndim > 0
+    q_pos = (pos[:, None] if per_slot
+             else torch.full((1,), int(pos), dtype=torch.int64,
+                             device=x.device))
+    masks = {}                  # (cache_len, window) -> _decode_mask
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
             leaf = cache["blocks"][f"layer{j}"]
-            x = _layer_decode(bp[f"layer{j}"], cfg, spec, x, leaf["k"][r],
-                              leaf["v"][r], pos, long_mode=long_mode)
+            ck, cv = leaf["k"][r], leaf["v"][r]
+            window = cache_mod.effective_window(cfg, spec, long_mode)
+            key = (ck.shape[1], window)
+            if key not in masks:
+                masks[key] = _decode_mask(pos, q_pos, *key, x.shape[0])
+            x = _layer_decode(bp[f"layer{j}"], cfg, spec, x, ck, cv, pos,
+                              q_pos, window, masks[key])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], cfg, x)[:, 0]
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}

@@ -154,7 +154,8 @@ def test_unported_engine_arguments_raise():
     tp = TT.init_params(cfg)
     prompts = torch.zeros((2, 4), dtype=torch.int64)
     for kw in ({"slot_failures": {1: [0]}}, {"cancels": {1: [0]}},
-               {"mesh": object()}, {"prefill_chunk": 4}, {"spec_k": 2}):
+               {"mesh": object()}, {"prefill_chunk": 4}, {"spec_k": 2},
+               {"admission": "sjf"}, {"sjf_aging": 2}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tadapter.generate(tp, cfg, prompts, None, TSampler(greedy=True),
                               fast_path=False, device="cpu", **kw)
@@ -183,3 +184,14 @@ def test_serve_launcher_on_cpu(capsys, tmp_path):
     assert {"gen.round", "gen.admit", "gen.decode"} <= names
     snap = json.loads(metrics.read_text())
     assert snap["gen.requests"] == 6 and snap["gen.ttft_s"]["count"] == 6
+
+
+def test_profile_serve_busy_time_and_device_rule():
+    """The profiler report's busy time is the union of the card's
+    activity intervals; the script measures the card only."""
+    from repro_torch.launch import profile_serve
+    assert profile_serve._busy_us([(0, 10), (5, 12), (20, 25),
+                                   (21, 22)]) == 17
+    with pytest.raises(SystemExit, match="measures the card"):
+        profile_serve.main(["--arch", "qwen3-0.6b", "--smoke",
+                            "--device", "cpu"])
