@@ -4,19 +4,22 @@
     python3 chip_smoke.py
 
 Drives the port's serving path (``repro_torch``; no JAX, nothing of the
-JAX package) at the full width of qwen3-0.6b and exits non-zero on any
-failure.  Phases, each printing its result:
+JAX package) at the full width of qwen3-0.6b (attention) and of rwkv6-3b
+(RWKV6 time mix) and exits non-zero on any failure.  Phases, each
+printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
              fails without CUDA.
-  2. build   nvcc builds every kernel of the path from
+  2. build   nvcc builds every kernel of the paths from
              src/repro_torch/csrc (one nvcc per source, in parallel) into
              build/kernels/.
   3. kernels each CUDA kernel against its plain PyTorch version at the
-             serving path's shapes and on a small matrix (GQA/MQA, hd
-             64/80/128, window, softcap, ragged S and L, fp32 and bf16;
-             tolerance 2e-4 fp32 with TF32 off, 2e-2 bf16), and timed
-             beside the plain version and one library call.
+             serving paths' shapes and on a small matrix, timed beside
+             the plain version and one library call where one exists.
+             Attention: GQA/MQA, hd 64/80/128, window, softcap, ragged S
+             and L, fp32 and bf16; tolerance 2e-4 fp32 with TF32 off,
+             2e-2 bf16.  RWKV6 scan: N 32/64/128, S 1/63/65/100/256, B 1
+             and 3; tolerance 2e-3 (rtol and atol).
   4. parity  full-width fp32 qwen3-0.6b served twice on the same seeded
              weights and prompts, with the kernels and with the plain
              attention: greedy tokens and masks identical, logprobs
@@ -24,6 +27,11 @@ failure.  Phases, each printing its result:
   5. serve   ``repro_torch.launch.serve`` on qwen3-0.6b in bf16 (batch 48,
              wave 16, prompt 256, 64 new tokens); launch counts are zeroed
              just before and read just after.
+  6. parity  the same for rwkv6-3b: fp32, full width, "kernel" against
+             "plain"; the kernel run launches rwkv6_scan, the plain run
+             nothing.
+  7. serve   the same serving run on rwkv6-3b in bf16; rwkv6_scan must
+             launch.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -42,6 +50,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 ARCH = "qwen3-0.6b"
+RWKV_ARCH = "rwkv6-3b"
 
 
 def fail(msg: str) -> None:
@@ -88,6 +97,33 @@ def tol(dtype, torch) -> float:
     return 2e-2 if dtype == torch.bfloat16 else 2e-4
 
 
+def rel_err(a, b, rtol: float) -> float:
+    """Largest |a - b| / (1 + |b|): at most ``rtol`` means
+    allclose(a, b, rtol=rtol, atol=rtol)."""
+    d = (a.float() - b.float()).abs()
+    return float((d / (1.0 + b.float().abs())).max())
+
+
+def rwkv_work(B: int, S: int, H: int, N: int, C: int):
+    """(bytes, fp32 FLOPs, exponentials) of the chunked RWKV6 scan on these
+    shapes: each input read once, y and the state written once; the
+    arithmetic of chunks of C positions (the last one ragged), counting
+    only the s < t pairs of each chunk's score matrix."""
+    nbytes = 4 * (5 * B * S * H * N + H * N + B * H * N * N)
+    flops = exps = 0
+    for c0 in range(0, S, C):
+        c = min(C, S - c0)
+        pairs = c * (c - 1) // 2
+        flops += pairs * N * 4          # scores: difference, two products, sum
+        flops += c * N * 3              # diagonal r . u . k
+        flops += c * N * (2 * N + 1)    # r * e^{cum_ex}, then @ S
+        flops += (pairs + c) * N * 2    # scores @ v over s <= t
+        flops += c * N * (2 * N + 2)    # k * e^{total - cum}, then ^T @ v
+        flops += N * N                  # e^{total} * S
+        exps += pairs * N + 2 * c * N + N
+    return nbytes, flops * B * H, exps * B * H
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -102,6 +138,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6_scan import ops as rw
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import attention as attn
     from repro_torch.models import cache as cache_mod
@@ -256,6 +293,64 @@ def main() -> None:
     print(f"[3 kernels] small matrix: {n_cases} cases agree with the plain "
           f"versions (fp32 2e-4, bf16 2e-2)", flush=True)
 
+    # RWKV6 scan at the serving path's prefill shape (one admission wave of
+    # rwkv6-3b), with tests/test_kernels.py's input distribution
+    rcfg = archs.get(RWKV_ARCH)
+    RH, RN = rcfg.rwkv_n_heads, rcfg.rwkv_head_dim
+
+    def rwkv_inputs(B, S, H, N):
+        r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev)
+                   for _ in range(3))
+        logw = -torch.exp(torch.randn((B, S, H, N), generator=g, device=dev)
+                          * 0.5 - 1.0)
+        return r, k, v, logw, torch.randn((H, N), generator=g,
+                                          device=dev) * 0.5
+
+    ins = rwkv_inputs(W, P, RH, RN)
+    y, st = rw.rwkv6_scan(*ins)
+    yr, sr = rw.rwkv6_scan_plain(*ins)
+    torch.cuda.synchronize()
+    err = max(max_err(y, yr), max_err(st, sr))
+    rerr = max(rel_err(y, yr, 2e-3), rel_err(st, sr, 2e-3))
+    check(bool(torch.isfinite(y).all()) and rerr <= 2e-3,
+          f"rwkv6_scan main-path shape: max abs err {err}, allclose "
+          f"ratio {rerr}")
+    ms = time_ms(lambda: rw.rwkv6_scan(*ins), torch, flush)
+    plain_ms = time_ms(lambda: rw.rwkv6_scan_plain(*ins), torch, flush,
+                       iters=5, warmup=1)
+    nbytes, flops, exps = rwkv_work(W, P, RH, RN, 64)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = (flops + exps) / PEAK_FLOPS["torch.float32"] * 1e3
+    results["rwkv6_scan"] = dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan/kernel.py:21",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=None)
+    print(f"[3 kernels] rwkv6_scan r{tuple(ins[0].shape)} fp32 chunk 64: err "
+          f"{err:.3g} (allclose 2e-3 ratio {rerr:.3g}) | kernel {ms:.4f} ms, "
+          f"plain (per-token recurrence) {plain_ms:.4f} ms, no library "
+          f"call, bound {max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB "
+          f"= {b_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP + {exps / 1e9:.3f} G "
+          f"exp = {b_ops:.4f} ms at 67 TFLOP/s fp32)", flush=True)
+
+    n_cases = 0
+    for N_ in (32, 64, 128):
+        for S_ in (1, 63, 65, 100, 256):
+            for B_ in (1, 3):
+                ins = rwkv_inputs(B_, S_, 2, N_)
+                y, st = rw.rwkv6_scan(*ins)
+                yr, sr = rw.rwkv6_scan_plain(*ins)
+                rerr = max(rel_err(y, yr, 2e-3), rel_err(st, sr, 2e-3))
+                check(rerr <= 2e-3, f"rwkv6_scan B{B_} S{S_} N{N_}: "
+                      f"allclose ratio {rerr}")
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"[3 kernels] rwkv6_scan small matrix: {n_cases} cases agree with "
+          f"the per-token recurrence (2e-3)", flush=True)
+
     # ---- 4. whole-path parity, fp32, full width -------------------------
     params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     prompts = torch.randint(0, cfg.vocab_size, (12, 64),
@@ -320,9 +415,72 @@ def main() -> None:
           flush=True)
     print(f"[5 serve] kernel launches in the serving run (3 passes: warm-up,"
           f" timed, TTFT): {launches}", flush=True)
-
     for name, n in launches.items():
         results[name]["launches"] = n
+    del rep
+    torch.cuda.empty_cache()
+
+    # ---- 6. RWKV6 whole-path parity, fp32, full width --------------------
+    params = T.init_params(rcfg, seed=0, device=dev, dtype=torch.float32)
+    prompts = torch.randint(0, rcfg.vocab_size, (12, 64),
+                            generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for impl in ("kernel", "plain"):
+        attn.set_attention_impl(impl)
+        rw.launches = 0
+        ro, st = adapter.generate(params, rcfg, prompts, None, sampler,
+                                  wave=8, decode_chunk=4, fast_path=False,
+                                  device=dev)
+        torch.cuda.synchronize()
+        runs[impl] = (ro, st, rw.launches)
+    attn.set_attention_impl("kernel")
+    (rk, sk, nr), (rp, sp, pr) = runs["kernel"], runs["plain"]
+    check(nr > 0, f"fp32 kernel run launched rwkv6_scan {nr} times")
+    check(pr == 0, "the plain run launched rwkv6_scan")
+    same_tok = torch.equal(rk["gen_tokens"], rp["gen_tokens"])
+    same_mask = torch.equal(rk["mask"], rp["mask"])
+    lp_err = max_err(rk["logprobs"], rp["logprobs"])
+    print(f"[6 parity] {RWKV_ARCH} fp32 full width ({rcfg.n_layers} layers, "
+          f"d {rcfg.d_model}, {RH} heads of {RN}), 12 requests, wave 8, "
+          f"prompt 64, 16 new: tokens identical={same_tok} masks "
+          f"identical={same_mask} logprob max diff {lp_err:.3g} (tol 1e-3); "
+          f"kernel run launched rwkv6_scan {nr}; prefills {sk['prefills']}, "
+          f"decode rounds {sk['decode_steps']}", flush=True)
+    check(same_tok and same_mask and lp_err <= 1e-3,
+          "fp32 kernel and plain rwkv6 serving runs disagree")
+    check(sk["occupancy_trace"] == sp["occupancy_trace"],
+          "fp32 rwkv6 runs disagree on the occupancy trace")
+    del params, runs, rk, rp
+    torch.cuda.empty_cache()
+
+    # ---- 7. the RWKV6 serving path, bf16, full width ---------------------
+    argv[1] = RWKV_ARCH
+    fa.launches = dec.launches = rw.launches = 0
+    rep = serve_mod.main(argv)
+    torch.cuda.synchronize()
+    n_rwkv = rw.launches
+    check(n_rwkv > 0, "the rwkv6-3b serving run did not launch rwkv6_scan")
+    gen = rep["gen_tokens"]
+    check(tuple(gen.shape) == (48, N) and int(gen.min()) >= 0
+          and int(gen.max()) < rcfg.vocab_size,
+          f"bad generated tokens {tuple(gen.shape)}")
+    check(bool(torch.isfinite(rep["logprobs"]).all())
+          and float(rep["logprobs"].max()) <= 1e-6,
+          "non-finite or positive logprobs")
+    check(float(rep["mask"].sum()) == 48 * N, "budgets not fully served")
+    print(f"[7 serve] {RWKV_ARCH} bf16 batch 48 wave {W} prompt {P} new {N}: "
+          f"{rep['tok_s']:.1f} valid tok/s ({rep['valid_tokens']:.0f} tokens "
+          f"in {rep['seconds']:.3f} s), TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f}"
+          f" ms p95 {rep['ttft_p95_s'] * 1e3:.1f} ms, {rep['decode_rounds']} "
+          f"decode rounds, {rep['prefills']} prefills, occupancy "
+          f"{rep['mean_occupancy']:.2f} (ideal {rep['ideal_occupancy']:.2f}), "
+          f"peak {rep['peak_bytes'] / 2**30:.2f} GiB | card {card}",
+          flush=True)
+    print(f"[7 serve] kernel launches in the serving run (3 passes: warm-up,"
+          f" timed, TTFT): rwkv6_scan {n_rwkv}, flash_attention "
+          f"{fa.launches}, decode_attention {dec.launches}", flush=True)
+    results["rwkv6_scan"]["launches"] = n_rwkv
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -22,12 +22,16 @@ programs, plain functions on the state dict of device tensors:
                                               sample, record, retire on
                                               EOS / budget.
 
-The cache leaves ``[R, W, L, KV, hd]`` are exactly ``decode_step``'s
-batch layout, and per-slot positions ([W] ``pos``) carry each recycled
-slot's own RoPE phase and validity, so the whole wave shares one
-flash-decode launch per layer.  Free slots decode too (their writes land
-in rows the next admission replaces wholesale): a free slot's cache
-still holds a valid entry 0, so no attention row is fully masked.
+The cache leaves (``[R, W, L, KV, hd]`` k/v for attention, ``[R, W, ...]``
+recurrent state for RWKV6) are exactly ``decode_step``'s batch layout,
+and per-slot positions ([W] ``pos``) carry each recycled slot's own RoPE
+phase and validity, so the whole wave shares one flash-decode launch per
+attention layer.  Free slots decode too, unmasked: their k/v writes and
+their recurrent state (``tm_shift``, ``wkv``, ``cm_shift``, which drift
+as a free slot keeps feeding its last token) land only in that slot's
+own rows, and admission replaces whole slot rows (``scatter_slots``), so
+no stale state reaches the next occupant.  A free slot's KV cache still
+holds a valid entry 0, so no attention row is fully masked.
 
 The host loop owns membership: it reads back the ``occupied`` vector
 after every round (the round's one device sync), retires finished

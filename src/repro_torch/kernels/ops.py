@@ -1,10 +1,12 @@
 """Top-level kernel dispatch the model layer uses when the attention
 implementation is ``"kernel"`` (``models.attention.set_attention_impl``).
 
-Port of ``repro.kernels.ops:19-48``, with the same routing rule: the
-flash kernel only for contiguous self-attention (``Sq == Sk``, shared
-1-D positions, no ``k_valid``); per-row positions go to
-``plain_attention``; anything else to ``chunked_attention``.  The
+Port of ``repro.kernels.ops:15-48``, with the same routing rule for
+attention: the flash kernel only for contiguous self-attention
+(``Sq == Sk``, shared 1-D positions, no ``k_valid``); per-row positions
+go to ``plain_attention``; anything else to ``chunked_attention``.
+``rwkv6_scan`` is the RWKV6 time-mix scan from a zero state
+(``models.rwkv.apply_rwkv`` calls it for every one-shot prefill).  The
 kernels run on CUDA tensors; on CPU tensors each wrapper takes its plain
 version.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention as _flash
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: F401
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,

@@ -11,6 +11,10 @@ random, drawn from --seed.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 48 --wave 16 --prompt-len 256 --new-tokens 64
 
+Any architecture of attention and RWKV6 layers with dense FFNs runs at
+its full width in its config's dtype: ``--arch rwkv6-3b`` serves the
+3.07 B-parameter RWKV6 model in bf16 with the same arguments.
+
 Runs on ``--device cuda`` (the default; raises when no card is present)
 or ``--device cpu``.  --prefill-chunk, --page-size, --prefix-cache and
 --spec-k (with the flags that only make sense beside them) are not yet

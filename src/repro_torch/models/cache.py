@@ -1,10 +1,20 @@
-"""Decode-time KV caches (full and ring-buffer windowed), contiguous layout.
+"""Decode-time state: KV caches (full and ring-buffer windowed) and RWKV6
+recurrent state, contiguous layout.
 
 Port of the contiguous part of ``repro.models.cache`` (lines 46-239).
-Every block-cache leaf is laid out ``[R, B, L, KV, hd]`` with the batch
-(decode *slot*) dim at axis 1; ``gather_slots`` / ``scatter_slots`` move
-whole per-slot rows in and out, which is how the continuous-batching
-engine recycles decode slots.
+Every block-cache leaf carries the repeats dim ``[R]`` first and the
+batch (decode *slot*) dim at axis 1:
+
+  mixer / FFN     leaf        shape               dtype
+  -------------   ---------   -----------------   ------------
+  attention       k, v        [R, B, L, KV, hd]   cache dtype
+  rwkv6           tm_shift    [R, B, d]           fp32
+  rwkv6           wkv         [R, B, H, N, N]     fp32
+  rwkv_channel    cm_shift    [R, B, d]           cache dtype
+
+``gather_slots`` / ``scatter_slots`` / ``zero_slots`` work on any such
+tree: they move whole per-slot rows in and out, which is how the
+continuous-batching engine recycles decode slots.
 
 Unlike the JAX functions, which return new arrays, the writers here
 update the cache **in place** (and return it): ``write_kv``,
@@ -21,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.config import Mixer, ModelConfig
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.config import FFN, Mixer, ModelConfig
 
 
 def effective_window(cfg: ModelConfig, spec, long_mode: bool) -> Optional[int]:
@@ -41,20 +52,27 @@ def kv_cache_len(cfg: ModelConfig, spec, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                long_mode: bool = False, dtype=torch.bfloat16, device="cpu"):
-    """Cache: {"blocks": {"layer{j}": {"k", "v"} leaves [R, B, L, KV, hd]},
-    "pos": 0}."""
+    """Cache: {"blocks": {"layer{j}": leaves [R, B, ...]}, "pos": 0}
+    (the leaves of the module docstring's table)."""
     R = cfg.n_pattern_repeats
     hd = cfg.resolved_head_dim
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     blocks = {}
     for j, spec in enumerate(cfg.pattern):
-        if spec.mixer != Mixer.ATTENTION:
+        if spec.mixer == Mixer.ATTENTION:
+            L = kv_cache_len(cfg, spec, max_seq, long_mode)
+            shape = (R, batch, L, cfg.n_kv_heads, hd)
+            layer = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+        elif spec.mixer == Mixer.RWKV6:
+            st = rwkv_mod.init_rwkv_state(cfg, R * batch, device=device)
+            layer = {n: t.reshape((R, batch) + t.shape[1:])
+                     for n, t in st.items()}
+        else:
             raise NotImplementedError(
                 f"{spec.mixer.value} cache state is not yet ported")
-        L = kv_cache_len(cfg, spec, max_seq, long_mode)
-        shape = (R, batch, L, cfg.n_kv_heads, hd)
-        blocks[f"layer{j}"] = {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if spec.ffn == FFN.RWKV_CHANNEL:
+            layer["cm_shift"] = zeros((R, batch, cfg.d_model), dtype)
+        blocks[f"layer{j}"] = layer
     return {"blocks": blocks, "pos": 0}
 
 

@@ -117,14 +117,22 @@ def init_ffn(gen, cfg: ModelConfig, kind: FFN, dtype):
         return {"w_gate": dense_init(gen, (d, f), dtype=dtype),
                 "w_up": dense_init(gen, (d, f), dtype=dtype),
                 "w_down": dense_init(gen, (f, d), dtype=dtype)}
+    if kind == FFN.RWKV_CHANNEL:
+        return {"w_key": dense_init(gen, (d, f), dtype=dtype),
+                "w_value": dense_init(gen, (f, d), dtype=dtype),
+                "w_recept": dense_init(gen, (d, d), dtype=dtype),
+                "mu_k": torch.full((d,), 0.5, dtype=dtype, device=gen.device),
+                "mu_r": torch.full((d,), 0.5, dtype=dtype, device=gen.device)}
     if kind in (FFN.SQUARED_RELU, FFN.GELU):
         return {"w_up": dense_init(gen, (d, f), dtype=dtype),
                 "w_down": dense_init(gen, (f, d), dtype=dtype)}
     raise NotImplementedError(f"FFN {kind.value} is not yet ported")
 
 
-def apply_ffn(params, cfg: ModelConfig, kind: FFN, x):
-    """The four dense FFNs (``repro.models.layers.apply_ffn:136-149``)."""
+def apply_ffn(params, cfg: ModelConfig, kind: FFN, x, *, shifted=None):
+    """The dense FFNs and the RWKV channel mix
+    (``repro.models.layers.apply_ffn:136-156``).  ``shifted``: the
+    previous-token tensor the RWKV channel mix needs."""
     if kind == FFN.SWIGLU:
         return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
             @ params["w_down"]
@@ -137,4 +145,17 @@ def apply_ffn(params, cfg: ModelConfig, kind: FFN, x):
     if kind == FFN.GELU:
         return F.gelu(x @ params["w_up"], approximate="tanh") \
             @ params["w_down"]
+    if kind == FFN.RWKV_CHANNEL:
+        if shifted is None:
+            raise ValueError("the rwkv_channel FFN needs shifted=")
+        xk = x + (shifted - x) * params["mu_k"]
+        xr = x + (shifted - x) * params["mu_r"]
+        k = F.relu(xk @ params["w_key"])
+        return torch.sigmoid(xr @ params["w_recept"]) * \
+            ((k * k) @ params["w_value"])
     raise NotImplementedError(f"FFN {kind.value} is not yet ported")
+
+
+def token_shift(x):
+    """RWKV-style shift: x[t] -> x[t-1] (zeros at t=0). x: [B, S, d]."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1, :]

@@ -1,10 +1,12 @@
 """Model assembly: init, forward (prefill) and single-token decode.
 
-Port of ``repro.models.transformer`` for attention mixers with dense
-FFNs.  Block params are stacked over a leading ``[R]`` repeats dim as in
-the JAX package; its ``lax.scan`` over the stack becomes a Python loop
-over ``R``.  Mamba, RWKV6, MoE and feature frontends are not yet ported
-and raise ``NotImplementedError``.
+Port of ``repro.models.transformer`` for attention and RWKV6 mixers with
+dense FFNs and the RWKV channel mix.  Block params are stacked over a
+leading ``[R]`` repeats dim as in the JAX package; its ``lax.scan`` over
+the stack becomes a Python loop over ``R``, and each layer writes its
+cache entry in place into the ``[R, ...]`` leaves' slice ``r``.  Mamba,
+MoE and feature frontends are not yet ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,16 +17,18 @@ import torch
 from repro_torch.device import resolve_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import cache as cache_mod
-from repro_torch.models.config import Mixer, ModelConfig
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.config import FFN, Mixer, ModelConfig
 from repro_torch.models.layers import (apply_ffn, embed_tokens,
                                        init_embeddings, init_ffn,
-                                       init_rmsnorm, rmsnorm, unembed)
+                                       init_rmsnorm, rmsnorm, token_shift,
+                                       unembed)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the model zoo the port does not run yet."""
     for spec in cfg.pattern:
-        if spec.mixer != Mixer.ATTENTION:
+        if spec.mixer not in (Mixer.ATTENTION, Mixer.RWKV6):
             raise NotImplementedError(
                 f"{cfg.name}: {spec.mixer.value} mixers are not yet ported")
         if spec.moe:
@@ -40,10 +44,14 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_layer(gen, cfg: ModelConfig, spec, dtype) -> Dict[str, Any]:
-    return {"norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
-            "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-            "attn": attn_mod.init_attention(gen, cfg, dtype),
-            "ffn": init_ffn(gen, cfg, spec.ffn, dtype)}
+    p = {"norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+         "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device)}
+    if spec.mixer == Mixer.ATTENTION:
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    else:
+        p["rwkv"] = rwkv_mod.init_rwkv(gen, cfg, dtype)
+    p["ffn"] = init_ffn(gen, cfg, spec.ffn, dtype)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -85,22 +93,40 @@ def _tree_index(tree, r: int):
 
 def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
                    cache_entry):
-    """One attention + FFN layer over a whole sequence.  With
-    ``cache_entry`` ({"k", "v"} [B, L, KV, hd] views) the layer's k/v
-    are written into it (``prefill_kv``)."""
+    """One mixer + FFN layer over a whole sequence.  With ``cache_entry``
+    (this layer's cache views at one repeat: {"k", "v"} [B, L, KV, hd],
+    or {"tm_shift", "wkv", "cm_shift"}) the layer's decode state is
+    written into it."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    window = cache_mod.effective_window(cfg, spec, long_mode)
-    q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
-    y = attn_mod.multihead_attention(
-        q, k, v, positions, positions, causal=cfg.causal, window=window,
-        cap=cfg.attn_softcap)
-    B, S = h.shape[:2]
-    x = x + y.reshape(B, S, -1) @ p["attn"]["wo"]
-    if cache_entry is not None:
-        cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k, v,
-                             window)
+    if spec.mixer == Mixer.ATTENTION:
+        window = cache_mod.effective_window(cfg, spec, long_mode)
+        q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
+        y = attn_mod.multihead_attention(
+            q, k, v, positions, positions, causal=cfg.causal, window=window,
+            cap=cfg.attn_softcap)
+        B, S = h.shape[:2]
+        x = x + y.reshape(B, S, -1) @ p["attn"]["wo"]
+        if cache_entry is not None:
+            cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k, v,
+                                 window)
+    else:
+        y, st = rwkv_mod.apply_rwkv(p["rwkv"], cfg, h, return_state=True)
+        x = x + y
+        if cache_entry is not None:
+            cache_entry["tm_shift"].copy_(st["tm_shift"])
+            cache_entry["wkv"].copy_(st["wkv"])
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == FFN.RWKV_CHANNEL:
+        y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
+        if cache_entry is not None:
+            cache_entry["cm_shift"].copy_(h[:, -1, :])
+        return x + y
     return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+
+
+def _entry(leaf: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
+    """A layer's cache views at repeat ``r`` (writes land in the leaves)."""
+    return {n: t[r] for n, t in leaf.items()}
 
 
 def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
@@ -124,10 +150,8 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
-            entry = None
-            if cache is not None:
-                leaf = cache["blocks"][f"layer{j}"]
-                entry = {"k": leaf["k"][r], "v": leaf["v"][r]}
+            entry = (None if cache is None
+                     else _entry(cache["blocks"][f"layer{j}"], r))
             x = _layer_forward(bp[f"layer{j}"], cfg, spec, x, positions,
                                long_mode=long_mode, cache_entry=entry)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -155,21 +179,36 @@ def _decode_mask(pos, q_pos, cache_len: int, window: Optional[int],
     return k_pos, valid, bias
 
 
-def _layer_decode(p, cfg: ModelConfig, spec, x, ck, cv, pos, q_pos, window,
+def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
                   mask):
-    """x: [B, 1, d]; ck/cv: this layer's cache [B, L, KV, hd], written in
-    place at `pos` (an int, or a [B] tensor of per-row positions: every
-    slot keeps its own RoPE phase, ring offset and validity mask);
-    `mask`: this step's ``_decode_mask`` for the layer's cache."""
+    """x: [B, 1, d]; ``entry``: this layer's cache views at one repeat,
+    updated in place.  Attention writes k/v at `pos` (an int, or a [B]
+    tensor of per-row positions: every slot keeps its own RoPE phase,
+    ring offset and validity mask) and reads `mask`, this step's
+    ``_decode_mask`` for the layer's cache; RWKV6 advances its
+    ``tm_shift`` / ``wkv`` state by one token."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
-    cache_mod.write_kv(ck, cv, k, v, pos, window)
-    k_pos, valid, bias = mask
-    y = attn_mod.multihead_attention(
-        q, ck, cv, q_pos, k_pos, causal=True, window=window,
-        cap=cfg.attn_softcap, k_valid=valid, bias=bias)
-    x = x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
+    if spec.mixer == Mixer.ATTENTION:
+        q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
+        ck, cv = entry["k"], entry["v"]
+        cache_mod.write_kv(ck, cv, k, v, pos, window)
+        k_pos, valid, bias = mask
+        y = attn_mod.multihead_attention(
+            q, ck, cv, q_pos, k_pos, causal=True, window=window,
+            cap=cfg.attn_softcap, k_valid=valid, bias=bias)
+        x = x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
+    else:
+        y, st_new = rwkv_mod.apply_rwkv(p["rwkv"], cfg, h, state=entry,
+                                        return_state=True)
+        entry["tm_shift"].copy_(st_new["tm_shift"])
+        entry["wkv"].copy_(st_new["wkv"])
+        x = x + y
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == FFN.RWKV_CHANNEL:
+        shifted = entry["cm_shift"][:, None, :].to(h.dtype)
+        y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
+        entry["cm_shift"].copy_(h[:, -1, :])
+        return x + y
     return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
 
 
@@ -192,14 +231,16 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
-            leaf = cache["blocks"][f"layer{j}"]
-            ck, cv = leaf["k"][r], leaf["v"][r]
-            window = cache_mod.effective_window(cfg, spec, long_mode)
-            key = (ck.shape[1], window)
-            if key not in masks:
-                masks[key] = _decode_mask(pos, q_pos, *key, x.shape[0])
-            x = _layer_decode(bp[f"layer{j}"], cfg, spec, x, ck, cv, pos,
-                              q_pos, window, masks[key])
+            entry = _entry(cache["blocks"][f"layer{j}"], r)
+            window = mask = None
+            if spec.mixer == Mixer.ATTENTION:
+                window = cache_mod.effective_window(cfg, spec, long_mode)
+                key = (entry["k"].shape[1], window)
+                if key not in masks:
+                    masks[key] = _decode_mask(pos, q_pos, *key, x.shape[0])
+                mask = masks[key]
+            x = _layer_decode(bp[f"layer{j}"], cfg, spec, x, entry, pos,
+                              q_pos, window, mask)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], cfg, x)[:, 0]
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs.archs import QWEN3_0_6B, SMOKE  # noqa: E402
+from repro.configs.archs import QWEN3_0_6B, RWKV6_3B, SMOKE  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.config import reduced  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -32,12 +32,16 @@ def _leaves(tree, path=()):
 
 
 @pytest.mark.parametrize("name", ["qwen3-smoke", "gemma2-smoke",
-                                  "qwen3-reduced-bf16"])
+                                  "qwen3-reduced-bf16", "rwkv6-smoke",
+                                  "rwkv6-reduced-bf16"])
 def test_round_trip_bit_exact(name):
     cfg = {"qwen3-smoke": SMOKE["qwen3-0.6b"],
            "gemma2-smoke": SMOKE["gemma2-27b"],
            "qwen3-reduced-bf16": dataclasses.replace(
-               reduced(QWEN3_0_6B), dtype="bfloat16")}[name]
+               reduced(QWEN3_0_6B), dtype="bfloat16"),
+           "rwkv6-smoke": SMOKE["rwkv6-3b"],
+           "rwkv6-reduced-bf16": dataclasses.replace(
+               reduced(RWKV6_3B), dtype="bfloat16")}[name]
     params = JT.init_params(jax.random.PRNGKey(3), cfg)
     tree = jax.tree_util.tree_map(np.asarray, params)
     tp = bridge.from_numpy_params(tree, cfg, "cpu")
@@ -55,6 +59,11 @@ def test_round_trip_bit_exact(name):
     if cfg.dtype == "bfloat16":
         assert tp["embed"]["tokens"].dtype == torch.bfloat16
         assert back["embed"]["tokens"].dtype.name == "bfloat16"
+    if cfg.has_rwkv:   # the token-shift mixes and the bonus keep [R, ...]
+        rw = tp["blocks"]["layer0"]["rwkv"]
+        assert tuple(rw["mu"].shape) == (R, 5, cfg.d_model)
+        assert tuple(rw["bonus_u"].shape) == (R, cfg.rwkv_n_heads,
+                                              cfg.rwkv_head_dim)
 
 
 def test_bridge_rejects_unstacked_blocks():

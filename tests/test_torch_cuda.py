@@ -4,8 +4,9 @@ so it runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 2e-4 in fp32 (TF32 off) and 2e-2 in bf16, as
-``tests/test_kernels.py:20-22``.
+Tolerance 2e-4 in fp32 (TF32 off) and 2e-2 in bf16 for attention, as
+``tests/test_kernels.py:20-22``; 2e-3 for the RWKV6 scan, as
+``tests/test_kernels.py:78-81``.
 """
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops as t_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_flash  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as t_rwkv  # noqa: E402
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -130,3 +132,89 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="bias"):
         t_decode._check(torch.zeros((1, 4, 64)), k, k,
                         torch.zeros((1, 8), dtype=torch.float64))
+
+
+def _rwkv_inputs(g, dev, B, S, H, N, decay_shift=-1.0):
+    """``tests/test_kernels.py``'s distribution: r, k, v ~ N(0, 1),
+    logw = -exp(0.5 N(0, 1) + decay_shift), u = 0.5 N(0, 1)."""
+    r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev)
+               for _ in range(3))
+    logw = -torch.exp(torch.randn((B, S, H, N), generator=g, device=dev)
+                      * 0.5 + decay_shift)
+    u = torch.randn((H, N), generator=g, device=dev) * 0.5
+    return r, k, v, logw, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 65, 100, 256])
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_rwkv6_scan_cuda(N, S):
+    """Sequence lengths at and around the 64-position chunk, every
+    instantiated head dim, B 1 and 3."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for B in (1, 3):
+        ins = _rwkv_inputs(g, dev, B, S, 2, N)
+        y, st = t_rwkv.rwkv6_scan(*ins)
+        yr, sr = t_rwkv.rwkv6_scan_plain(*ins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yr, rtol=2e-3, atol=2e-3)
+        torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("decay_shift", [-1.0, 3.0])
+def test_rwkv6_scan_cuda_chunks_and_strong_decay(chunk, decay_shift):
+    """Smaller chunks give the same function, and a decay strong enough
+    that a factored exp(cum_ex) * exp(-cum) would overflow stays finite."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    ins = _rwkv_inputs(g, dev, 2, 150, 3, 64, decay_shift)
+    y, st = t_rwkv.rwkv6_scan(*ins, chunk=chunk)
+    yr, sr = t_rwkv.rwkv6_scan_plain(*ins)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    torch.testing.assert_close(y, yr, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_cuda_raises_on_what_the_kernel_does_not_take():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    r, k, v, logw, u = _rwkv_inputs(g, dev, 1, 8, 2, 64)
+    with pytest.raises(ValueError, match="one device"):
+        t_rwkv.rwkv6_scan(r, k, v, logw, u.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        t_rwkv.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2),
+                          k, v, logw, u)
+    with pytest.raises(TypeError, match="float32"):
+        t_rwkv.rwkv6_scan(r.bfloat16(), k, v, logw, u)
+    with pytest.raises(ValueError, match="chunk"):
+        t_rwkv.rwkv6_scan(r, k, v, logw, u, chunk=48)
+    n = t_rwkv.launches
+    t_rwkv.rwkv6_scan(r, k, v, logw, u)
+    assert t_rwkv.launches == n + 1
+
+
+def test_rwkv_wrapper_rejects_what_the_kernel_does_not_take():
+    """The wrapper's checks, which run before any build or launch."""
+    x = torch.zeros((1, 8, 2, 64))
+    u = torch.zeros((2, 64))
+    t_rwkv._check(x, x, x, x, u)
+    with pytest.raises(ValueError, match="head dim"):
+        y = torch.zeros((1, 8, 2, 48))
+        t_rwkv._check(y, y, y, y, torch.zeros((2, 48)))
+    with pytest.raises(ValueError, match="contiguous"):
+        xt = torch.zeros((1, 2, 8, 64)).transpose(1, 2)
+        t_rwkv._check(xt, x, x, x, u)
+    with pytest.raises(TypeError, match="float32"):
+        t_rwkv._check(x.double(), x, x, x, u)
+    with pytest.raises(ValueError, match="u "):
+        t_rwkv._check(x, x, x, x, torch.zeros((3, 64)))
+    with pytest.raises(ValueError, match="shapes"):
+        t_rwkv._check(x, x[:, :4], x, x, u)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(1 + x.numel())
+        t_rwkv._check(flat[1:].view(x.shape), x, x, x, u)

@@ -36,7 +36,7 @@ def _jax_generate(jp, cfg, prompts, N, eos, gen_lens):
 
 
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "gemma2-27b"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "gemma2-27b", "rwkv6-3b"])
 def test_slice_matches_jax_engine(name, impl):
     """B=6 requests through a wave of 4 (slots recycled), prompt 12, N=10,
     greedy, an EOS token the model really emits (plus one prompt that
@@ -132,8 +132,9 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
     prompts = torch.zeros((2, 4), dtype=torch.int64)
     with pytest.raises(RuntimeError, match="CUDA"):
         tadapter.generate(tp, cfg, prompts, None, TSampler(greedy=True))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tserve.main(["--arch", "qwen3-0.6b", "--smoke"])
+    for arch in ("qwen3-0.6b", "rwkv6-3b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.main(["--arch", arch, "--smoke"])
     out, _ = tadapter.generate(tp, cfg, prompts, None,
                                TSampler(max_new_tokens=2, greedy=True),
                                device="cpu")

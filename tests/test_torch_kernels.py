@@ -1,10 +1,11 @@
-"""The port's attention kernels against the JAX Pallas kernels.
+"""The port's kernels against the JAX Pallas kernels.
 
 On the CPU the port's wrappers take their plain PyTorch versions and the
 JAX kernels run Pallas in interpret mode (``repro.kernels.backend``), as
 ``tests/test_kernels.py`` runs them: the same inputs, made with numpy
 from a seed, go through both.  Tolerance 2e-4 in fp32 and 2e-2 in bf16
-(``tests/test_kernels.py:20-22``).  ``tests/test_torch_cuda.py`` holds
+for attention (``tests/test_kernels.py:20-22``), 2e-3 for the RWKV6 scan
+(``tests/test_kernels.py:78-81``).  ``tests/test_torch_cuda.py`` holds
 the hand-written CUDA kernels against the plain versions on the card.
 """
 import pytest
@@ -17,11 +18,17 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.decode_attention.ops import decode_attention as j_decode  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as j_flash  # noqa: E402
+from repro.kernels.rwkv6_scan.ops import rwkv6_scan as j_rwkv  # noqa: E402
+from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as j_rwkv_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import cache as jcache  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as t_decode  # noqa: E402
+from repro_torch.configs import archs as tarchs  # noqa: E402
+from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_flash  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as t_rwkv  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 
 DT = {"float32": (np.float32, jnp.float32, torch.float32),
       "bfloat16": (ml_dtypes.bfloat16, jnp.bfloat16, torch.bfloat16)}
@@ -93,10 +100,74 @@ def test_decode_attention_plain_vs_pallas(H, KV, hd, L, cap, dtype):
 def test_wrappers_count_no_launch_on_cpu():
     rng = np.random.default_rng(0)
     q = _t(_normal(rng, (1, 8, 2, 32), "float32"))
-    n_f, n_d = t_flash.launches, t_decode.launches
+    n_f, n_d, n_r = t_flash.launches, t_decode.launches, t_rwkv.launches
     t_flash.flash_attention(q, q, q)
     t_decode.decode_attention(q[:, 0], q, q, torch.zeros(1, 8))
-    assert (t_flash.launches, t_decode.launches) == (n_f, n_d)
+    t_rwkv.rwkv6_scan(q, q, q, -q.abs(), q[0, 0])
+    assert (t_flash.launches, t_decode.launches, t_rwkv.launches) == \
+        (n_f, n_d, n_r)
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (2, 128, 2, 32, 32), (1, 100, 4, 64, 64),   # padding path
+    (2, 64, 1, 16, 16), (1, 64, 2, 128, 32),
+])
+def test_rwkv6_scan_plain_vs_pallas(B, S, H, N, chunk):
+    """The port's rwkv6_scan (on the CPU: the per-token recurrence)
+    against the JAX Pallas kernel in interpret mode and against the JAX
+    recurrence, over ``tests/test_kernels.py``'s matrix and input
+    distribution."""
+    rng = np.random.default_rng(21)
+    r, k, v = (rng.standard_normal((B, S, H, N)).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(rng.standard_normal((B, S, H, N)) * 0.5 - 1.0) \
+        .astype(np.float32)
+    u = (rng.standard_normal((H, N)) * 0.5).astype(np.float32)
+    yt, st = t_rwkv.rwkv6_scan(_t(r), _t(k), _t(v), _t(logw), _t(u),
+                               chunk=chunk)
+    assert yt.dtype == st.dtype == torch.float32
+    assert yt.shape == (B, S, H, N) and st.shape == (B, H, N, N)
+    for yj, sj in (j_rwkv(r, k, v, logw, u, chunk=chunk),
+                   j_rwkv_ref(r, k, v, logw, u)):
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj),
+                                   rtol=2e-3, atol=2e-3)
+        np.testing.assert_allclose(st.numpy(), np.asarray(sj),
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_rwkv_kernel_routing(monkeypatch):
+    """Under "kernel" every prefill layer calls the rwkv wrapper (once per
+    layer, zero state); decode steps (carried state) never do; "plain"
+    never does; on the CPU nothing counts as a launch."""
+    cfg = tarchs.SMOKE["rwkv6-3b"]
+    tp = TT.init_params(cfg, seed=5)
+    calls = []
+
+    def spy(*a):
+        calls.append(a[0].shape)
+        return real(*a)
+
+    real = t_ops.rwkv6_scan
+    monkeypatch.setattr(t_ops, "rwkv6_scan", spy)
+    n_r = t_rwkv.launches
+    prompts = torch.randint(0, cfg.vocab_size, (2, 7),
+                            generator=torch.Generator().manual_seed(0))
+    for impl, n_calls in (("kernel", cfg.n_layers), ("plain", 0)):
+        tattn.set_attention_impl(impl)
+        try:
+            calls.clear()
+            out = TT.forward(tp, cfg, {"tokens": prompts},
+                             return_cache=True)
+            assert len(calls) == n_calls
+            assert all(c == (2, 7, cfg.rwkv_n_heads, cfg.rwkv_head_dim)
+                       for c in calls)
+            cache = out["cache"]
+            for _ in range(2):
+                _, cache = TT.decode_step(tp, cfg, prompts[:, :1], cache)
+            assert len(calls) == n_calls
+        finally:
+            tattn.set_attention_impl("kernel")
+    assert t_rwkv.launches == n_r
 
 
 def test_kernel_path_in_model_attention():

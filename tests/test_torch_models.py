@@ -17,6 +17,7 @@ from repro.configs.archs import SMOKE  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import cache as jcache  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro.models import rwkv as jrwkv  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.config import FFN  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -24,11 +25,12 @@ from repro_torch.configs import archs as tarchs  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import cache as tcache  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import rwkv as trwkv  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.config import FFN as TFFN  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-ARCHS = ["qwen3-0.6b", "gemma2-27b"]
+ARCHS = ["qwen3-0.6b", "gemma2-27b", "rwkv6-3b"]
 
 
 def _t(a):
@@ -64,16 +66,90 @@ def test_rmsnorm_and_rope():
         np.asarray(jlayers.apply_rope(x, pos, 1e6)), **TOL)
 
 
-@pytest.mark.parametrize("kind", ["swiglu", "geglu", "squared_relu", "gelu"])
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "squared_relu", "gelu",
+                                  "rwkv_channel", "token_shift"])
 def test_ffn(kind):
     cfg = SMOKE["qwen3-0.6b"]
-    p = jlayers.init_ffn(jax.random.PRNGKey(1), cfg, FFN(kind), jnp.float32)
     x = np.random.default_rng(1).standard_normal((2, 7, cfg.d_model)) \
         .astype(np.float32)
-    ref = jlayers.apply_ffn(p, cfg, FFN(kind), x)
+    if kind == "token_shift":
+        np.testing.assert_array_equal(tlayers.token_shift(_t(x)).numpy(),
+                                      np.asarray(jlayers.token_shift(x)))
+        return
+    p = jlayers.init_ffn(jax.random.PRNGKey(1), cfg, FFN(kind), jnp.float32)
+    if kind == "rwkv_channel":   # non-trivial mixes
+        rng = np.random.default_rng(3)
+        p["mu_k"] = rng.random(cfg.d_model).astype(np.float32)
+        p["mu_r"] = rng.random(cfg.d_model).astype(np.float32)
+    shifted = jlayers.token_shift(x) if kind == "rwkv_channel" else None
+    ref = jlayers.apply_ffn(p, cfg, FFN(kind), x, shifted=shifted)
     tp = {k: _t(v) for k, v in p.items()}
-    out = tlayers.apply_ffn(tp, tarchs.SMOKE["qwen3-0.6b"], TFFN(kind), _t(x))
+    out = tlayers.apply_ffn(
+        tp, tarchs.SMOKE["qwen3-0.6b"], TFFN(kind), _t(x),
+        shifted=None if shifted is None else _t(shifted))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def _rwkv_inputs(rng, B, S, H, N):
+    r, k, v = (rng.standard_normal((B, S, H, N)).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(rng.standard_normal((B, S, H, N)) * 0.5 - 1.0) \
+        .astype(np.float32)
+    u = (rng.standard_normal((H, N)) * 0.5).astype(np.float32)
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_rwkv_scan_vs_jax(carried):
+    """The chunked scan with a ragged last chunk (S 40, chunk 16), from a
+    zero or a carried state, and one decode step (S 1, chunk 1)."""
+    rng = np.random.default_rng(12)
+    B, H, N = 2, 3, 32
+    s0 = (rng.standard_normal((B, H, N, N)).astype(np.float32)
+          if carried else None)
+    for S, chunk in ((40, 16), (1, 1)):
+        r, k, v, logw, u = _rwkv_inputs(rng, B, S, H, N)
+        yj, sj = jrwkv.rwkv_scan(r, k, v, logw, u, s0, chunk=chunk)
+        yt, st = trwkv.rwkv_scan(_t(r), _t(k), _t(v), _t(logw), _t(u),
+                                 None if s0 is None else _t(s0), chunk=chunk)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(sj), **TOL)
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+@pytest.mark.parametrize("carried", [False, True])
+def test_apply_rwkv_vs_jax(carried, impl):
+    """apply_rwkv (projections, scan, group norm, gate) and its returned
+    state; under "kernel" a zero-state call takes the kernel wrapper."""
+    cfg = SMOKE["rwkv6-3b"]
+    H, N, d = cfg.rwkv_n_heads, cfg.rwkv_head_dim, cfg.d_model
+    p = jrwkv.init_rwkv(jax.random.PRNGKey(4), cfg, jnp.float32)
+    rng = np.random.default_rng(13)
+    p["mu"] = rng.random((5, d)).astype(np.float32)
+    p["out_norm"]["scale"] = rng.standard_normal(d).astype(np.float32)
+    S = 1 if carried else 9
+    x = rng.standard_normal((2, S, d)).astype(np.float32)
+    state = None
+    if carried:
+        state = {"tm_shift": rng.standard_normal((2, d)).astype(np.float32),
+                 "wkv": rng.standard_normal((2, H, N, N)).astype(np.float32)}
+    yj, sj = jrwkv.apply_rwkv(p, cfg, x, state=state, return_state=True)
+    tattn.set_attention_impl(impl)
+    try:
+        yt, st = trwkv.apply_rwkv(
+            jax.tree_util.tree_map(_t, p), tarchs.SMOKE["rwkv6-3b"], _t(x),
+            state=None if state is None
+            else jax.tree_util.tree_map(_t, state), return_state=True)
+    finally:
+        tattn.set_attention_impl("kernel")
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+    for key in ("tm_shift", "wkv"):
+        np.testing.assert_allclose(st[key].numpy(), np.asarray(sj[key]),
+                                   **TOL, err_msg=key)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        trwkv.apply_rwkv(jax.tree_util.tree_map(_t, p),
+                         tarchs.SMOKE["rwkv6-3b"], _t(x),
+                         valid=torch.ones((2, S), dtype=torch.bool))
 
 
 def test_qkv_project_qk_norm():
@@ -167,11 +243,23 @@ def test_init_params_layout_matches_jax(name):
     assert float(tok.abs().max()) <= 0.04 + 1e-6
 
 
+def _assert_cache_close(tc, jc):
+    """Leaf by leaf, matched by path (JAX returns scanned dicts with
+    sorted keys)."""
+    jl = dict(_leaves(jc))
+    tl = dict(_leaves(tc))
+    assert tl.keys() == jl.keys()
+    for p, a in tl.items():
+        np.testing.assert_allclose(a.numpy(), np.asarray(jl[p]), **TOL,
+                                   err_msg=str(p))
+
+
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
 @pytest.mark.parametrize("name", ARCHS)
 def test_forward_and_per_row_decode(name, impl):
     """forward(return_cache) logits + every cache leaf, then 6 per-row
-    decode steps (ragged positions; gemma2's window-16 ring wraps)."""
+    decode steps (ragged positions; gemma2's window-16 ring wraps;
+    rwkv6 carries tm_shift / wkv / cm_shift)."""
     cfg, tcfg, jp, tp = _bridged(name, seed=1)
     rng = np.random.default_rng(6)
     B, P, N = 3, 12, 6
@@ -187,10 +275,7 @@ def test_forward_and_per_row_decode(name, impl):
                                    np.asarray(ref["logits"]), **TOL)
         jc, tc = ref["cache"], out["cache"]
         assert int(jc["pos"]) == tc["pos"]
-        for (p, a), (_, b) in zip(_leaves(tc["blocks"]),
-                                  _leaves(jc["blocks"])):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
-                                       err_msg=str(p))
+        _assert_cache_close(tc["blocks"], jc["blocks"])
         # per-row positions: rows start at different cursors
         pos = np.array([P, P + 5, P + 9])
         jc = {"blocks": jc["blocks"], "pos": jnp.asarray(pos)}
@@ -203,10 +288,7 @@ def test_forward_and_per_row_decode(name, impl):
             np.testing.assert_array_equal(tc["pos"].numpy(),
                                           np.asarray(jc["pos"]))
             tok = np.asarray(jnp.argmax(jl, -1))[:, None]
-        for (p, a), (_, b) in zip(_leaves(tc["blocks"]),
-                                  _leaves(jc["blocks"])):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
-                                       err_msg=str(p))
+        _assert_cache_close(tc["blocks"], jc["blocks"])
     finally:
         tattn.set_attention_impl("kernel")
 
