@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's serving path (``repro_torch``; no JAX, nothing of the
-JAX package) at the full width of qwen3-0.6b (attention) and of rwkv6-3b
-(RWKV6 time mix) and exits non-zero on any failure.  Phases, each
-printing its result:
+JAX package) at the full width of qwen3-0.6b (attention), of rwkv6-3b
+(RWKV6 time mix) and of jamba-1.5-large-398b (attention + Mamba, dense
+and MoE FFNs; its first 2 and 4 layers, since the whole model does not
+fit one card) and exits non-zero on any failure.  Phases, each printing
+its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
              fails without CUDA.
@@ -19,7 +21,9 @@ printing its result:
              Attention: GQA/MQA, hd 64/80/128, window, softcap, ragged S
              and L, fp32 and bf16; tolerance 2e-4 fp32 with TF32 off,
              2e-2 bf16.  RWKV6 scan: N 32/64/128, S 1/63/65/100/256, B 1
-             and 3; tolerance 2e-3 (rtol and atol).
+             and 3; tolerance 2e-3 (rtol and atol).  Mamba scan: ds 8/16,
+             S 1/32/48/63/64/65/100, ragged d_inner; tolerance 1e-3
+             (rtol and atol) on y and h_end.
   4. parity  full-width fp32 qwen3-0.6b served twice on the same seeded
              weights and prompts, with the kernels and with the plain
              attention: greedy tokens and masks identical, logprobs
@@ -32,12 +36,22 @@ printing its result:
              nothing.
   7. serve   the same serving run on rwkv6-3b in bf16; rwkv6_scan must
              launch.
+  8. parity  the same for jamba-1.5-large-398b's first 2 layers (attention
+             + SwiGLU, Mamba + MoE) at full width in fp32: the kernel run
+             launches mamba_scan, flash_attention and decode_attention,
+             the plain run nothing.
+  9. serve   the first 4 layers (three Mamba, both MoE) in bf16 through
+             ``serve.run(args, cfg=...)`` with phase 5's traffic; every
+             kernel of the path launches exactly once per layer per
+             admit (mamba_scan, flash_attention) or per decode step
+             (decode_attention).
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,6 +65,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 ARCH = "qwen3-0.6b"
 RWKV_ARCH = "rwkv6-3b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
 
 
 def fail(msg: str) -> None:
@@ -124,6 +139,21 @@ def rwkv_work(B: int, S: int, H: int, N: int, C: int):
     return nbytes, flops * B * H, exps * B * H
 
 
+def mamba_work(B: int, S: int, di: int, ds: int):
+    """(bytes, fp32 operations) of the selective scan on these shapes:
+    dt, x read and y written once, Bm, Cm, A read once, h_end written
+    once; per state element and step dt*A, exp, the decay product,
+    dx*B, the sum, h*C and its sum (an exponential counted as one), and
+    dt*x once per channel and step."""
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * ds + di * ds + B * di * ds)
+    return nbytes, B * S * di * (7 * ds + 1)
+
+
+def first_layers(cfg, n: int):
+    """The first n layers of cfg's pattern at full width (a depth cut)."""
+    return dataclasses.replace(cfg, n_layers=n, pattern=cfg.pattern[:n])
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -138,6 +168,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as mb
     from repro_torch.kernels.rwkv6_scan import ops as rw
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import attention as attn
@@ -351,6 +382,65 @@ def main() -> None:
     print(f"[3 kernels] rwkv6_scan small matrix: {n_cases} cases agree with "
           f"the per-token recurrence (2e-3)", flush=True)
 
+    # Mamba selective scan at the serving path's prefill shape (one
+    # admission wave of jamba's d_inner), with tests/test_kernels.py's
+    # input distribution
+    jcfg = archs.get(JAMBA_ARCH)
+    DI, DS = jcfg.mamba_d_inner, jcfg.mamba_d_state
+
+    def mamba_inputs(B, S, di, ds):
+        n = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        return (F.softplus(n(B, S, di) - 1), n(B, S, di), n(B, S, ds),
+                n(B, S, ds), -torch.exp(n(di, ds) * 0.3))
+
+    ins = mamba_inputs(W, P, DI, DS)
+    y, h = mb.mamba_scan(*ins)
+    yr, hr = mb.mamba_scan_plain(*ins)
+    torch.cuda.synchronize()
+    err = max(max_err(y, yr), max_err(h, hr))
+    rerr = max(rel_err(y, yr, 1e-3), rel_err(h, hr, 1e-3))
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+          and rerr <= 1e-3, f"mamba_scan main-path shape: max abs err "
+          f"{err}, allclose ratio {rerr}")
+    ms = time_ms(lambda: mb.mamba_scan(*ins), torch, flush)
+    plain_ms = time_ms(lambda: mb.mamba_scan_plain(*ins), torch, flush,
+                       iters=5, warmup=1)
+    nbytes, ops = mamba_work(W, P, DI, DS)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / PEAK_FLOPS["torch.float32"] * 1e3
+    results["mamba_scan"] = dict(
+        name="mamba_scan", route="cuda",
+        source="src/repro_torch/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan/kernel.py:23",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=None)
+    print(f"[3 kernels] mamba_scan dt/x{tuple(ins[1].shape)} Bm/Cm"
+          f"{tuple(ins[2].shape)} fp32: err {err:.3g} (allclose 1e-3 ratio "
+          f"{rerr:.3g}) | kernel {ms:.4f} ms, plain (per-token recurrence) "
+          f"{plain_ms:.4f} ms, no library call, bound "
+          f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB = "
+          f"{b_bytes:.4f} ms; {ops / 1e9:.2f} G fp32 operations = "
+          f"{b_ops:.4f} ms at 67 TFLOP/s) | card {card}", flush=True)
+    del ins, y, h, yr, hr
+
+    n_cases = 0
+    matrix = [(2, 64, 128, 16), (1, 100, 512, 16), (2, 32, 64, 8),
+              (1, 48, 320, 16)]                     # tests/test_kernels.py
+    matrix += [(2, S_, 200, ds_) for S_ in (1, 63, 65) for ds_ in (8, 16)]
+    for B_, S_, di_, ds_ in matrix:
+        ins = mamba_inputs(B_, S_, di_, ds_)
+        y, h = mb.mamba_scan(*ins)
+        yr, hr = mb.mamba_scan_plain(*ins)
+        rerr = max(rel_err(y, yr, 1e-3), rel_err(h, hr, 1e-3))
+        check(rerr <= 1e-3, f"mamba_scan B{B_} S{S_} di{di_} ds{ds_}: "
+              f"allclose ratio {rerr}")
+        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"[3 kernels] mamba_scan small matrix: {n_cases} cases agree with "
+          f"the per-token recurrence (1e-3)", flush=True)
+
     # ---- 4. whole-path parity, fp32, full width -------------------------
     params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     prompts = torch.randint(0, cfg.vocab_size, (12, 64),
@@ -480,6 +570,85 @@ def main() -> None:
           f" timed, TTFT): rwkv6_scan {n_rwkv}, flash_attention "
           f"{fa.launches}, decode_attention {dec.launches}", flush=True)
     results["rwkv6_scan"]["launches"] = n_rwkv
+    del rep
+    torch.cuda.empty_cache()
+
+    # ---- 8. Jamba whole-path parity, fp32, first 2 layers at full width --
+    cut2 = first_layers(jcfg, 2)
+    params = T.init_params(cut2, seed=0, device=dev, dtype=torch.float32)
+    prompts = torch.randint(0, cut2.vocab_size, (12, 64),
+                            generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for impl in ("kernel", "plain"):
+        attn.set_attention_impl(impl)
+        fa.launches = dec.launches = mb.launches = 0
+        ro, st = adapter.generate(params, cut2, prompts, None, sampler,
+                                  wave=8, decode_chunk=4, fast_path=False,
+                                  device=dev)
+        torch.cuda.synchronize()
+        runs[impl] = (ro, st, (mb.launches, fa.launches, dec.launches))
+    attn.set_attention_impl("kernel")
+    (rk, sk, nk), (rp, sp, np_) = runs["kernel"], runs["plain"]
+    check(all(n > 0 for n in nk), f"fp32 jamba kernel run launched "
+          f"mamba_scan/flash/decode {nk} times")
+    check(not any(np_), f"the plain jamba run launched kernels {np_}")
+    same_tok = torch.equal(rk["gen_tokens"], rp["gen_tokens"])
+    same_mask = torch.equal(rk["mask"], rp["mask"])
+    lp_err = max_err(rk["logprobs"], rp["logprobs"])
+    print(f"[8 parity] {JAMBA_ARCH} fp32, first {cut2.n_layers} layers at "
+          f"full width (d {cut2.d_model}, d_inner {DI}, {cut2.n_experts} "
+          f"experts top-{cut2.top_k}, {cut2.param_count() / 1e9:.2f} B "
+          f"parameters), 12 requests, wave 8, prompt 64, 16 new: tokens "
+          f"identical={same_tok} masks identical={same_mask} logprob max "
+          f"diff {lp_err:.3g} (tol 1e-3); kernel run launched mamba_scan "
+          f"{nk[0]}, flash {nk[1]}, decode {nk[2]}; prefills "
+          f"{sk['prefills']}, decode rounds {sk['decode_steps']}", flush=True)
+    check(same_tok and same_mask and lp_err <= 1e-3,
+          "fp32 kernel and plain jamba serving runs disagree")
+    check(sk["occupancy_trace"] == sp["occupancy_trace"],
+          "fp32 jamba runs disagree on the occupancy trace")
+    del params, runs, rk, rp
+    torch.cuda.empty_cache()
+
+    # ---- 9. the Jamba serving path, bf16, first 4 layers at full width ---
+    cut4 = first_layers(jcfg, 4)
+    argv[1] = JAMBA_ARCH
+    fa.launches = dec.launches = rw.launches = mb.launches = 0
+    rep = serve_mod.run(serve_mod.parse_args(argv), cfg=cut4)
+    torch.cuda.synchronize()
+    got = {"mamba_scan": mb.launches, "flash_attention": fa.launches,
+           "decode_attention": dec.launches, "rwkv6_scan": rw.launches}
+    n_mamba = sum(s_.mixer.value == "mamba" for s_ in cut4.pattern)
+    n_attn = sum(s_.mixer.value == "attention" for s_ in cut4.pattern)
+    passes = 3                          # warm-up, timed, TTFT
+    want = {"mamba_scan": n_mamba * passes * rep["prefills"],
+            "flash_attention": n_attn * passes * rep["prefills"],
+            "decode_attention": n_attn * passes * rep["decode_rounds"],
+            "rwkv6_scan": 0}
+    gen = rep["gen_tokens"]
+    check(tuple(gen.shape) == (48, N) and int(gen.min()) >= 0
+          and int(gen.max()) < cut4.vocab_size,
+          f"bad generated tokens {tuple(gen.shape)}")
+    check(bool(torch.isfinite(rep["logprobs"]).all())
+          and float(rep["logprobs"].max()) <= 1e-6,
+          "non-finite or positive logprobs")
+    check(float(rep["mask"].sum()) == 48 * N, "budgets not fully served")
+    print(f"[9 serve] {JAMBA_ARCH} bf16, first {cut4.n_layers} layers at "
+          f"full width ({cut4.param_count() / 1e9:.2f} B parameters), batch "
+          f"48 wave {W} prompt {P} new {N}: {rep['tok_s']:.1f} valid tok/s "
+          f"({rep['valid_tokens']:.0f} tokens in {rep['seconds']:.3f} s), "
+          f"TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{rep['ttft_p95_s'] * 1e3:.1f} ms, {rep['decode_rounds']} decode "
+          f"rounds, {rep['prefills']} prefills, occupancy "
+          f"{rep['mean_occupancy']:.2f} (ideal {rep['ideal_occupancy']:.2f}), "
+          f"peak {rep['peak_bytes'] / 2**30:.2f} GiB | card {card}",
+          flush=True)
+    print(f"[9 serve] kernel launches in the serving run (3 passes: warm-up,"
+          f" timed, TTFT): {got} (expected {want})", flush=True)
+    check(got == want, f"jamba serving launches {got}, expected {want}")
+    results["mamba_scan"]["launches"] = got["mamba_scan"]
+    del rep
+    torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

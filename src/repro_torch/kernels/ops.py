@@ -5,8 +5,9 @@ Port of ``repro.kernels.ops:15-48``, with the same routing rule for
 attention: the flash kernel only for contiguous self-attention
 (``Sq == Sk``, shared 1-D positions, no ``k_valid``); per-row positions
 go to ``plain_attention``; anything else to ``chunked_attention``.
-``rwkv6_scan`` is the RWKV6 time-mix scan from a zero state
-(``models.rwkv.apply_rwkv`` calls it for every one-shot prefill).  The
+``rwkv6_scan`` is the RWKV6 time-mix scan and ``mamba_scan`` the Mamba
+selective scan, both from a zero state (``models.rwkv.apply_rwkv`` and
+``models.mamba.apply_mamba`` call them for every one-shot prefill).  The
 kernels run on CUDA tensors; on CPU tensors each wrapper takes its plain
 version.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention as _flash
+from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: F401
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: F401
 
 

@@ -17,7 +17,16 @@ warm-up pass it serves the batch once unprofiled and once under
     most time.
 
 ``--json`` also writes the report as one JSON object.  Needs a CUDA
-card: the trace has no device activity without one.
+card: the trace has no device activity without one.  ``main(argv,
+cfg=...)`` profiles a depth cut, as ``serve.run`` serves one:
+
+    PYTHONPATH=src python -c "import dataclasses as d; \
+        from repro_torch.configs import archs; \
+        from repro_torch.launch import profile_serve as p; \
+        c = archs.get('jamba-1.5-large-398b'); \
+        p.main('--arch jamba-1.5-large-398b --batch 48 --wave 16 \
+        --prompt-len 256 --new-tokens 64'.split(), \
+        cfg=d.replace(c, n_layers=4, pattern=c.pattern[:4]))"
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 
 from repro_torch.device import synchronize
 from repro_torch.launch import serve
+from repro_torch.models.config import ModelConfig
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -60,8 +70,9 @@ def device_events(prof) -> List[dict]:
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
-def run(args: argparse.Namespace, top: int = 10) -> Dict[str, object]:
-    device, cfg, dtype, wave, gen = serve.prepare(args)
+def run(args: argparse.Namespace, top: int = 10,
+        cfg: Optional[ModelConfig] = None) -> Dict[str, object]:
+    device, cfg, dtype, wave, gen = serve.prepare(args, cfg)
     if device.type != "cuda":
         raise SystemExit("profile_serve measures the card: run it with "
                          "--device cuda")
@@ -128,12 +139,13 @@ def run(args: argparse.Namespace, top: int = 10) -> Dict[str, object]:
     return rep
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+def main(argv: Optional[List[str]] = None,
+         cfg: Optional[ModelConfig] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--json", default=None, metavar="FILE",
                     help="also write the report as JSON")
     own, rest = ap.parse_known_args(argv)
-    rep = run(serve.parse_args(rest))
+    rep = run(serve.parse_args(rest), cfg=cfg)
     if own.json:
         os.makedirs(os.path.dirname(own.json) or ".", exist_ok=True)
         with open(own.json, "w") as f:

@@ -11,9 +11,15 @@ random, drawn from --seed.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 48 --wave 16 --prompt-len 256 --new-tokens 64
 
-Any architecture of attention and RWKV6 layers with dense FFNs runs at
-its full width in its config's dtype: ``--arch rwkv6-3b`` serves the
-3.07 B-parameter RWKV6 model in bf16 with the same arguments.
+Any architecture of attention, RWKV6 and Mamba layers with dense or MoE
+FFNs runs at its full width in its config's dtype: ``--arch rwkv6-3b``
+serves the 3.07 B-parameter RWKV6 model in bf16 with the same arguments.
+``--arch jamba-1.5-large-398b`` builds the whole 72-layer Jamba model
+(398.6 B parameters, 797 GB in bf16), which does not fit one
+card; as the JAX launcher, this one has no depth flag.  A caller that
+serves a depth cut passes its config to ``prepare`` / ``run`` (``cfg=``),
+as ``chip_smoke.py`` does with the first 2 and 4 layers of Jamba's
+period at full width.
 
 Runs on ``--device cuda`` (the default; raises when no card is present)
 or ``--device cpu``.  --prefill-chunk, --page-size, --prefix-cache and
@@ -36,6 +42,7 @@ from repro_torch.genserve import adapter as genserve
 from repro_torch.genserve.adapter import ttft_quantiles
 from repro_torch.genserve.decoder import NOT_PORTED
 from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.rl.rollout import SamplerConfig
@@ -96,12 +103,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def prepare(args: argparse.Namespace):
+def prepare(args: argparse.Namespace, cfg: Optional[ModelConfig] = None):
     """The serving run of `args`: returns (device, cfg, dtype, wave,
     gen), where ``gen(**kw)`` serves every prompt once through
-    ``genserve.generate`` on the seeded random weights."""
+    ``genserve.generate`` on the seeded random weights.  ``cfg`` replaces
+    the config that ``--arch`` / ``--smoke`` name (a depth cut)."""
     device = resolve_device(args.device)
-    cfg = archs.get(args.arch, smoke=args.smoke)
+    cfg = cfg or archs.get(args.arch, smoke=args.smoke)
     if cfg.is_encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     dtype = resolve_dtype(args.dtype or cfg.dtype)
@@ -129,12 +137,13 @@ def prepare(args: argparse.Namespace):
     return device, cfg, dtype, wave, gen
 
 
-def run(args: argparse.Namespace) -> Dict[str, object]:
+def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
+        ) -> Dict[str, object]:
     """Warm-up, timed run and TTFT run of the serving path; returns the
-    report (and prints it)."""
+    report (and prints it).  ``cfg`` as in ``prepare``."""
     if args.trace:
         obs_trace.enable()
-    device, cfg, dtype, wave, gen = prepare(args)
+    device, cfg, dtype, wave, gen = prepare(args, cfg)
     gen()                    # warm-up: kernel build and load, allocator
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -1,5 +1,5 @@
-"""Decode-time state: KV caches (full and ring-buffer windowed) and RWKV6
-recurrent state, contiguous layout.
+"""Decode-time state: KV caches (full and ring-buffer windowed), RWKV6 and
+Mamba recurrent state, contiguous layout.
 
 Port of the contiguous part of ``repro.models.cache`` (lines 46-239).
 Every block-cache leaf carries the repeats dim ``[R]`` first and the
@@ -10,6 +10,8 @@ batch (decode *slot*) dim at axis 1:
   attention       k, v        [R, B, L, KV, hd]   cache dtype
   rwkv6           tm_shift    [R, B, d]           fp32
   rwkv6           wkv         [R, B, H, N, N]     fp32
+  mamba           conv        [R, B, dc-1, di]    fp32
+  mamba           ssm         [R, B, di, ds]      fp32
   rwkv_channel    cm_shift    [R, B, d]           cache dtype
 
 ``gather_slots`` / ``scatter_slots`` / ``zero_slots`` work on any such
@@ -31,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import FFN, Mixer, ModelConfig
 
@@ -63,28 +66,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
             L = kv_cache_len(cfg, spec, max_seq, long_mode)
             shape = (R, batch, L, cfg.n_kv_heads, hd)
             layer = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
-        elif spec.mixer == Mixer.RWKV6:
-            st = rwkv_mod.init_rwkv_state(cfg, R * batch, device=device)
+        else:
+            init = (rwkv_mod.init_rwkv_state if spec.mixer == Mixer.RWKV6
+                    else mamba_mod.init_mamba_state)
+            st = init(cfg, R * batch, device=device)
             layer = {n: t.reshape((R, batch) + t.shape[1:])
                      for n, t in st.items()}
-        else:
-            raise NotImplementedError(
-                f"{spec.mixer.value} cache state is not yet ported")
         if spec.ffn == FFN.RWKV_CHANNEL:
             layer["cm_shift"] = zeros((R, batch, cfg.d_model), dtype)
         blocks[f"layer{j}"] = layer
     return {"blocks": blocks, "pos": 0}
 
 
-def _tree_map(fn, *trees):
+def tree_map(fn, *trees):
     if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
 
 
 def gather_slots(blocks, idx):
     """Per-slot cache rows: leaves [R, B, ...] -> [R, len(idx), ...]."""
-    return _tree_map(lambda l: l.index_select(1, idx), blocks)
+    return tree_map(lambda l: l.index_select(1, idx), blocks)
 
 
 def scatter_slots(dst_blocks, src_blocks, slot_mask):
@@ -98,7 +100,7 @@ def scatter_slots(dst_blocks, src_blocks, slot_mask):
         dst[:, idx] = src[:, idx].to(dst.dtype)
         return dst
 
-    return _tree_map(put, dst_blocks, src_blocks)
+    return tree_map(put, dst_blocks, src_blocks)
 
 
 def zero_slots(blocks, slot_mask):
@@ -109,7 +111,7 @@ def zero_slots(blocks, slot_mask):
         l[:, idx] = 0
         return l
 
-    return _tree_map(zero, blocks)
+    return tree_map(zero, blocks)
 
 
 def ring_slot_positions(cache_len: int, window: Optional[int], pos,

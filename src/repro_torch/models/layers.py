@@ -16,14 +16,43 @@ import torch.nn.functional as F
 from repro_torch.models.config import FFN, ModelConfig
 
 
+# fp32 elements drawn at a time for a leaf of another dtype (512 MB)
+DRAW_CHUNK = 1 << 27
+_TRUNC = math.erf(2.0 / math.sqrt(2.0))    # 2 Φ(2) - 1
+
+
+def _trunc_normal_(w: torch.Tensor, gen: torch.Generator, scale: float):
+    """In place: N(0, scale²) truncated at ±2σ by the inverse CDF (one
+    uniform draw per element, consumed in memory order, so drawing a
+    tensor in leading-axis slices gives the same values on the CPU)."""
+    w.uniform_(-_TRUNC, _TRUNC, generator=gen)
+    w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
+    return w
+
+
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.float32):
-    """Truncated-normal (±2σ) fan-in init, drawn in fp32 then cast."""
+    """Truncated-normal (±2σ) fan-in init, drawn in fp32.
+
+    The leaf is allocated once, in ``dtype``.  An fp32 leaf is drawn in
+    place; any other is drawn in fp32 slices of at most ``DRAW_CHUNK``
+    elements along the leading axis (one expert of an ``[E, d, f]``
+    leaf) and cast into place, so no leaf ever has a whole fp32 copy
+    beside it.  (``torch.nn.init.trunc_normal_`` resamples with two
+    more full-size temporaries in recent PyTorch, and its draws change
+    between versions.)"""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if dtype == torch.float32 or out.numel() == 0:
+        return _trunc_normal_(out, gen, scale)
+    rows = max(1, DRAW_CHUNK // max(1, out[0].numel()))
+    tmp = torch.empty((min(rows, shape[0]),) + tuple(shape[1:]),
+                      dtype=torch.float32, device=gen.device)
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
+        out[i:i + n].copy_(_trunc_normal_(tmp[:n], gen, scale))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,130 @@
+"""Mixture-of-Experts FFN: GShard-style grouped one-hot dispatch.
+
+Port of ``repro.models.moe`` in plain PyTorch (the JAX package has no
+Pallas kernel here: its products are einsums).  Tokens are split into
+groups of at most ``_GROUP``; within a group the top-k routing builds a
+[g, E, C] one-hot dispatch tensor by cumulative position counting:
+
+    buf = einsum('zgec,zgd->zecd', dispatch, x)
+    out = expert_ffn(buf)                    # one batched product per expert
+    y   = einsum('zgec,zecd->zgd', combine, out)
+
+Tokens past an expert's per-group capacity C are dropped (GShard); the
+Switch-style aux loss is returned beside y.  A single-token step
+(S == 1) evaluates every expert and masks by the top-k gates instead.
+
+The experts' products run as ``[E, T, d] @ [E, d, f]`` batched matmuls
+over the stored ``[E, d, f]`` leaves, so no weight is ever copied.  The
+top-k keeps ``jax.lax.top_k``'s order on ties (lower expert first)
+through a stable sort.  The JAX package's sharding hints have no
+meaning on one device and are left out.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import FFN, ModelConfig
+from repro_torch.models.layers import dense_init
+
+_GROUP = 512
+
+
+def init_moe(gen, cfg: ModelConfig, kind: FFN, dtype):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    names = (("w_gate", "w_up", "w_down") if kind in (FFN.SWIGLU, FFN.GEGLU)
+             else ("w_up", "w_down"))
+    experts = {n: dense_init(gen, (E, f, d) if n == "w_down" else (E, d, f),
+                             dtype=dtype) for n in names}
+    return {"router": dense_init(gen, (d, E), scale=0.02, dtype=dtype),
+            "experts": experts}
+
+
+def _capacity(group_tokens: int, cfg: ModelConfig) -> int:
+    cap = int(group_tokens * cfg.top_k / cfg.n_experts
+              * cfg.capacity_factor)
+    return max(cap, cfg.top_k)
+
+
+def _expert_ffn(experts, kind: FFN, h):
+    """h: [E, T, d] -> [E, T, d], one batched product per expert."""
+    up = h @ experts["w_up"]
+    if kind in (FFN.SWIGLU, FFN.GEGLU):
+        gate = h @ experts["w_gate"]
+        act = F.silu(gate) if kind == FFN.SWIGLU else \
+            F.gelu(gate, approximate="tanh")
+        mid = act * up
+    elif kind == FFN.SQUARED_RELU:
+        mid = torch.square(F.relu(up))
+    else:
+        mid = F.gelu(up, approximate="tanh")
+    return mid @ experts["w_down"]
+
+
+def _route(x, router, K: int):
+    """Softmax gates [..., E] (fp32) and the top-K renormalised weights
+    and experts [..., K], ties to the lower expert as ``lax.top_k``."""
+    gates = torch.softmax((x @ router).float(), dim=-1)
+    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :K], top_e[..., :K]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return gates, top_w, top_e
+
+
+def _dense_decode_moe(params, cfg: ModelConfig, kind: FFN, x):
+    """Single-token decode: every expert on every row, masked by the
+    top-k gates (weight-read bound either way at S == 1)."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    xt = x.reshape(B, d)
+    _, top_w, top_e = _route(xt, params["router"], cfg.top_k)
+    w_mask = torch.zeros((B, E), dtype=torch.float32, device=x.device)
+    w_mask.scatter_add_(1, top_e, top_w)
+    out = _expert_ffn(params["experts"], kind, xt.expand(E, B, d))
+    y = torch.einsum("ebd,be->bd", out, w_mask.to(out.dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def apply_moe(params, cfg: ModelConfig, kind: FFN, x):
+    """x: [B, S, d] -> (y, aux_loss)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    if S == 1:
+        return _dense_decode_moe(params, cfg, kind, x)
+    g = min(_GROUP, S)
+    if (B * S) % g:
+        raise ValueError(f"apply_moe: {B}x{S} tokens do not split into "
+                         f"groups of {g}")
+    Gn = B * S // g
+    C = _capacity(g, cfg)
+    xg = x.reshape(Gn, g, d)
+    gates, top_w, top_e = _route(xg, params["router"], K)   # [Gn, g, K]
+
+    # position-in-expert by cumulative counting over the K slots
+    dispatch = torch.zeros((Gn, g, E, C), dtype=x.dtype, device=x.device)
+    combine = torch.zeros((Gn, g, E, C), dtype=torch.float32,
+                          device=x.device)
+    counts = torch.zeros((Gn, E), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        oh = F.one_hot(top_e[..., k], E).float()                # [Gn,g,E]
+        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+        within = (pos < C).float() * oh
+        # positions past capacity are dropped by `within`; clamp them so
+        # one_hot takes them (jax.nn.one_hot gives zeros there)
+        pos_oh = F.one_hot(torch.clamp(pos, max=C - 1).long(), C).float()
+        sel = within[..., None] * pos_oh                        # [Gn,g,E,C]
+        dispatch += sel.to(x.dtype)
+        combine += top_w[..., k, None, None] * sel
+        counts += oh.sum(dim=1)
+
+    buf = torch.einsum("zgec,zgd->ezcd", dispatch, xg)       # [E,Gn,C,d]
+    out = _expert_ffn(params["experts"], kind, buf.reshape(E, Gn * C, d))
+    y = torch.einsum("zgec,ezcd->zgd", combine.to(x.dtype),
+                     out.reshape(E, Gn, C, d))
+
+    # aux load-balancing loss (Switch-style)
+    me = gates.reshape(-1, E).mean(dim=0)
+    ce = F.one_hot(top_e[..., 0].reshape(-1), E).float().mean(dim=0)
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    return y.reshape(B, S, d), aux

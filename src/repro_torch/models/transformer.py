@@ -1,12 +1,13 @@
 """Model assembly: init, forward (prefill) and single-token decode.
 
-Port of ``repro.models.transformer`` for attention and RWKV6 mixers with
-dense FFNs and the RWKV channel mix.  Block params are stacked over a
-leading ``[R]`` repeats dim as in the JAX package; its ``lax.scan`` over
-the stack becomes a Python loop over ``R``, and each layer writes its
-cache entry in place into the ``[R, ...]`` leaves' slice ``r``.  Mamba,
-MoE and feature frontends are not yet ported and raise
-``NotImplementedError``.
+Port of ``repro.models.transformer`` for attention, RWKV6 and Mamba
+mixers with dense FFNs, MoE FFNs and the RWKV channel mix.  Block params
+are stacked over a leading ``[R]`` repeats dim as in the JAX package; its
+``lax.scan`` over the stack becomes a Python loop over ``R``, and each
+layer writes its cache entry in place into the ``[R, ...]`` leaves' slice
+``r``.  The MoE aux loss is computed and dropped, as the JAX decode and
+serving paths drop it.  Feature frontends and encoder-only models are not
+yet ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import torch
 from repro_torch.device import resolve_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import cache as cache_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import FFN, Mixer, ModelConfig
 from repro_torch.models.layers import (apply_ffn, embed_tokens,
@@ -27,12 +30,6 @@ from repro_torch.models.layers import (apply_ffn, embed_tokens,
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the model zoo the port does not run yet."""
-    for spec in cfg.pattern:
-        if spec.mixer not in (Mixer.ATTENTION, Mixer.RWKV6):
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer.value} mixers are not yet ported")
-        if spec.moe:
-            raise NotImplementedError(f"{cfg.name}: MoE is not yet ported")
     if cfg.frontend != "tokens" or cfg.is_encoder_only:
         raise NotImplementedError(
             f"{cfg.name}: feature frontends / encoder-only models are not "
@@ -43,14 +40,23 @@ def check_supported(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
+# mixer -> (params key, init, apply of the recurrent mixers)
+_MIXERS = {
+    Mixer.ATTENTION: ("attn", attn_mod.init_attention, None),
+    Mixer.MAMBA: ("mamba", mamba_mod.init_mamba, mamba_mod.apply_mamba),
+    Mixer.RWKV6: ("rwkv", rwkv_mod.init_rwkv, rwkv_mod.apply_rwkv),
+}
+
+
 def _init_layer(gen, cfg: ModelConfig, spec, dtype) -> Dict[str, Any]:
+    key, init, _ = _MIXERS[spec.mixer]
     p = {"norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
-         "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device)}
-    if spec.mixer == Mixer.ATTENTION:
-        p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+         "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
+         key: init(gen, cfg, dtype)}
+    if spec.moe:
+        p["moe"] = moe_mod.init_moe(gen, cfg, spec.ffn, dtype)
     else:
-        p["rwkv"] = rwkv_mod.init_rwkv(gen, cfg, dtype)
-    p["ffn"] = init_ffn(gen, cfg, spec.ffn, dtype)
+        p["ffn"] = init_ffn(gen, cfg, spec.ffn, dtype)
     return p
 
 
@@ -61,24 +67,34 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Seeded weights with the JAX package's distributions and layout
     (``{"embed", "blocks" (stacked [R, ...]), "final_norm"}``).  The
     draws differ from the JAX init's (different generators): parity
-    tests carry JAX weights across with ``bridge`` instead."""
+    tests carry JAX weights across with ``bridge`` instead.
+
+    Every block weight is held once: with one repeat (R == 1) the
+    layers' leaves become the ``[1, ...]`` leaves as views; otherwise
+    each ``[R, ...]`` leaf is allocated once and repeat ``r`` is copied
+    into it as soon as it is drawn, so at most one repeat's layers are
+    held beside the stack."""
     cfg.validate()
     check_supported(cfg)
     dt = resolve_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     embed = init_embeddings(gen, cfg, dt)
-    layers = [{f"layer{j}": _init_layer(gen, cfg, spec, dt)
-               for j, spec in enumerate(cfg.pattern)}
-              for _ in range(cfg.n_pattern_repeats)]
-    blocks = _tree_stack(layers)
+    R = cfg.n_pattern_repeats
+    blocks = None
+    for r in range(R):
+        layers = {f"layer{j}": _init_layer(gen, cfg, spec, dt)
+                  for j, spec in enumerate(cfg.pattern)}
+        if R == 1:
+            blocks = cache_mod.tree_map(lambda t: t.unsqueeze(0), layers)
+            break
+        if blocks is None:
+            blocks = cache_mod.tree_map(
+                lambda t: t.new_empty((R,) + tuple(t.shape)), layers)
+        cache_mod.tree_map(lambda dst, src: dst[r].copy_(src), blocks,
+                           layers)
+        del layers
     return {"embed": embed, "blocks": blocks,
             "final_norm": init_rmsnorm(cfg.d_model, dt, gen.device)}
-
-
-def _tree_stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def _tree_index(tree, r: int):
@@ -95,8 +111,8 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
                    cache_entry):
     """One mixer + FFN layer over a whole sequence.  With ``cache_entry``
     (this layer's cache views at one repeat: {"k", "v"} [B, L, KV, hd],
-    or {"tm_shift", "wkv", "cm_shift"}) the layer's decode state is
-    written into it."""
+    {"tm_shift", "wkv", "cm_shift"} or {"conv", "ssm"}) the layer's
+    decode state is written into it."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == Mixer.ATTENTION:
         window = cache_mod.effective_window(cfg, spec, long_mode)
@@ -110,12 +126,15 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
             cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k, v,
                                  window)
     else:
-        y, st = rwkv_mod.apply_rwkv(p["rwkv"], cfg, h, return_state=True)
+        key, _, apply = _MIXERS[spec.mixer]
+        y, st = apply(p[key], cfg, h, return_state=True)
         x = x + y
         if cache_entry is not None:
-            cache_entry["tm_shift"].copy_(st["tm_shift"])
-            cache_entry["wkv"].copy_(st["wkv"])
+            for name, t in st.items():
+                cache_entry[name].copy_(t)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.moe:
+        return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
     if spec.ffn == FFN.RWKV_CHANNEL:
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
         if cache_entry is not None:
@@ -186,7 +205,8 @@ def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
     tensor of per-row positions: every slot keeps its own RoPE phase,
     ring offset and validity mask) and reads `mask`, this step's
     ``_decode_mask`` for the layer's cache; RWKV6 advances its
-    ``tm_shift`` / ``wkv`` state by one token."""
+    ``tm_shift`` / ``wkv`` state and Mamba its ``conv`` / ``ssm`` state
+    by one token."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == Mixer.ATTENTION:
         q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
@@ -198,12 +218,14 @@ def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
             cap=cfg.attn_softcap, k_valid=valid, bias=bias)
         x = x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
     else:
-        y, st_new = rwkv_mod.apply_rwkv(p["rwkv"], cfg, h, state=entry,
-                                        return_state=True)
-        entry["tm_shift"].copy_(st_new["tm_shift"])
-        entry["wkv"].copy_(st_new["wkv"])
+        key, _, apply = _MIXERS[spec.mixer]
+        y, st_new = apply(p[key], cfg, h, state=entry, return_state=True)
+        for name, t in st_new.items():
+            entry[name].copy_(t)
         x = x + y
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.moe:
+        return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
     if spec.ffn == FFN.RWKV_CHANNEL:
         shifted = entry["cm_shift"][:, None, :].to(h.dtype)
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)

@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs.archs import QWEN3_0_6B, RWKV6_3B, SMOKE  # noqa: E402
+from repro.configs.archs import (JAMBA_1_5_LARGE, QWEN3_0_6B, RWKV6_3B,  # noqa: E402
+                                 SMOKE)
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.config import reduced  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -33,7 +34,9 @@ def _leaves(tree, path=()):
 
 @pytest.mark.parametrize("name", ["qwen3-smoke", "gemma2-smoke",
                                   "qwen3-reduced-bf16", "rwkv6-smoke",
-                                  "rwkv6-reduced-bf16"])
+                                  "rwkv6-reduced-bf16", "jamba-smoke",
+                                  "jamba-3layer-bf16", "mixtral-smoke",
+                                  "granite-moe-smoke"])
 def test_round_trip_bit_exact(name):
     cfg = {"qwen3-smoke": SMOKE["qwen3-0.6b"],
            "gemma2-smoke": SMOKE["gemma2-27b"],
@@ -41,7 +44,12 @@ def test_round_trip_bit_exact(name):
                reduced(QWEN3_0_6B), dtype="bfloat16"),
            "rwkv6-smoke": SMOKE["rwkv6-3b"],
            "rwkv6-reduced-bf16": dataclasses.replace(
-               reduced(RWKV6_3B), dtype="bfloat16")}[name]
+               reduced(RWKV6_3B), dtype="bfloat16"),
+           "jamba-smoke": SMOKE["jamba-1.5-large-398b"],
+           "jamba-3layer-bf16": dataclasses.replace(
+               reduced(JAMBA_1_5_LARGE, n_layers=3), dtype="bfloat16"),
+           "mixtral-smoke": SMOKE["mixtral-8x7b"],
+           "granite-moe-smoke": SMOKE["granite-moe-3b-a800m"]}[name]
     params = JT.init_params(jax.random.PRNGKey(3), cfg)
     tree = jax.tree_util.tree_map(np.asarray, params)
     tp = bridge.from_numpy_params(tree, cfg, "cpu")
@@ -59,6 +67,10 @@ def test_round_trip_bit_exact(name):
     if cfg.dtype == "bfloat16":
         assert tp["embed"]["tokens"].dtype == torch.bfloat16
         assert back["embed"]["tokens"].dtype.name == "bfloat16"
+    if cfg.has_moe:    # the expert leaves keep [R, E, ...]
+        moe = next(l["moe"] for l in tp["blocks"].values() if "moe" in l)
+        assert tuple(moe["experts"]["w_down"].shape) == (
+            R, cfg.n_experts, cfg.d_ff, cfg.d_model)
     if cfg.has_rwkv:   # the token-shift mixes and the bonus keep [R, ...]
         rw = tp["blocks"]["layer0"]["rwkv"]
         assert tuple(rw["mu"].shape) == (R, 5, cfg.d_model)

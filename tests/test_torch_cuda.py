@@ -6,7 +6,8 @@ so it runs on a machine that has only the port:
 
 Tolerance 2e-4 in fp32 (TF32 off) and 2e-2 in bf16 for attention, as
 ``tests/test_kernels.py:20-22``; 2e-3 for the RWKV6 scan, as
-``tests/test_kernels.py:78-81``.
+``tests/test_kernels.py:78-81``; 1e-3 for the Mamba scan, as
+``tests/test_kernels.py:98-101``.
 """
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops as t_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_flash  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as t_mamba  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as t_rwkv  # noqa: E402
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -37,6 +39,7 @@ def _cuda():
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,window,cap", [
     (2, 300, 4, 2, 64, True, None, None), (1, 100, 4, 1, 80, True, 64, 50.0),
     (2, 256, 16, 8, 128, True, None, None), (1, 77, 4, 4, 48, False, None, None),
+    (2, 256, 64, 8, 128, True, None, None),     # jamba's heads: GQA 8
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_cuda(B, S, H, KV, hd, causal, window, cap, dtype):
@@ -58,6 +61,7 @@ def test_flash_attention_cuda(B, S, H, KV, hd, causal, window, cap, dtype):
 @pytest.mark.parametrize("B,H,KV,hd,L,cap", [
     (2, 4, 2, 64, 300, None), (1, 8, 8, 80, 512, 30.0),
     (16, 16, 8, 128, 320, None), (3, 4, 1, 128, 1000, 30.0),
+    (16, 64, 8, 128, 320, None),                # jamba's heads: GQA 8
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_cuda(B, H, KV, hd, L, cap, dtype):
@@ -218,3 +222,66 @@ def test_rwkv_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(1 + x.numel())
         t_rwkv._check(flat[1:].view(x.shape), x, x, x, u)
+
+
+def _mamba_inputs(g, dev, B, S, di, ds):
+    """``tests/test_kernels.py``'s distribution: dt = softplus(N(0,1) - 1),
+    x, Bm, Cm ~ N(0, 1), A = -exp(0.3 N(0, 1))."""
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    return (torch.nn.functional.softplus(n(B, S, di) - 1), n(B, S, di),
+            n(B, S, ds), n(B, S, ds), -torch.exp(n(di, ds) * 0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 65, 256])
+@pytest.mark.parametrize("ds", [8, 16])
+def test_mamba_scan_cuda(ds, S):
+    """Sequence lengths around the 16-step tile, both instantiated state
+    dims, and d_inner a multiple of the 128-channel block and not."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(6)
+    for B, di in ((2, 256), (3, 200)):
+        ins = _mamba_inputs(g, dev, B, S, di, ds)
+        y, h = t_mamba.mamba_scan(*ins)
+        yr, hr = t_mamba.mamba_scan_plain(*ins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yr, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(h, hr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_cuda_raises_on_what_the_kernel_does_not_take():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt, x, Bm, Cm, A = _mamba_inputs(g, dev, 1, 8, 128, 16)
+    with pytest.raises(ValueError, match="one device"):
+        t_mamba.mamba_scan(dt, x, Bm, Cm, A.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        t_mamba.mamba_scan(dt.bfloat16(), x, Bm, Cm, A)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_mamba.mamba_scan(dt, x, Bm.transpose(1, 2).contiguous()
+                           .transpose(1, 2), Cm, A)
+    n = t_mamba.launches
+    t_mamba.mamba_scan(dt, x, Bm, Cm, A)
+    assert t_mamba.launches == n + 1
+
+
+def test_mamba_wrapper_rejects_what_the_kernel_does_not_take():
+    """The wrapper's checks, which run before any build or launch."""
+    x = torch.zeros((2, 8, 64))
+    bc = torch.zeros((2, 8, 16))
+    a = torch.zeros((64, 16))
+    t_mamba._check(x, x, bc, bc, a)
+    with pytest.raises(ValueError, match="state dim"):
+        b4 = torch.zeros((2, 8, 4))
+        t_mamba._check(x, x, b4, b4, torch.zeros((64, 4)))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_mamba._check(torch.zeros((2, 64, 8)).transpose(1, 2), x, bc, bc, a)
+    with pytest.raises(TypeError, match="float32"):
+        t_mamba._check(x.double(), x, bc, bc, a)
+    with pytest.raises(ValueError, match="A "):
+        t_mamba._check(x, x, bc, bc, torch.zeros((32, 16)))
+    with pytest.raises(ValueError, match="shapes"):
+        t_mamba._check(x, x[:, :4], bc, bc, a)
+    with pytest.raises(ValueError, match="shapes Bm"):
+        t_mamba._check(x, x, bc[:, :4], bc[:, :4], a)

@@ -36,11 +36,14 @@ def _jax_generate(jp, cfg, prompts, N, eos, gen_lens):
 
 
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "gemma2-27b", "rwkv6-3b"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "gemma2-27b", "rwkv6-3b",
+                                  "jamba-1.5-large-398b"])
 def test_slice_matches_jax_engine(name, impl):
     """B=6 requests through a wave of 4 (slots recycled), prompt 12, N=10,
     greedy, an EOS token the model really emits (plus one prompt that
-    already ends in it) and ragged budgets."""
+    already ends in it) and ragged budgets.  Jamba's smoke (attention +
+    SwiGLU, Mamba + MoE) recycles slots whose conv / ssm state must be
+    replaced whole at admission."""
     cfg = SMOKE[name]
     jp = JT.init_params(jax.random.PRNGKey(2), cfg)
     rng = np.random.default_rng(9)
@@ -132,7 +135,7 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
     prompts = torch.zeros((2, 4), dtype=torch.int64)
     with pytest.raises(RuntimeError, match="CUDA"):
         tadapter.generate(tp, cfg, prompts, None, TSampler(greedy=True))
-    for arch in ("qwen3-0.6b", "rwkv6-3b"):
+    for arch in ("qwen3-0.6b", "rwkv6-3b", "jamba-1.5-large-398b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.main(["--arch", arch, "--smoke"])
     out, _ = tadapter.generate(tp, cfg, prompts, None,
@@ -185,6 +188,21 @@ def test_serve_launcher_on_cpu(capsys, tmp_path):
     assert {"gen.round", "gen.admit", "gen.decode"} <= names
     snap = json.loads(metrics.read_text())
     assert snap["gen.requests"] == 6 and snap["gen.ttft_s"]["count"] == 6
+
+
+def test_serve_launcher_serves_a_depth_cut():
+    """``run(args, cfg=)`` serves the given config in place of --arch's:
+    the first 2 layers of the Jamba smoke's pattern, as chip_smoke.py
+    serves the first 4 of the full-width model."""
+    import dataclasses
+    base = tarchs.reduced(tarchs.JAMBA_1_5_LARGE, n_layers=3)
+    cut = dataclasses.replace(base, n_layers=2, pattern=base.pattern[:2])
+    rep = tserve.run(tserve.parse_args(
+        ["--arch", "jamba-1.5-large-398b", "--device", "cpu", "--batch",
+         "5", "--wave", "2", "--prompt-len", "6", "--new-tokens", "4"]),
+        cfg=cut)
+    assert rep["arch"] == cut.name and rep["gen_tokens"].shape == (5, 4)
+    assert float(rep["mask"].sum()) == 20 and rep["prefills"] >= 3
 
 
 def test_profile_serve_busy_time_and_device_rule():

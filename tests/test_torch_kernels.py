@@ -5,7 +5,8 @@ JAX kernels run Pallas in interpret mode (``repro.kernels.backend``), as
 ``tests/test_kernels.py`` runs them: the same inputs, made with numpy
 from a seed, go through both.  Tolerance 2e-4 in fp32 and 2e-2 in bf16
 for attention (``tests/test_kernels.py:20-22``), 2e-3 for the RWKV6 scan
-(``tests/test_kernels.py:78-81``).  ``tests/test_torch_cuda.py`` holds
+(``tests/test_kernels.py:78-81``), 1e-3 for the Mamba scan
+(``tests/test_kernels.py:98-101``).  ``tests/test_torch_cuda.py`` holds
 the hand-written CUDA kernels against the plain versions on the card.
 """
 import pytest
@@ -18,6 +19,8 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.decode_attention.ops import decode_attention as j_decode  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as j_flash  # noqa: E402
+from repro.kernels.mamba_scan.ops import mamba_scan as j_mamba  # noqa: E402
+from repro.kernels.mamba_scan.ref import mamba_scan_ref as j_mamba_ref  # noqa: E402
 from repro.kernels.rwkv6_scan.ops import rwkv6_scan as j_rwkv  # noqa: E402
 from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as j_rwkv_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -26,6 +29,7 @@ from repro_torch.kernels.decode_attention import ops as t_decode  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_flash  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as t_mamba  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as t_rwkv  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -100,12 +104,15 @@ def test_decode_attention_plain_vs_pallas(H, KV, hd, L, cap, dtype):
 def test_wrappers_count_no_launch_on_cpu():
     rng = np.random.default_rng(0)
     q = _t(_normal(rng, (1, 8, 2, 32), "float32"))
-    n_f, n_d, n_r = t_flash.launches, t_decode.launches, t_rwkv.launches
+    before = (t_flash.launches, t_decode.launches, t_rwkv.launches,
+              t_mamba.launches)
     t_flash.flash_attention(q, q, q)
     t_decode.decode_attention(q[:, 0], q, q, torch.zeros(1, 8))
     t_rwkv.rwkv6_scan(q, q, q, -q.abs(), q[0, 0])
-    assert (t_flash.launches, t_decode.launches, t_rwkv.launches) == \
-        (n_f, n_d, n_r)
+    x = q.reshape(1, 8, 64)
+    t_mamba.mamba_scan(x.abs(), x, x[..., :8], x[..., :8], -torch.ones(64, 8))
+    assert (t_flash.launches, t_decode.launches, t_rwkv.launches,
+            t_mamba.launches) == before
 
 
 @pytest.mark.parametrize("B,S,H,N,chunk", [
@@ -262,3 +269,70 @@ def test_chunked_attention_vs_jax():
         k_valid=torch.as_tensor(kv_))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,S,di,ds,chunk,bd", [
+    (2, 64, 128, 16, 16, 64), (1, 100, 512, 16, 32, 256),  # padding
+    (2, 32, 64, 8, 32, 64), (1, 48, 320, 16, 16, 64),      # di padding
+])
+def test_mamba_scan_plain_vs_pallas(B, S, di, ds, chunk, bd):
+    """The port's mamba_scan (on the CPU: the per-token recurrence)
+    against the JAX Pallas kernel in interpret mode and against the JAX
+    recurrence, over ``tests/test_kernels.py``'s matrix and input
+    distribution."""
+    rng = np.random.default_rng(22)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di)) - 1)) \
+        .astype(np.float32)
+    x = rng.standard_normal((B, S, di)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, ds)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, ds)).astype(np.float32)
+    A = -np.exp(rng.standard_normal((di, ds)) * 0.3).astype(np.float32)
+    yt, ht = t_mamba.mamba_scan(_t(dt), _t(x), _t(Bm), _t(Cm), _t(A))
+    assert yt.dtype == ht.dtype == torch.float32
+    assert yt.shape == (B, S, di) and ht.shape == (B, di, ds)
+    for yj, hj in (j_mamba(dt, x, Bm, Cm, A, chunk=chunk, bd=bd),
+                   j_mamba_ref(dt, x, Bm, Cm, A)):
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj),
+                                   rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(ht.numpy(), np.asarray(hj),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_mamba_kernel_routing(monkeypatch):
+    """Under "kernel" every Mamba layer of a prefill calls the mamba
+    wrapper (once per layer, zero state, fp32 contiguous inputs);
+    decode steps (carried state) never do; "plain" never does; on the
+    CPU nothing counts as a launch."""
+    cfg = tarchs.SMOKE["jamba-1.5-large-398b"]
+    tp = TT.init_params(cfg, seed=5)
+    calls = []
+
+    def spy(*a):
+        assert all(t.dtype == torch.float32 and t.is_contiguous()
+                   for t in a)
+        calls.append(a[1].shape)
+        return real(*a)
+
+    real = t_ops.mamba_scan
+    monkeypatch.setattr(t_ops, "mamba_scan", spy)
+    n_m = t_mamba.launches
+    n_mamba = sum(s.mixer.value == "mamba" for s in cfg.pattern)
+    assert n_mamba > 0
+    prompts = torch.randint(0, cfg.vocab_size, (2, 7),
+                            generator=torch.Generator().manual_seed(0))
+    for impl, n_calls in (("kernel", n_mamba * cfg.n_pattern_repeats),
+                          ("plain", 0)):
+        tattn.set_attention_impl(impl)
+        try:
+            calls.clear()
+            out = TT.forward(tp, cfg, {"tokens": prompts},
+                             return_cache=True)
+            assert len(calls) == n_calls
+            assert all(c == (2, 7, cfg.mamba_d_inner) for c in calls)
+            cache = out["cache"]
+            for _ in range(2):
+                _, cache = TT.decode_step(tp, cfg, prompts[:, :1], cache)
+            assert len(calls) == n_calls
+        finally:
+            tattn.set_attention_impl("kernel")
+    assert t_mamba.launches == n_m
