@@ -11,235 +11,443 @@
 // with an fp32 running max, denominator and accumulator.  The cap is
 // applied before the bias, and the bias is added before the running max.
 //
-// What bounds it on an H100: bytes.  At the serving path's decode shape
-// (B=16 slots, H=16, KV=8, hd=128, L=320, bf16) the K and V caches are
-// 21 MB, 6.3 us at 3.35 TB/s, against 42 MFLOP of arithmetic.
+// What bounds it on an H100 (SXM, 700 W): bytes.  At the serving path's
+// decode shape (B=16 slots, H=16, KV=8, hd=128, L=320, bf16) the K and V
+// caches are 21 MB, 6.3 us at 3.35 TB/s, against 42 MFLOP of arithmetic;
+// with g = H/KV = 2 (qwen3) or 8 (Jamba) query heads per kv head an MMA
+// tile would be mostly empty, so the products stay on the CUDA cores.
 //
-// What this design does about it (flash-decoding): B*H is small while L is
-// long, so a (split, kv head, b) grid cuts L into splits of a few 64-key
-// tiles, giving B*KV*splits blocks to fill 132 SMs.  Each block stages a
-// K/V tile in shared memory once and uses it for all H/KV query heads of
-// its kv head (the Pallas grid reloads it for every query head), keeps
-// per-head running (max, denominator, accumulator) in shared memory, and
-// writes them as a partial result per split; a second small kernel
-// combines the splits, rescaling each by exp(m_i - M).  The combination is
-// exact: a fully masked split has m = -1e30 and weight exp(-1e30 - M) = 0
-// once any real score exists.  Keys past L are never part of any split,
-// so a row whose every entry is masked still averages over exactly L keys,
-// as the reference does.  Loads are scalar and products run on the CUDA
-// cores in fp32; vectorised (16-byte) loads and TMA are the next step
-// toward the bytes bound.
+// What this design does about it: one launch per call over a (split,
+// kv head x head group, b) grid.  L is cut into splits only when the
+// (b, kv head, head group) blocks are too few to give each SM one; at
+// the serving shapes they are not (128 and 256 blocks), so there is one
+// split and no combine.  A block of eight warps takes up to GROUP = 4
+// query heads of one kv head (Jamba's eight are two blocks, which read
+// the same K/V through L2), and streams its keys through a ring of
+// NST = 4 shared-memory stages, each holding a 64-byte-row-wide tile of
+// K, V (32 keys in bf16, 16 in fp32; the storage dtype is kept) and the
+// tile's bias, filled by 16-byte `cp.async.cg` copies (4-byte ones for
+// the bias): three tiles are in flight while one is consumed, behind one
+// __syncthreads per tile.  q for the block's heads sits in registers: a
+// group of LPR lanes (16 at hd 128 in bf16) owns one key row at a time,
+// each lane one 16-byte vector of it.  Per tile a lane group takes RPS
+// rows (2 at hd 128): their dot products for all heads are independent
+// chains, reduced over the group by shuffles; then one rescale per head
+// per tile and one `ex2.approx` per (row, head), on scores in base 2
+// (scaled by log2(e) after the bias).  Each lane keeps, for every head,
+// the running (max, denominator) and the accumulator of its vector's
+// slice of hd, updated from the V vector at the same place.  The lane
+// groups, then the eight warps, are merged at the end by the usual
+// rescale by 2^(m_i - M).  With one split the block writes the output;
+// otherwise it writes its (m, l, acc) to the one scratch buffer, and the
+// last split block of each (b, kv head, head group) to finish, found
+// through an atomic ticket (reset to 0 by that block), combines the
+// splits in the same launch.  The combination is exact: keys past L
+// belong to no split; a masked score is -1e30 * log2(e) (the bias swamps
+// the product in fp32), which is also every state's starting maximum, so
+// a fully masked split has that maximum and weight 2^(m - M) = 0 once any
+// real score exists, and a row whose every entry is masked averages over
+// exactly L keys, as the reference does.
 //
 // C interface (ctypes): repro_decode_attention returns cudaGetLastError().
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int TILE = 64;      // keys per shared-memory tile
-constexpr int THREADS = 128;
-constexpr size_t MAX_SMEM = 232448;  // per-block dynamic limit on sm_90
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float M0 = NEG_INF * LOG2E;  // a masked score in base 2
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int NST = 4;     // ring stages
+constexpr int GROUP = 4;   // query heads per block at most
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <typename T>
+__host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
+template <typename T>
+__host__ __device__ constexpr int tile_rows() { return 64 / (int)sizeof(T); }
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
+
+template <typename T, int HD, int G>
+constexpr size_t smem_bytes() {
+  return (size_t)NST * 2 * tile_rows<T>() * HD * sizeof(T)  // K, V ring
+         + (size_t)NST * tile_rows<T>() * sizeof(float)     // bias ring
+         + (size_t)WARPS * G * (HD + 2) * sizeof(float)     // warp merge
+         + 16;                                              // ticket flag
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-size_t smem_floats(int g, int hd) {
-  return (size_t)g * hd                 // q rows of the kv head's group
-         + (size_t)TILE * (hd + 1)      // K tile (padded rows)
-         + (size_t)TILE * hd            // V tile
-         + (size_t)g * TILE             // scores / probabilities
-         + (size_t)g * hd               // accumulators
-         + 3 * (size_t)g;               // m, l, corr
+// (m, l, acc) of b folded into a's, each weighted by 2^(m_i - M) (base-2
+// maxima).
+__device__ __forceinline__ void merge_into(float& m, float& l, float* acc,
+                                          float mo, float lo, const float* ao,
+                                          int n) {
+  const float M = fmaxf(m, mo);
+  const float a = ex2(m - M), c = ex2(mo - M);
+  l = l * a + lo * c;
+  for (int e = 0; e < n; ++e) acc[e] = acc[e] * a + ao[e] * c;
+  m = M;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-decode_split(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ bias,
-             float* __restrict__ m_part, float* __restrict__ l_part,
-             float* __restrict__ acc_part, int H, int KV, int L, int hd,
-             int chunk, int n_splits, float cap, float scale) {
-  extern __shared__ __align__(16) float smem[];
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS, 2)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ bias,
+              T* __restrict__ out, float* __restrict__ scratch,
+              int* __restrict__ tickets, int H, int KV, int L, int chunk,
+              int n_splits, int n_hg, float cap, float scale) {
+  constexpr int VEC = vec_elems<T>();      // elements per 16-byte vector
+  constexpr int VPR = HD / VEC;            // vectors per key row
+  constexpr int LPR = pow2_at_least(VPR);  // lanes per key row
+  constexpr int RPW = 32 / LPR;            // key rows per warp at a time
+  constexpr int TILE = tile_rows<T>();
+  constexpr int STAGE = 2 * TILE * HD;     // K then V, elements
+  // rows per lane group per tile (at hd 32 in bf16 half the groups idle)
+  constexpr int RPS = TILE >= WARPS * RPW ? TILE / (WARPS * RPW) : 1;
+  static_assert(VPR * VEC == HD && LPR <= 32, "head dim");
+  static_assert(RPS * WARPS * RPW >= TILE, "tile rows");
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* bias_s = reinterpret_cast<float*>(ring + NST * STAGE);  // [NST][TILE]
+  float* red = bias_s + NST * TILE;          // [WARPS][G][HD + 2]
+  int* flag = reinterpret_cast<int*>(red + WARPS * G * (HD + 2));
+
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / n_hg, hg = blockIdx.y % n_hg;
   const int g = H / KV;
-  float* qs = smem;                      // [g][hd]
-  float* ks = qs + g * hd;               // [TILE][hd + 1]
-  float* vs = ks + TILE * (hd + 1);      // [TILE][hd]
-  float* ss = vs + TILE * hd;            // [g][TILE]
-  float* acc = ss + g * TILE;            // [g][hd]
-  float* m_s = acc + g * hd;             // [g]
-  float* l_s = m_s + g;                  // [g]
-  float* c_s = l_s + g;                  // [g]
-
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int h0 = kvh * g + hg * GROUP;      // first query head of the block
+  const int gc = min(G, g - hg * GROUP);    // query heads of the block
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / LPR, c = lane % LPR;
+  const bool act = c < VPR;
   const int start = split * chunk;
   const int end = min(start + chunk, L);
+  const int n_tiles = (end - start + TILE - 1) / TILE;
 
-  for (int idx = tid; idx < g * hd; idx += THREADS) {
-    const int gi = idx / hd, d = idx % hd;
-    qs[idx] = to_f(q[((size_t)b * H + kvh * g + gi) * hd + d]);
-    acc[idx] = 0.f;
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      const int k0 = start + t * TILE;
+      const int rows = min(TILE, end - k0);
+      T* ks = ring + (t % NST) * STAGE;
+      T* vs = ks + TILE * HD;
+      for (int i = tid; i < rows * VPR; i += THREADS) {
+        const int r = i / VPR, cc = i % VPR;
+        const size_t off = (((size_t)b * L + k0 + r) * KV + kvh) * HD + cc * VEC;
+        cp16(ks + r * HD + cc * VEC, k + off);
+        cp16(vs + r * HD + cc * VEC, v + off);
+      }
+      for (int i = tid; i < rows; i += THREADS)
+        cp4(bias_s + (t % NST) * TILE + i, bias + (size_t)b * L + k0 + i);
+    }
+    cp_commit();  // an empty group past the last tile keeps the count
+  };
+#pragma unroll
+  for (int t = 0; t < NST - 1; ++t) load_tile(t);
+
+  float qr[G][VEC];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qr[gi][e] = 0.f;
+    if (gi < gc && act)
+      unpack(*reinterpret_cast<const uint4*>(q + ((size_t)b * H + h0 + gi) * HD +
+                                             c * VEC),
+             qr[gi]);
   }
-  for (int gi = tid; gi < g; gi += THREADS) {
-    m_s[gi] = NEG_INF;
-    l_s[gi] = 0.f;
+  // running (max, denominator) per head in base 2, and the accumulator of
+  // this lane's slice of hd; every state starts at M0, which no score is
+  // below (a masked score is (x - 1e30) * log2(e) = M0)
+  float m[G], l[G], acc[G][VEC];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    m[gi] = M0;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
   }
 
-  for (int t0 = start; t0 < end; t0 += TILE) {
-    const int n = min(TILE, end - t0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < n * hd; idx += THREADS) {
-      const int r = idx / hd, d = idx % hd;
-      const size_t off = (((size_t)b * L + t0 + r) * KV + kvh) * hd + d;
-      ks[r * (hd + 1) + d] = to_f(k[off]);
-      vs[r * hd + d] = to_f(v[off]);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < g * n; idx += THREADS) {
-      const int gi = idx / n, r = idx % n;
-      const float* qr = qs + gi * hd;
-      const float* kr = ks + r * (hd + 1);
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kr[d], s);
-      s *= scale;
-      if (cap > 0.f) s = cap * tanhf(s / cap);
-      ss[gi * TILE + r] = s + bias[(size_t)b * L + t0 + r];
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += THREADS / 32) {  // a warp per head
-      float* row = ss + gi * TILE;
-      float mx = NEG_INF;
-      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, row[r]);
-      mx = warp_max(mx);
-      const float m_old = m_s[gi];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < n; r += 32) {
-        const float p = expf(row[r] - m_new);
-        row[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[gi] = l_s[gi] * corr + sum;
-        m_s[gi] = m_new;
-        c_s[gi] = corr;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<NST - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();     // everyone's have; tile t-1's stage is free
+    load_tile(t + NST - 1);
+    const T* ks = ring + (t % NST) * STAGE;
+    const T* vs = ks + TILE * HD;
+    const float* bs = bias_s + (t % NST) * TILE;
+    const int rows = min(TILE, end - (start + t * TILE));
+
+    // scores of this lane group's RPS rows, all heads: independent
+    // chains, so the loads, products and shuffles overlap
+    float sc[RPS][G];
+#pragma unroll
+    for (int j = 0; j < RPS; ++j) {
+      const int r = (j * WARPS + warp) * RPW + sub;
+      float kf[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kf[e] = 0.f;
+      if (r < rows && act)
+        unpack(*reinterpret_cast<const uint4*>(ks + r * HD + c * VEC), kf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) d = fmaf(qr[gi][e], kf[e], d);
+        sc[j][gi] = d;
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < g * hd; idx += THREADS) {
-      const int gi = idx / hd, d = idx % hd;
-      const float* p = ss + gi * TILE;
-      float a = acc[idx] * c_s[gi];
-      for (int r = 0; r < n; ++r) a = fmaf(p[r], vs[r * hd + d], a);
-      acc[idx] = a;
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < RPS; ++j)
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+          sc[j][gi] += __shfl_xor_sync(0xffffffffu, sc[j][gi], o);
+
+    // one rescale per head per tile, then the rows' weights
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float mt = m[gi];
+#pragma unroll
+      for (int j = 0; j < RPS; ++j) {
+        const int r = (j * WARPS + warp) * RPW + sub;
+        float x = cap > 0.f ? cap * tanhf(sc[j][gi] * scale / cap)
+                            : sc[j][gi] * scale;
+        x = r < rows ? (x + bs[r]) * LOG2E : M0;
+        sc[j][gi] = x;
+        mt = fmaxf(mt, x);
+      }
+      const float corr = ex2(m[gi] - mt);
+      m[gi] = mt;
+      l[gi] *= corr;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[gi][e] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < RPS; ++j) {
+      const int r = (j * WARPS + warp) * RPW + sub;
+      if (r >= rows) continue;
+      float vf[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) vf[e] = 0.f;
+      if (act)
+        unpack(*reinterpret_cast<const uint4*>(vs + r * HD + c * VEC), vf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float p = ex2(sc[j][gi] - m[gi]);
+        l[gi] += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // merge the RPW lane groups of each warp (lanes c, c + LPR, ...)
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float ao[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        ao[e] = __shfl_xor_sync(0xffffffffu, acc[gi][e], o);
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[gi], o);
+      merge_into(m[gi], l[gi], acc[gi], mo, lo, ao, VEC);
+    }
+  }
+  if (sub == 0 && act) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float* w = red + (warp * G + gi) * (HD + 2);
+      if (c == 0) {
+        w[0] = m[gi];
+        w[1] = l[gi];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) w[2 + c * VEC + e] = acc[gi][e];
     }
   }
   __syncthreads();
 
-  for (int idx = tid; idx < g * hd; idx += THREADS) {
-    const int gi = idx / hd, d = idx % hd;
-    const size_t bh = (size_t)b * H + kvh * g + gi;
-    acc_part[(bh * n_splits + split) * hd + d] = acc[idx];
+  // merge the warps: one thread per (head, column)
+  for (int i = tid; i < gc * HD; i += THREADS) {
+    const int gi = i / HD, d = i % HD;
+    float M = M0, ls = 0.f, a = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float* p = red + (w * G + gi) * (HD + 2);
+      merge_into(M, ls, &a, p[0], p[1], p + 2 + d, 1);
+    }
+    const size_t bh = (size_t)b * H + h0 + gi;
+    if (n_splits == 1) {
+      store(&out[bh * HD + d], a / fmaxf(ls, 1e-30f));
+    } else {
+      float* part = scratch + (bh * n_splits + split) * (HD + 2);
+      part[2 + d] = a;
+      if (d == 0) {
+        part[0] = M;
+        part[1] = ls;
+      }
+    }
   }
-  for (int gi = tid; gi < g; gi += THREADS) {
-    const size_t bh = (size_t)b * H + kvh * g + gi;
-    m_part[bh * n_splits + split] = m_s[gi];
-    l_part[bh * n_splits + split] = l_s[gi];
+  if (n_splits == 1) return;
+
+  // the last split block of this (b, kv head, head group) combines
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + (size_t)b * gridDim.y + blockIdx.y;
+  if (tid == 0) *flag = atomicAdd(ticket, 1) == n_splits - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int i = tid; i < gc * HD; i += THREADS) {
+    const int gi = i / HD, d = i % HD;
+    const size_t bh = (size_t)b * H + h0 + gi;
+    const float* part = scratch + bh * n_splits * (HD + 2);
+    float M = M0, ls = 0.f, a = 0.f;
+    for (int s = 0; s < n_splits; ++s) {
+      const float* p = part + s * (HD + 2);
+      const float ad = __ldcg(p + 2 + d);
+      merge_into(M, ls, &a, __ldcg(p), __ldcg(p + 1), &ad, 1);
+    }
+    store(&out[bh * HD + d], a / fmaxf(ls, 1e-30f));
   }
+  if (tid == 0) *ticket = 0;  // ready for the next call
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-decode_combine(const float* __restrict__ m_part,
-               const float* __restrict__ l_part,
-               const float* __restrict__ acc_part, T* __restrict__ out,
-               int hd, int n_splits) {
-  const size_t bh = blockIdx.x;
-  const float* mp = m_part + bh * n_splits;
-  const float* lp = l_part + bh * n_splits;
-  float M = NEG_INF;
-  for (int i = 0; i < n_splits; ++i) M = fmaxf(M, mp[i]);
-  float l = 0.f;
-  for (int i = 0; i < n_splits; ++i) l += lp[i] * expf(mp[i] - M);
-  const float den = fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int i = 0; i < n_splits; ++i)
-      a += acc_part[(bh * n_splits + i) * hd + d] * expf(mp[i] - M);
-    store(&out[bh * hd + d], a / den);
-  }
-}
-
-template <typename T>
+template <typename T, int HD, int G>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* out, void* m_part, void* l_part, void* acc_part, int B,
-           int H, int KV, int L, int hd, int chunk, int n_splits, float cap,
+           void* out, void* scratch, void* tickets, int B, int H, int KV,
+           int L, int chunk, int n_splits, int n_hg, float cap,
            cudaStream_t stream) {
-  const size_t bytes = smem_floats(H / KV, hd) * sizeof(float);
-  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  static size_t configured = 48 * 1024;
-  if (bytes > configured) {
+  const size_t bytes = smem_bytes<T, HD, G>();
+  static bool configured = false;
+  if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_kernel<T, HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    configured = bytes;
+    configured = true;
   }
-  const dim3 grid(n_splits, KV, B);
-  decode_split<T><<<grid, THREADS, bytes, stream>>>(
+  const dim3 grid(n_splits, KV * n_hg, B);
+  decode_kernel<T, HD, G><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(m_part), static_cast<float*>(l_part),
-      static_cast<float*>(acc_part), H, KV, L, hd, chunk, n_splits, cap,
-      1.0f / sqrtf((float)hd));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_combine<T><<<B * H, THREADS, 0, stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<T*>(out), hd,
-      n_splits);
+      static_cast<T*>(out), static_cast<float*>(scratch),
+      static_cast<int*>(tickets), H, KV, L, chunk, n_splits, n_hg, cap,
+      1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
+}
+
+// G: query heads per block rounded up to 2 or GROUP
+template <typename T, int HD>
+int by_group(int g, const void* q, const void* k, const void* v,
+             const void* bias, void* out, void* scratch, void* tickets, int B,
+             int H, int KV, int L, int chunk, int n_splits, int n_hg,
+             float cap, cudaStream_t st) {
+  if (g <= 2)
+    return launch<T, HD, 2>(q, k, v, bias, out, scratch, tickets, B, H, KV,
+                            L, chunk, n_splits, n_hg, cap, st);
+  return launch<T, HD, GROUP>(q, k, v, bias, out, scratch, tickets, B, H, KV,
+                              L, chunk, n_splits, n_hg, cap, st);
+}
+
+template <typename T>
+int by_head_dim(int hd, int g, const void* q, const void* k, const void* v,
+                const void* bias, void* out, void* scratch, void* tickets,
+                int B, int H, int KV, int L, int chunk, int n_splits,
+                int n_hg, float cap, cudaStream_t st) {
+#define REPRO_DECODE_HD(D)                                                   \
+  case D:                                                                    \
+    return by_group<T, D>(g, q, k, v, bias, out, scratch, tickets, B, H, KV, \
+                          L, chunk, n_splits, n_hg, cap, st);
+  switch (hd) {
+    REPRO_DECODE_HD(32)
+    REPRO_DECODE_HD(48)
+    REPRO_DECODE_HD(64)
+    REPRO_DECODE_HD(80)
+    REPRO_DECODE_HD(96)
+    REPRO_DECODE_HD(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_DECODE_HD
 }
 
 }  // namespace
 
-// cap <= 0: no softcap.  chunk: keys per split (a multiple of 64);
-// n_splits = ceil(L / chunk).  m_part/l_part [B,H,n_splits] and acc_part
-// [B,H,n_splits,hd] are fp32 scratch the caller allocates.
+// cap <= 0: no softcap.  chunk: keys per split (a multiple of 32);
+// n_splits = ceil(L / chunk); n_hg = ceil((H/KV) / 8) head groups per kv
+// head.  With n_splits > 1, scratch is fp32 [B, H, n_splits, hd + 2] and
+// tickets int32 [B, KV * n_hg], all zero before the call and left zero
+// after it; with one split both may be null.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* bias,
-                                      void* out, void* m_part, void* l_part,
-                                      void* acc_part, int B, int H, int KV,
-                                      int L, int hd, int chunk, int n_splits,
-                                      float cap, int is_bf16, void* stream) {
+                                      void* out, void* scratch, void* tickets,
+                                      int B, int H, int KV, int L, int hd,
+                                      int chunk, int n_splits, float cap,
+                                      int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || L <= 0 || hd <= 0 || H % KV != 0 ||
-      chunk <= 0 || n_splits != (L + chunk - 1) / chunk)
+      chunk <= 0 || chunk % 32 != 0 || n_splits != (L + chunk - 1) / chunk ||
+      (n_splits > 1 && (scratch == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const int g = H / KV;
+  const int n_hg = (g + GROUP - 1) / GROUP;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, bias, out, m_part, l_part,
-                                 acc_part, B, H, KV, L, hd, chunk, n_splits,
-                                 cap, st);
-  return launch<float>(q, k, v, bias, out, m_part, l_part, acc_part, B, H,
-                       KV, L, hd, chunk, n_splits, cap, st);
+    return by_head_dim<__nv_bfloat16>(hd, g, q, k, v, bias, out, scratch,
+                                      tickets, B, H, KV, L, chunk, n_splits,
+                                      n_hg, cap, st);
+  return by_head_dim<float>(hd, g, q, k, v, bias, out, scratch, tickets, B, H,
+                            KV, L, chunk, n_splits, n_hg, cap, st);
 }

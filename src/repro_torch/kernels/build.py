@@ -7,23 +7,28 @@ root.  The hash covers the source text and the compiler flags, so an
 edited source rebuilds and an unchanged one is loaded as it is.
 Importing this module compiles nothing and needs no ``nvcc``: the build
 runs inside ``load`` / ``build``, which only a CUDA launch reaches.
+``ptxas``'s report of each kernel's registers, spills and static shared
+memory is kept beside the library (``<name>-<hash>.log``) and read back
+by ``resources``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "rwkv6_scan", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -74,6 +79,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
                           f"{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)       # atomic: a reader sees all or none
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -88,3 +94,39 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def resources(name: str) -> List[str]:
+    """One line per kernel of the built ``csrc/<name>.cu``: its
+    (demangled, where ``c++filt`` exists) name, registers, spill bytes and
+    static shared memory, from ``ptxas -v``, and whether ptxas serialized
+    its ``wgmma`` pipeline (warning C7514); empty if not built here."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    text = log.read_text()
+    serialized = set(re.findall(r"wgmma\.mma_async instructions are "
+                                r"serialized.*?in the function '(\S+)'", text))
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([fn, f"{m.group(1)} registers", spill,
+                         f"{smem.group(1) if smem else 0} B static smem",
+                         "wgmma serialized" if fn in serialized else ""])
+            fn, spill = None, ""
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout
+        for r, n in zip(rows, names.splitlines()):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return [", ".join(x for x in r if x) for r in rows]

@@ -13,27 +13,33 @@ q ``[B, H, hd]``, k/v ``[B, L, KV, hd]``, bias ``[B, L]`` fp32 additive
 ``softmax(cap*tanh((q.k/sqrt(hd))/cap) + bias) . v`` over kv head
 ``h // (H // KV)``.
 
-The kernel splits L across blocks (flash-decoding): the wrapper picks the
-split length so that B*KV*splits blocks fill the card, allocates the
-per-split partial (max, denominator, accumulator) buffers, and one C
-call launches the split pass and the combine pass.
+The kernel splits L across blocks (flash-decoding) and combines the
+splits in the same launch: ``plan`` picks the splits so that the blocks
+fill the card's SMs and sizes the one fp32 scratch buffer the wrapper
+allocates per call (none with one split); the combine's atomic tickets
+live in a zeroed int32 buffer kept per device, which the kernel leaves
+zeroed.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-TILE = 64            # keys per shared-memory tile in the kernel
-TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+HEAD_DIMS = (32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
+TILE = 32            # keys per split come in multiples of this (one bf16
+                     # shared-memory tile, two fp32 ones)
+GROUP = 4            # query heads per block at most
 
 launches = 0        # kernel launches since the last reset (chip_smoke reads)
 
 _fn = None
+_tickets: Dict[torch.device, torch.Tensor] = {}
+_sms: Dict[torch.device, int] = {}
 
 
 def decode_attention_plain(q, k, v, bias, *, cap: Optional[float] = None):
@@ -51,12 +57,47 @@ def decode_attention_plain(q, k, v, bias, *, cap: Optional[float] = None):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
-def split_len(B: int, KV: int, L: int) -> int:
-    """Keys per split: a multiple of TILE, so that B*KV*splits is about
-    TARGET_BLOCKS (never more splits than tiles)."""
+class Plan(NamedTuple):
+    splits: int        # blocks along L per (b, kv head, head group)
+    chunk: int         # keys per split, a multiple of TILE
+    head_groups: int   # ceil((H / KV) / GROUP)
+    scratch: int       # fp32 elements of the per-call scratch (0: none)
+    tickets: int       # int32 tickets the combine needs (0: none)
+
+
+def plan(B: int, H: int, KV: int, L: int, hd: int, sms: int) -> Plan:
+    """Launch plan of one call on a card of ``sms`` SMs: as many splits as
+    keep the B*KV*head_groups*splits blocks within one block per SM (so
+    one split once the blocks alone fill the SMs), never more splits than
+    TILE-key tiles; with more than one split, scratch holds each split's
+    (max, denominator, accumulator[hd]) per query head,
+    ``[B, H, splits, hd + 2]``."""
+    hg = -(-(H // KV) // GROUP)
     n_tiles = -(-L // TILE)
-    splits = max(1, min(n_tiles, -(-TARGET_BLOCKS // max(B * KV, 1))))
-    return TILE * (-(-n_tiles // splits))
+    want = max(1, min(n_tiles, sms // max(B * KV * hg, 1)))
+    chunk = TILE * -(-n_tiles // want)
+    splits = -(-L // chunk)
+    if splits == 1:
+        return Plan(1, chunk, hg, 0, 0)
+    return Plan(splits, chunk, hg, B * H * splits * (hd + 2), B * KV * hg)
+
+
+def _ticket_buffer(device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least n tickets, kept per device: the
+    kernel's combining block resets each ticket it used to 0."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
+
+
+def _sm_count(device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sms[device] = n
+    return n
 
 
 def _kernel():
@@ -64,7 +105,7 @@ def _kernel():
     if _fn is None:
         from repro_torch.kernels import build
         fn = build.load("decode_attention").repro_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -91,8 +132,12 @@ def _check(q, k, v, bias):
                          f"{(B, k.shape[1])}")
     if H % k.shape[2]:
         raise ValueError(f"H={H} is not a multiple of KV={k.shape[2]}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in (q, k, v, bias)):
         raise ValueError("decode_attention takes contiguous q, k, v, bias")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention takes q, k, v aligned to 16 bytes")
 
 
 def decode_attention(q, k, v, bias, *, cap: Optional[float] = None):
@@ -110,18 +155,19 @@ def decode_attention(q, k, v, bias, *, cap: Optional[float] = None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    chunk = split_len(B, KV, L)
-    n_splits = -(-L // chunk)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, H, n_splits), **f32)
-    l_part = torch.empty((B, H, n_splits), **f32)
-    acc_part = torch.empty((B, H, n_splits, hd), **f32)
+    p = plan(B, H, KV, L, hd, _sm_count(q.device))
+    scratch = tickets = None
+    if p.splits > 1:
+        scratch = torch.empty(p.scratch, dtype=torch.float32,
+                              device=q.device)
+        tickets = _ticket_buffer(q.device, p.tickets)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        bias.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-                        l_part.data_ptr(), acc_part.data_ptr(),
-                        B, H, KV, L, hd, chunk, n_splits,
+                        bias.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        None if tickets is None else tickets.data_ptr(),
+                        B, H, KV, L, hd, p.chunk, p.splits,
                         0.0 if cap is None else float(cap),
                         int(q.dtype == torch.bfloat16), stream)
     if err != 0:

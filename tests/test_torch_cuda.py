@@ -82,30 +82,50 @@ def test_decode_attention_cuda(B, H, KV, hd, L, cap, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,hd,window", [(1, 64, None), (64, 32, None),
                                          (65, 48, 1), (129, 96, 64)])
-def test_flash_attention_cuda_edges(S, hd, window):
-    """Sequence lengths at and around the 64-row tile, every instantiated
-    head dim, and the narrowest window (a row attends to itself only)."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_edges(S, hd, window, dtype):
+    """Sequence lengths at and around the 64-row tile, head dims below and
+    between the 64-column panels, and the narrowest window (a row attends
+    to itself only), on the CUDA-core (fp32) and tensor-core (bf16)
+    kernels."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn(s, generator=g, device=dev) for s in
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(DT[dtype]) for s in
                ((2, S, 4, hd), (2, S, 2, hd), (2, S, 2, hd)))
     out = t_flash.flash_attention(q, k, v, causal=True, window=window)
     ref = t_flash.flash_attention_plain(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
-                               **tol("float32"))
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_counts_tensor_core_launches():
+    """bf16 takes the tensor-core kernel and fp32 the CUDA-core one, as
+    the CUDA source reports each launch; the wrapper counts every launch
+    and the tensor-core ones apart."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(8)
+    for dtype, tc in (("bfloat16", 1), ("float32", 0)):
+        q, k, v = (torch.randn((1, 70, 4, 64), generator=g,
+                               device=dev).to(DT[dtype]) for _ in range(3))
+        n, n_tc = t_flash.launches, t_flash.launches_tc
+        t_flash.flash_attention(q, k, v)
+        assert (t_flash.launches, t_flash.launches_tc) == (n + 1, n_tc + tc)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [1, 64, 65, 200])
-def test_decode_attention_cuda_edges(L):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_cuda_edges(L, dtype):
     """L at and around the tile, and a row whose every entry is masked:
     the finite NEG_INF makes it a uniform average over exactly L keys."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(2)
     B, H, KV, hd = 3, 16, 1, 64
-    q = torch.randn((B, H, hd), generator=g, device=dev)
-    k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev)
+    dt = DT[dtype]
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev).to(dt)
             for _ in range(2))
     bias = torch.zeros((B, L), device=dev)
     bias[1] = -1e30
@@ -113,10 +133,36 @@ def test_decode_attention_cuda_edges(L):
     out = t_decode.decode_attention(q, k, v, bias)
     ref = t_decode.decode_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
-                               **tol("float32"))
-    torch.testing.assert_close(out[1], v[1].mean(0).expand(H, hd),
-                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol(dtype))
+    torch.testing.assert_close(out[1].float(),
+                               v[1].float().mean(0).expand(H, hd),
+                               **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_cuda_many_splits(dtype):
+    """One (b, kv head) pair and a long cache: the plan cuts L into many
+    splits, which the last block to finish combines in the same launch;
+    a second call finds the tickets reset."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, H, KV, hd, L = 1, 8, 1, 128, 4096
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert t_decode.plan(B, H, KV, L, hd, sms).splits > 16
+    dt = DT[dtype]
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    keep = torch.rand((B, L), generator=g, device=dev) < 0.5
+    bias = torch.where(keep, 0.0, -1e30).float()
+    ref = t_decode.decode_attention_plain(q, k, v, bias)
+    for _ in range(2):
+        out = t_decode.decode_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol(dtype))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -115,6 +115,52 @@ def test_wrappers_count_no_launch_on_cpu():
             t_mamba.launches) == before
 
 
+@pytest.mark.parametrize("sms", [132, 114])       # H100 SXM, H100 PCIe
+@pytest.mark.parametrize("B,H,KV,L,hd", [
+    (16, 16, 8, 320, 128), (16, 64, 8, 320, 128),   # serving: qwen3, jamba
+    (1, 8, 1, 4096, 128), (3, 16, 1, 200, 64), (2, 4, 2, 1, 80),
+    (1, 1, 1, 1, 32), (4, 4, 4, 77, 64), (48, 48, 8, 2048, 96),
+    (1, 128, 1, 31, 48), (2, 24, 8, 33, 128),
+])
+def test_decode_plan(B, H, KV, L, hd, sms):
+    """The decode launch plan: at least one split, never more splits than
+    TILE-key tiles, keys per split a multiple of the tile, every split
+    non-empty, at most one block per SM once L is split and one split
+    only where a second would pass that, and scratch and tickets sized to
+    the buffers the kernel indexes (none with one split)."""
+    p = t_decode.plan(B, H, KV, L, hd, sms)
+    n_tiles = -(-L // t_decode.TILE)
+    assert 1 <= p.splits <= n_tiles
+    assert p.chunk % t_decode.TILE == 0 and p.chunk > 0
+    assert (p.splits - 1) * p.chunk < L <= p.splits * p.chunk
+    assert p.head_groups == -(-(H // KV) // t_decode.GROUP)
+    blocks = B * KV * p.head_groups
+    if p.splits == 1:
+        assert p.scratch == p.tickets == 0
+        assert n_tiles == 1 or blocks * 2 > sms
+    else:
+        assert p.scratch == B * H * p.splits * (hd + 2)
+        assert p.tickets == blocks
+        assert blocks * p.splits <= sms
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", list(t_flash.HEAD_DIMS))
+def test_flash_path_and_head_dims(hd, dtype):
+    """The dtype alone picks the flash kernel (bf16: tensor cores, fp32:
+    CUDA cores), and the wrapper's checks take every head dim the CUDA
+    source instantiates and refuse any other before a launch."""
+    tdt = DT[dtype][2]
+    assert t_flash.tensor_core_path(tdt) == (dtype == "bfloat16")
+    q = torch.zeros((1, 3, 2, hd), dtype=tdt)
+    t_flash._check(q, q, q)
+    q = torch.zeros((1, 3, 2, hd + 8), dtype=tdt)
+    with pytest.raises(ValueError, match="head dim"):
+        t_flash._check(q, q, q)
+    with pytest.raises(TypeError):
+        t_flash.tensor_core_path(torch.float16)
+
+
 @pytest.mark.parametrize("B,S,H,N,chunk", [
     (2, 128, 2, 32, 32), (1, 100, 4, 64, 64),   # padding path
     (2, 64, 1, 16, 16), (1, 64, 2, 128, 32),
