@@ -14,8 +14,8 @@ its result:
              fails without CUDA.
   2. build   nvcc builds every kernel of the paths from
              src/repro_torch/csrc (one nvcc per source, in parallel) into
-             build/kernels/; ptxas's registers and spills per attention
-             kernel.
+             build/kernels/; ptxas's registers, spills and shared memory
+             per kernel of every source.
   3. kernels each CUDA kernel against its plain PyTorch version at the
              serving paths' shapes (attention also at Jamba's GQA-8
              heads) and on a small matrix, timed beside the plain version
@@ -25,9 +25,14 @@ its result:
              Attention: GQA/MQA, hd 64/80/128, window, softcap, ragged S
              and L, fp32 and bf16; tolerance 2e-4 fp32 with TF32 off,
              2e-2 bf16.  RWKV6 scan: N 32/64/128, S 1/63/65/100/256, B 1
-             and 3; tolerance 2e-3 (rtol and atol).  Mamba scan: ds 8/16,
-             S 1/32/48/63/64/65/100, ragged d_inner; tolerance 1e-3
-             (rtol and atol) on y and h_end.
+             and 3, and strong decay (logw about -20) at chunks 16/32/64
+             with S 150 and 77; tolerance 2e-3 (rtol and atol).  Mamba
+             scan: ds 8/16, S 1/32/48/63/64/65/100 and 2048, ragged
+             d_inner, dt*A down to -30 and below (d_inner 198: the 4-byte
+             copy path); tolerance 1e-3 (rtol and atol) on y and h_end.
+             Each scan's exponential count beside its time at 16 a clock
+             per SM, at the SM clock nvidia-smi reads while the kernel
+             runs (a note: the bound stays bytes / operations).
   4. parity  full-width fp32 qwen3-0.6b served twice on the same seeded
              weights and prompts, with the kernels and with the plain
              attention: greedy tokens and masks identical, logprobs
@@ -60,6 +65,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -67,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+EXP_PER_CLOCK_PER_SM = 16          # MUFU exponentials (CUDA guide, cc 9.0)
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 ARCH = "qwen3-0.6b"
 RWKV_ARCH = "rwkv6-3b"
@@ -153,22 +160,30 @@ def rel_err(a, b, rtol: float) -> float:
 
 
 def rwkv_work(B: int, S: int, H: int, N: int, C: int):
-    """(bytes, fp32 FLOPs, exponentials) of the chunked RWKV6 scan on these
-    shapes: each input read once, y and the state written once; the
-    arithmetic of chunks of C positions (the last one ragged), counting
-    only the s < t pairs of each chunk's score matrix."""
+    """(bytes, fp32 FLOPs, exponentials) of the RWKV6 scan as the
+    sub-chunked algorithm computes it on these shapes: each input read
+    once, y and the state written once; chunks of C positions (the last
+    one ragged) cut into sub-chunks of 16.  Scores: inside a sub-chunk one
+    exponential and 4 operations per (t, s, n) of its pairs s < t; across
+    sub-chunks 2 N per pair, on r and k decayed at an exponential and 2
+    operations per element (r once per row past the first sub-chunk, k
+    once per row and later sub-chunk)."""
     nbytes = 4 * (5 * B * S * H * N + H * N + B * H * N * N)
     flops = exps = 0
     for c0 in range(0, S, C):
         c = min(C, S - c0)
-        pairs = c * (c - 1) // 2
-        flops += pairs * N * 4          # scores: difference, two products, sum
+        sub = [min(16, c - i) for i in range(0, c, 16)]
+        diag = sum(n * (n - 1) // 2 for n in sub)
+        cross = c * (c - 1) // 2 - diag
+        decayed = c - sub[0] + sum(n * (len(sub) - 1 - i)
+                                   for i, n in enumerate(sub))
+        flops += diag * N * 4 + cross * N * 2 + decayed * N * 2
         flops += c * N * 3              # diagonal r . u . k
         flops += c * N * (2 * N + 1)    # r * e^{cum_ex}, then @ S
-        flops += (pairs + c) * N * 2    # scores @ v over s <= t
+        flops += (c * (c + 1) // 2) * N * 2   # scores @ v over s <= t
         flops += c * N * (2 * N + 2)    # k * e^{total - cum}, then ^T @ v
         flops += N * N                  # e^{total} * S
-        exps += pairs * N + 2 * c * N + N
+        exps += (diag + decayed + 2 * c) * N + N
     return nbytes, flops * B * H, exps * B * H
 
 
@@ -180,6 +195,53 @@ def mamba_work(B: int, S: int, di: int, ds: int):
     dt*x once per channel and step."""
     nbytes = 4 * (3 * B * S * di + 2 * B * S * ds + di * ds + B * di * ds)
     return nbytes, B * S * di * (7 * ds + 1)
+
+
+def sm_clock_mhz(fn, torch, seconds: float = 1.0,
+                 limit: float = 30.0) -> float:
+    """Median SM clock (MHz) that nvidia-smi reads while ``fn`` runs back to
+    back for about ``seconds`` (at least three readings).  Fails if the
+    reader fails (no nvidia-smi, a reading that is not a number) or has not
+    read three times within ``limit`` seconds."""
+    readings, errors, done = [], [], threading.Event()
+
+    def poll():
+        try:
+            while not done.is_set():
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=60, check=True).stdout.split()
+                readings.append(float(out[0]))
+        except Exception as exc:        # re-raised below, in the caller
+            errors.append(exc)
+
+    th = threading.Thread(target=poll)
+    th.start()
+    t0 = time.monotonic()
+    try:
+        while not errors and time.monotonic() - t0 < limit and (
+                time.monotonic() - t0 < seconds or len(readings) < 3):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        done.set()
+        th.join()
+    check(not errors, f"reading clocks.sm with nvidia-smi failed: "
+          f"{errors[0] if errors else ''!r}")
+    check(len(readings) >= 3, f"nvidia-smi read clocks.sm {len(readings)} "
+          f"times in {limit:.0f} s, not 3")
+    readings.sort()
+    return readings[len(readings) // 2]
+
+
+def exp_floor_line(name, n_exp, ms, mhz, sms) -> str:
+    floor = n_exp / (EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6) * 1e3
+    return (f"[3 kernels] {name} exponentials: {n_exp / 1e9:.4f} G, "
+            f"{floor:.4f} ms at {EXP_PER_CLOCK_PER_SM} a clock per SM on "
+            f"{sms} SMs at {mhz:.0f} MHz (nvidia-smi clocks.sm while it "
+            f"ran); kernel {ms:.4f} ms (note, not the bound)")
 
 
 def first_layers(cfg, n: int):
@@ -223,7 +285,7 @@ def main() -> None:
           f"{time.monotonic() - t0:.1f}s "
           f"({', '.join(f'{k} {v:.1f}s' for k, v in secs.items()) or 'cached'})",
           flush=True)
-    for name in ("flash_attention", "decode_attention"):
+    for name in build.SOURCES:
         for line in build.resources(name):
             print(f"[2 build] ptxas {name}: {line}", flush=True)
 
@@ -392,11 +454,11 @@ def main() -> None:
     rcfg = archs.get(RWKV_ARCH)
     RH, RN = rcfg.rwkv_n_heads, rcfg.rwkv_head_dim
 
-    def rwkv_inputs(B, S, H, N):
+    def rwkv_inputs(B, S, H, N, decay_shift=-1.0):
         r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev)
                    for _ in range(3))
         logw = -torch.exp(torch.randn((B, S, H, N), generator=g, device=dev)
-                          * 0.5 - 1.0)
+                          * 0.5 + decay_shift)
         return r, k, v, logw, torch.randn((H, N), generator=g,
                                           device=dev) * 0.5
 
@@ -431,6 +493,8 @@ def main() -> None:
           f"{plain_ms:.4f} ms, no library call, bound {max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB "
           f"= {b_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP + {exps / 1e9:.3f} G "
           f"exp = {b_ops:.4f} ms at 67 TFLOP/s fp32)", flush=True)
+    mhz = sm_clock_mhz(lambda: rw.rwkv6_scan(*ins), torch)
+    print(exp_floor_line("rwkv6_scan", exps, ms[0], mhz, sms), flush=True)
 
     n_cases = 0
     for N_ in (32, 64, 128):
@@ -443,6 +507,16 @@ def main() -> None:
                 check(rerr <= 2e-3, f"rwkv6_scan B{B_} S{S_} N{N_}: "
                       f"allclose ratio {rerr}")
                 n_cases += 1
+    for chunk in rw.CHUNKS:              # strong decay: logw about -20
+        for S_ in (150, 77):
+            ins = rwkv_inputs(2, S_, 3, 64, decay_shift=3.0)
+            y, st = rw.rwkv6_scan(*ins, chunk=chunk)
+            yr, sr = rw.rwkv6_scan_plain(*ins)
+            rerr = max(rel_err(y, yr, 2e-3), rel_err(st, sr, 2e-3))
+            check(bool(torch.isfinite(y).all()) and rerr <= 2e-3,
+                  f"rwkv6_scan strong decay chunk {chunk} S{S_}: allclose "
+                  f"ratio {rerr}")
+            n_cases += 1
     torch.cuda.synchronize()
     print(f"[3 kernels] rwkv6_scan small matrix: {n_cases} cases agree with "
           f"the per-token recurrence (2e-3)", flush=True)
@@ -490,18 +564,28 @@ def main() -> None:
           f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB = "
           f"{b_bytes:.4f} ms; {ops / 1e9:.2f} G fp32 operations = "
           f"{b_ops:.4f} ms at 67 TFLOP/s) | card {card}", flush=True)
+    mhz = sm_clock_mhz(lambda: mb.mamba_scan(*ins), torch)
+    print(exp_floor_line("mamba_scan", W * P * DI * DS, ms[0], mhz, sms),
+          flush=True)
     del ins, y, h, yr, hr
 
     n_cases = 0
     matrix = [(2, 64, 128, 16), (1, 100, 512, 16), (2, 32, 64, 8),
               (1, 48, 320, 16)]                     # tests/test_kernels.py
     matrix += [(2, S_, 200, ds_) for S_ in (1, 63, 65) for ds_ in (8, 16)]
-    for B_, S_, di_, ds_ in matrix:
+    matrix += [(2, 2048, 256, 16),                  # long: the ex2 precision
+               (2, 100, 256, 16, 10.0), (2, 100, 198, 16, 10.0)]  # underflow
+    for B_, S_, di_, ds_, *scale in matrix:
         ins = mamba_inputs(B_, S_, di_, ds_)
+        if scale:                       # dt * A down to -30 and below
+            ins = (ins[0] * scale[0] + 1.0, *ins[1:4], ins[4] * scale[0])
+            check(float((ins[0][..., None] * ins[4]).min()) <= -30.0,
+                  "the underflow case does not reach dt * A <= -30")
         y, h = mb.mamba_scan(*ins)
         yr, hr = mb.mamba_scan_plain(*ins)
         rerr = max(rel_err(y, yr, 1e-3), rel_err(h, hr, 1e-3))
-        check(rerr <= 1e-3, f"mamba_scan B{B_} S{S_} di{di_} ds{ds_}: "
+        check(bool(torch.isfinite(y).all()) and rerr <= 1e-3,
+              f"mamba_scan B{B_} S{S_} di{di_} ds{ds_} scale {scale}: "
               f"allclose ratio {rerr}")
         n_cases += 1
     torch.cuda.synchronize()

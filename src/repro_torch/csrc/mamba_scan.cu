@@ -11,91 +11,167 @@
 //   y_t = sum_s h_t[s] C_t[s]
 // (no D x skip: the caller adds it).
 //
-// What bounds it on an H100: bytes.  At the serving path's prefill shape
-// (dt/x [16,256,16384], ds 16) it moves 823.6 MB (dt, x and y at 268.4 MB
-// each, h_end 16.8 MB): 0.246 ms at 3.35 TB/s.  It computes about 7.5 G
-// fp32 operations (seven per state element and step, an exponential
-// counted as one): 0.112 ms at 67 TFLOP/s.  chip_smoke.py computes both
-// from the shapes it runs.
+// What bounds it on an H100: bytes by the formula chip_smoke.py applies.
+// At the serving path's prefill shape (dt/x [16,256,16384], ds 16) it moves
+// 823.6 MB (dt, x and y at 268.4 MB each, h_end 16.8 MB): 0.246 ms at 3.35
+// TB/s; its 7.5 G fp32 operations take 0.112 ms at 67 TFLOP/s.  It also
+// takes one exponential per state element and step, 1.07 G, and the
+// card's exponential unit (MUFU) does 16 a clock per SM: 0.257 ms at 1.98
+// GHz, as much as the bytes.  Measured (NVIDIA H100 80GB HBM3, 700 W):
+// 0.39 ms; a build without the exponentials runs at 0.29 ms (2.8 TB/s, the
+// streaming rate), one with half of them at 0.31 ms.  So streaming and the
+// MUFU together hold it: neither overlaps the other fully.  Moving one
+// exponential in 8 or 16 to an FMA-pipe polynomial, deeper copy rings (3,
+// 4 or 8 tiles of 4-8 steps) and fewer registers for more blocks were each
+// no faster.
 //
-// What this design does about it: the TPU kernel blocks channels by 256 and
-// walks time in chunks of 64 over a sequential grid axis, carrying h in
-// VMEM scratch from one chunk to the next; the chunk is a VMEM artifact.
-// The recurrence is elementwise in di, so here one thread owns one (b, d)
-// channel and keeps its h[ds] (and A's row) in registers for the whole
-// sequence: the only traffic is one read of dt and x and one write of y
-// per channel and step, coalesced across the 128 channels of a block, and
-// one write of h_end at the end.  B_t and C_t, shared by every channel of
-// a row, are staged in shared memory for a tile of T steps; each thread
-// loads its tile of dt and x into registers before the steps, so a
-// thread has 2T independent loads in flight.  Steps past S (the ragged
-// last tile) load dt = x = 0, which leaves h unchanged (exp(0) = 1), and
-// write no y; channels past di compute nothing and write nothing, so the
-// wrapper pads nothing.  The exponential is expf (not __expf), to hold
-// 1e-3 against the recurrence over long sequences.
+// What this design does about it:
+//   - the exponential is one FMUL and one ex2.approx.ftz.f32 on A's row
+//     pre-multiplied by log2(e) in registers; the accurate expf added its
+//     range reduction on the FMA pipe, about ten issue slots per element;
+//   - one thread per (b, d) channel holds h[ds] and A's row in registers
+//     (128 registers, four 128-thread blocks per SM), so the per-step work
+//     that is not per state element (dt, x, dt x, the y store) is shared by
+//     all ds elements; y sums four partial chains;
+//   - dt, x, B_t and C_t arrive as 16-step tiles through a 2-stage ring of
+//     16-byte cp.async copies (4-byte copies where di is not a multiple of
+//     4 or a pointer is not 16-byte aligned) whose source pointers step by
+//     one tile, so the next tile is in flight while one is computed, with
+//     one barrier per tile;
+//   - 2048 blocks at the serving shape over 4 x 132 resident: 3.9 waves,
+//     the last one nearly full.
+// Steps past S (the ragged last tile) load dt = x = 0 (cp.async's zero
+// fill), which leaves h unchanged (exp(0) = 1), and write no y; channels
+// past di compute on zeros and write nothing, so the wrapper pads nothing.
 //
 // C interface (ctypes): repro_mamba_scan returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;  // channels per block
-constexpr int T = 16;         // time steps per staged tile
+constexpr int THREADS = 128;  // channels per block, one thread each
+constexpr int T = 16;         // time steps per tile
+constexpr int STAGES = 2;     // tiles in the ring
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DS>
-__global__ void __launch_bounds__(THREADS)
+struct Tile {
+  float dt[T][THREADS], x[T][THREADS], b[T][DS], c[T][DS];
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// E-float asynchronous copy global -> shared (E = 4: 16 bytes); zero fill
+// when !ok
+template <int E>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (E == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0));
+}
+
+template <int DS, bool VEC>
+__global__ void __launch_bounds__(THREADS, 4)
 mamba_scan_fwd(const float* __restrict__ dt, const float* __restrict__ x,
                const float* __restrict__ Bm, const float* __restrict__ Cm,
                const float* __restrict__ A, float* __restrict__ y,
                float* __restrict__ h_end, int S, int di) {
-  static_assert(DS % 4 == 0, "h_end is stored as float4");
-  __shared__ float sb[T * DS];
-  __shared__ float sc[T * DS];
+  constexpr int E = VEC ? 4 : 1;           // floats per copy
+  constexpr int CPR = THREADS / E;         // copies per dt / x row
+  constexpr int RSTEP = THREADS / CPR;     // rows between a thread's copies
+  constexpr int BPR = DS / E;              // copies per B / C row
+  static_assert(DS % 4 == 0 && T % RSTEP == 0, "shape");
+  __shared__ __align__(16) Tile<DS> ring[STAGES];
 
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + threadIdx.x;
+  const int tid = threadIdx.x, b = blockIdx.y, d0 = blockIdx.x * THREADS;
+  const int d = d0 + tid;
   const bool active = d < di;
   const size_t row = (size_t)b * S;  // (b, t = 0)
 
   float a[DS], h[DS];
 #pragma unroll
   for (int s = 0; s < DS; ++s) {
-    a[s] = active ? A[(size_t)d * DS + s] : 0.f;
+    a[s] = active ? A[(size_t)d * DS + s] * LOG2E : 0.f;
     h[s] = 0.f;
   }
 
-  for (int t0 = 0; t0 < S; t0 += T) {
-    const int len = min(T, S - t0);
-    __syncthreads();  // the previous tile's readers of sb / sc are done
-    for (int i = threadIdx.x; i < T * DS; i += THREADS) {
-      const bool ok = i / DS < len;
-      const size_t off = (row + t0) * DS + i;
-      sb[i] = ok ? Bm[off] : 0.f;
-      sc[i] = ok ? Cm[off] : 0.f;
-    }
-    float dtv[T], xv[T];
+  // this thread's dt / x copies: column cc, rows tr + k * RSTEP of a tile;
+  // the source pointers step by T rows per tile
+  const int cc = (tid % CPR) * E, tr = tid / CPR;
+  const bool col_ok = d0 + cc < di;
+  const size_t rstride = (size_t)RSTEP * di, tstride = (size_t)T * di;
+  const float* dtp = dt + (row + tr) * di + d0 + cc;
+  const float* xp = x + (row + tr) * di + d0 + cc;
+  auto load = [&](int tile) {
+    Tile<DS>& tl = ring[tile % STAGES];
+    const int left = S - tile * T - tr;    // rows of this tile left at tr
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const bool ok = active && t < len;
-      const size_t off = (row + t0 + t) * di + d;
-      dtv[t] = ok ? dt[off] : 0.f;
-      xv[t] = ok ? x[off] : 0.f;
+    for (int k = 0; k < T / RSTEP; ++k) {
+      const bool ok = col_ok && k * RSTEP < left;
+      cp_async<E>(&tl.dt[tr + k * RSTEP][cc], ok ? dtp + k * rstride : dt,
+                  ok);
+      cp_async<E>(&tl.x[tr + k * RSTEP][cc], ok ? xp + k * rstride : x, ok);
     }
-    __syncthreads();
+    dtp += tstride;
+    xp += tstride;
+    for (int i = tid; i < 2 * T * BPR; i += THREADS) {
+      const int m = i / (T * BPR), j = i % (T * BPR);
+      const int t = j / BPR, s = (j % BPR) * E;
+      const bool ok = t < S - tile * T;
+      const float* src = m ? Cm : Bm;
+      cp_async<E>(m ? &tl.c[t][s] : &tl.b[t][s],
+                  ok ? src + (row + (size_t)tile * T + t) * DS + s : src, ok);
+    }
+  };
 
+  const int ntiles = (S + T - 1) / T;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ntiles) load(i);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  float* yp = y + row * di + d;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    // this tile's copies have landed; every reader of the stage refilled
+    // below (the previous tile's) is done
+    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();
+    if (tile + STAGES - 1 < ntiles) load(tile + STAGES - 1);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+
+    const Tile<DS>& tl = ring[tile % STAGES];
+    const int len = min(T, S - tile * T);
 #pragma unroll
     for (int t = 0; t < T; ++t) {
-      const float dx = dtv[t] * xv[t];
-      const float* bt = sb + t * DS;
-      const float* ct = sc + t * DS;
-      float acc = 0.f;
+      const float dtv = tl.dt[t][tid];
+      const float dx = dtv * tl.x[t][tid];
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int s = 0; s < DS; ++s) {
-        h[s] = fmaf(expf(dtv[t] * a[s]), h[s], dx * bt[s]);
-        acc = fmaf(h[s], ct[s], acc);
+      for (int s = 0; s < DS; s += 4) {
+        const float4 b4 = *reinterpret_cast<const float4*>(&tl.b[t][s]);
+        const float4 c4 = *reinterpret_cast<const float4*>(&tl.c[t][s]);
+        h[s] = fmaf(ex2(dtv * a[s]), h[s], dx * b4.x);
+        h[s + 1] = fmaf(ex2(dtv * a[s + 1]), h[s + 1], dx * b4.y);
+        h[s + 2] = fmaf(ex2(dtv * a[s + 2]), h[s + 2], dx * b4.z);
+        h[s + 3] = fmaf(ex2(dtv * a[s + 3]), h[s + 3], dx * b4.w);
+        acc[0] = fmaf(h[s], c4.x, acc[0]);
+        acc[1] = fmaf(h[s + 1], c4.y, acc[1]);
+        acc[2] = fmaf(h[s + 2], c4.z, acc[2]);
+        acc[3] = fmaf(h[s + 3], c4.w, acc[3]);
       }
-      if (active && t < len) y[(row + t0 + t) * di + d] = acc;
+      if (active && t < len) *yp = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      yp += di;
     }
   }
 
@@ -112,8 +188,15 @@ int launch(const float* dt, const float* x, const float* Bm, const float* Cm,
            const float* A, float* y, float* h_end, int B, int S, int di,
            cudaStream_t stream) {
   const dim3 grid((di + THREADS - 1) / THREADS, B);
-  mamba_scan_fwd<DS><<<grid, THREADS, 0, stream>>>(dt, x, Bm, Cm, A, y, h_end,
-                                                   S, di);
+  const bool vec = di % 4 == 0 &&
+                   ((uintptr_t)dt | (uintptr_t)x | (uintptr_t)Bm |
+                    (uintptr_t)Cm) % 16 == 0;
+  if (vec)
+    mamba_scan_fwd<DS, true><<<grid, THREADS, 0, stream>>>(
+        dt, x, Bm, Cm, A, y, h_end, S, di);
+  else
+    mamba_scan_fwd<DS, false><<<grid, THREADS, 0, stream>>>(
+        dt, x, Bm, Cm, A, y, h_end, S, di);
   return (int)cudaGetLastError();
 }
 

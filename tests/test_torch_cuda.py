@@ -213,14 +213,17 @@ def test_rwkv6_scan_cuda(N, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("S", [150, 77])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
 @pytest.mark.parametrize("decay_shift", [-1.0, 3.0])
-def test_rwkv6_scan_cuda_chunks_and_strong_decay(chunk, decay_shift):
-    """Smaller chunks give the same function, and a decay strong enough
-    that a factored exp(cum_ex) * exp(-cum) would overflow stays finite."""
+def test_rwkv6_scan_cuda_chunks_and_strong_decay(chunk, decay_shift, S):
+    """Every chunk gives the same function, S is no multiple of the
+    16-position sub-chunk, and a decay strong enough that a factored
+    exp(cum_ex) * exp(-cum) would overflow (logw about -20 at shift 3)
+    stays finite and exact."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(4)
-    ins = _rwkv_inputs(g, dev, 2, 150, 3, 64, decay_shift)
+    ins = _rwkv_inputs(g, dev, 2, S, 3, 64, decay_shift)
     y, st = t_rwkv.rwkv6_scan(*ins, chunk=chunk)
     yr, sr = t_rwkv.rwkv6_scan_plain(*ins)
     torch.cuda.synchronize()
@@ -279,11 +282,13 @@ def _mamba_inputs(g, dev, B, S, di, ds):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 63, 65, 256])
-@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("ds,S", [(ds, S) for ds in (8, 16)
+                                  for S in (1, 63, 65, 256)] + [(16, 2048)])
 def test_mamba_scan_cuda(ds, S):
-    """Sequence lengths around the 16-step tile, both instantiated state
-    dims, and d_inner a multiple of the 128-channel block and not."""
+    """Sequence lengths around the 16-step tile and a long one (2048
+    steps, for the base-2 approximate exponential), both instantiated
+    state dims, and d_inner a multiple of the 128-channel block and
+    not."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(6)
     for B, di in ((2, 256), (3, 200)):
@@ -293,6 +298,26 @@ def test_mamba_scan_cuda(ds, S):
         torch.cuda.synchronize()
         torch.testing.assert_close(y, yr, rtol=1e-3, atol=1e-3)
         torch.testing.assert_close(h, hr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di", [256, 198])
+def test_mamba_scan_cuda_underflow(di):
+    """dt * A down to -30 and below, where exp underflows: the kernel's
+    exponential flushes to 0 as the plain version's does.  di 198 is no
+    multiple of 4, so the 4-byte copy path runs."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt, x, Bm, Cm, A = _mamba_inputs(g, dev, 2, 100, di, 16)
+    dt = dt * 10.0 + 1.0
+    A = A * 10.0
+    assert float((dt[:, :, :, None] * A).min()) <= -30.0
+    y, h = t_mamba.mamba_scan(dt, x, Bm, Cm, A)
+    yr, hr = t_mamba.mamba_scan_plain(dt, x, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, yr, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(h, hr, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda

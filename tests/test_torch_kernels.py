@@ -188,6 +188,101 @@ def test_rwkv6_scan_plain_vs_pallas(B, S, H, N, chunk):
                                    rtol=2e-3, atol=2e-3)
 
 
+def _tf32_cut(x):
+    """x with its 13 low mantissa bits cleared: the TF32 value the tensor
+    core reads from an fp32 register."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as ``csrc/rwkv6_scan.cu``'s mma.sync products: each operand
+    split into hi = its TF32 cut and lo = x - hi (read as TF32 in turn),
+    lo.hi + hi.lo + hi.hi summed in fp32."""
+    a, b = np.float32(a), np.float32(b)
+    ah, bh = _tf32_cut(a), _tf32_cut(b)
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _rwkv6_subchunk_emulation(r, k, v, logw, u, chunk, sub=16):
+    """The CUDA kernel's decomposition in float32 numpy: per chunk the
+    prefix sum of log2(e) * logw, the diagonal sub-chunk blocks with one
+    exponential per (t, s, n), the off-diagonal blocks as 3xTF32 products
+    of r and k decayed against ref_j (cum_ex at the first row of
+    sub-chunk j), then y = r e^{cum_ex} S + A v and S <- e^{total} S +
+    (k e^{total - cum})^T v in 3xTF32.  Returns (y, state, the largest
+    exponent taken before any clamp)."""
+    B, S, H, N = r.shape
+    l2e = np.float32(1.4426950408889634)
+    ex2 = lambda x: np.exp2(np.minimum(x, 0)).astype(np.float32)
+    y = np.zeros_like(r)
+    state = np.zeros((B, H, N, N), np.float32)
+    top = -np.inf
+    for b in range(B):
+        for h in range(H):
+            St = np.zeros((N, N), np.float32)
+            for c0 in range(0, S, chunk):
+                n = min(chunk, S - c0)
+                pad = lambda a: np.concatenate(
+                    [a[b, c0:c0 + n, h], np.zeros((chunk - n, N), np.float32)])
+                rc, kc, vc, wc = (pad(a) for a in (r, k, v, logw))
+                cum = np.cumsum(wc * l2e, axis=0, dtype=np.float32)
+                ce = np.concatenate([np.zeros((1, N), np.float32), cum[:-1]])
+                A = np.zeros((chunk, chunk), np.float32)
+                for j in range(chunk // sub):
+                    tj = slice(j * sub, (j + 1) * sub)
+                    e = ce[tj, None, :] - cum[None, tj, :]      # [t, s, n]
+                    lower = np.tril(np.ones((sub, sub), bool), -1)
+                    top = max(top, e[lower].max(initial=-np.inf))
+                    A[tj, tj] = np.where(
+                        lower, (rc[tj, None] * kc[None, tj] * ex2(e)).sum(-1),
+                        0) + np.diag((rc[tj] * u[h] * kc[tj]).sum(-1))
+                    ref = ce[j * sub]
+                    for i in range(j):
+                        si = slice(i * sub, (i + 1) * sub)
+                        er, ek = ce[tj] - ref, ref - cum[si]
+                        top = max(top, er.max(), ek.max())
+                        A[tj, si] = _mm_3xtf32(rc[tj] * ex2(er),
+                                               (kc[si] * ex2(ek)).T)
+                total = cum[-1]
+                top = max(top, ce.max(), (total - cum).max())
+                yc = _mm_3xtf32(rc * ex2(ce), St) + _mm_3xtf32(A, vc)
+                y[b, c0:c0 + n, h] = yc[:n]
+                St = ex2(total)[:, None] * St + _mm_3xtf32(
+                    (kc * ex2(total - cum)).T, vc)
+            state[b, h] = St
+    return y, state, top
+
+
+@pytest.mark.parametrize("decay_shift", [-1.0, 3.0])
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (2, 128, 2, 32, 32), (1, 100, 4, 64, 64),   # padding path
+    (2, 64, 1, 16, 16), (1, 64, 2, 128, 32),
+])
+def test_rwkv6_subchunk_tf32_emulation_vs_pallas(B, S, H, N, chunk,
+                                                 decay_shift):
+    """The CUDA kernel's algorithm (sub-chunks of 16, the ref_j factoring,
+    3xTF32 products), emulated on the CPU, against the JAX Pallas kernel in
+    interpret mode and the JAX recurrence at 2e-3, at the usual decay and
+    at logw about -20 (shift 3.0), where a factored e^{cum_ex} e^{-cum}
+    overflows.  Every exponent it takes is <= 0.  (Plain TF32 products,
+    one pass, miss 2e-3 on this matrix: up to 1.5e-2.)"""
+    rng = np.random.default_rng(21)
+    r, k, v = (rng.standard_normal((B, S, H, N)).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(rng.standard_normal((B, S, H, N)) * 0.5 + decay_shift) \
+        .astype(np.float32)
+    u = (rng.standard_normal((H, N)) * 0.5).astype(np.float32)
+    ye, se, top = _rwkv6_subchunk_emulation(r, k, v, logw, u, chunk)
+    assert top <= 0.0
+    assert np.isfinite(ye).all() and np.isfinite(se).all()
+    for yj, sj in (j_rwkv(r, k, v, logw, u, chunk=chunk),
+                   j_rwkv_ref(r, k, v, logw, u)):
+        np.testing.assert_allclose(ye, np.asarray(yj), rtol=2e-3, atol=2e-3)
+        np.testing.assert_allclose(se, np.asarray(sj), rtol=2e-3, atol=2e-3)
+
+
 def test_rwkv_kernel_routing(monkeypatch):
     """Under "kernel" every prefill layer calls the rwkv wrapper (once per
     layer, zero state); decode steps (carried state) never do; "plain"
