@@ -7,8 +7,9 @@ Drives the port's serving path (``repro_torch``; no JAX, nothing of the
 JAX package) at the full width of qwen3-0.6b (attention), of rwkv6-3b
 (RWKV6 time mix) and of jamba-1.5-large-398b (attention + Mamba, dense
 and MoE FFNs; its first 2 and 4 layers, since the whole model does not
-fit one card) and exits non-zero on any failure.  Phases, each printing
-its result:
+fit one card), then the RL path (scheduler -> Plan -> engine -> GEN /
+INF / TRAIN -> sync) at qwen3-0.6b's full width, and exits non-zero on
+any failure.  Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
              fails without CUDA.
@@ -32,7 +33,11 @@ its result:
              copy path); tolerance 1e-3 (rtol and atol) on y and h_end.
              Each scan's exponential count beside its time at 16 a clock
              per SM, at the SM clock nvidia-smi reads while the kernel
-             runs (a note: the bound stays bytes / operations).
+             runs (a note: the bound stays bytes / operations).  Both
+             attention kernels also in fp32 at the RL path's shapes (GEN
+             prefill of a wave of 32, INF over 64 rollouts of 8 tokens,
+             a decode step of the wave), with their plain versions and
+             sdpa.
   4. parity  full-width fp32 qwen3-0.6b served twice on the same seeded
              weights and prompts, with the kernels and with the plain
              attention: greedy tokens and masks identical, logprobs
@@ -55,6 +60,24 @@ its result:
              kernel of the path launches exactly once per layer per
              admit (mamba_scan, flash_attention, all on the tensor cores)
              or per decode step (decode_attention).
+ 10. parity  RL: one greedy PPO iteration of full-width qwen3-0.6b (vocab
+             16, fp32), 16 prompts x 4 rollouts = 64 rows (two decode
+             waves), run twice from the same state: with the kernels and
+             with the plain attention everywhere.  Tokens and masks
+             identical, log-probs / reference log-probs / values / GAE
+             advantages before whitening within 1e-3, critic loss and
+             grad norm within 1e-3 relative (the policy loss, about
+             1e-8 over an unchanged policy, is printed only); the kernel
+             run launches flash_attention in GEN and INF and
+             decode_attention in GEN, TRAIN launches nothing (counts set
+             to 0 at each stage boundary), the plain run nothing.
+ 11. train   ``repro_torch.launch.train --arch qwen3-0.6b --batch 16``
+             through ``run_rl``: GRPO 3 steps, GRPO --async 3 steps, PPO
+             2 steps (plan, predicted and measured ms/iter, each task's
+             ms from the Event timeline, peak memory, launches per stage);
+             then the e2e actor (d 192, 4 layers) for 30 GRPO iterations,
+             its reward printed.  The RL rows of the kernels line take
+             their launches from the GRPO run.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -63,6 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -247,6 +271,243 @@ def exp_floor_line(name, n_exp, ms, mhz, sms) -> str:
 def first_layers(cfg, n: int):
     """The first n layers of cfg's pattern at full width (a depth cut)."""
     return dataclasses.replace(cfg, n_layers=n, pattern=cfg.pattern[:n])
+
+
+def rel_close(a: float, b: float, rtol: float = 1e-3) -> bool:
+    """|a - b| within rtol of the larger magnitude."""
+    return abs(a - b) <= rtol * max(abs(a), abs(b))
+
+
+class StageLaunches:
+    """Kernel launches per engine stage of each RL iteration: a wrapper of
+    the trainer's ``before_stage`` hook (called before every stage) and of
+    ``iteration`` reads the attention kernels' counts at each stage
+    boundary and sets them to 0 again, so each stage reads its own."""
+
+    def __init__(self, fa, dec):
+        self.fa, self.dec = fa, dec
+        self.iters = []           # [[(task names, flash, decode), ...], ...]
+        self._stage = None
+
+    def _close_stage(self):
+        if self._stage is not None:
+            self.iters[-1].append((self._stage, self.fa.launches,
+                                   self.dec.launches))
+        self.fa.launches = self.fa.launches_tc = self.dec.launches = 0
+
+    def install(self, cls):
+        orig_bs, orig_it = cls.before_stage, cls.iteration
+        hook = self
+
+        def before_stage(trainer, stage_tasks, bb):
+            hook._close_stage()
+            hook._stage = tuple(t.name for t in stage_tasks)
+            hook.bb = bb
+            return orig_bs(trainer, stage_tasks, bb)
+
+        def iteration(trainer, *a, **k):
+            hook.iters.append([])
+            hook._stage = None
+            hook._close_stage()
+            try:
+                return orig_it(trainer, *a, **k)
+            finally:
+                hook._close_stage()
+                hook._stage = None
+        cls.before_stage, cls.iteration = before_stage, iteration
+        return lambda: (setattr(cls, "before_stage", orig_bs),
+                        setattr(cls, "iteration", orig_it))
+
+    def by_kind(self, it: int):
+        """{"GEN"/"INF"/"TRAIN": (flash, decode)} of iteration ``it``."""
+        out = {}
+        for names, f, d in self.iters[it]:
+            kind = ("GEN" if "actor_generation" in names else
+                    "TRAIN" if any(n.endswith("_training") for n in names)
+                    else "INF")
+            pf, pd = out.get(kind, (0, 0))
+            out[kind] = (pf + f, pd + d)
+        return out
+
+
+def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
+    """One greedy PPO iteration of full-width qwen3-0.6b (vocab 16, fp32)
+    with 16 prompts x 4 rollouts = 64 rows (two decode waves of 32) on
+    the colocated plan, run twice from the same seeded state: with the
+    kernels as shipped and with the plain attention everywhere."""
+    from repro_torch.data.synthetic import (AdditionTask, PromptDataset,
+                                            VOCAB_SIZE)
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    t0 = time.monotonic()
+    rcfg = dataclasses.replace(cfg, vocab_size=VOCAB_SIZE, dtype="float32")
+    task = AdditionTask(max_operand=9)
+    trainer = RLTrainer(rcfg, RLConfig(algorithm="ppo", n_rollouts=4,
+                                       max_new_tokens=task.max_answer_len,
+                                       lr=1e-3, greedy=True),
+                        task, seed=0, device=dev)
+    state0 = trainer.state_tree()      # the steps are functional
+    prompts, answers = next(iter(PromptDataset(task, batch=16, seed=1)))
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(type(trainer))
+    runs = {}
+    try:
+        for impl in ("kernel", "plain"):
+            attn.set_attention_impl(impl)
+            trainer.load_state_tree(state0)
+            m = trainer.iteration(prompts, answers, None)
+            torch.cuda.synchronize()
+            runs[impl] = (m, hook.bb, hook.by_kind(-1))
+    finally:
+        attn.set_attention_impl("kernel")
+        restore()
+    (mk, bk, lk), (mp, bp, lp) = runs["kernel"], runs["plain"]
+    rk, rp = bk["bundle"]["rollout"], bp["bundle"]["rollout"]
+    check(tuple(rk["gen_tokens"].shape) == (64, task.max_answer_len),
+          f"bad rollout shape {tuple(rk['gen_tokens'].shape)}")
+    same_tok = torch.equal(rk["sequences"], rp["sequences"])
+    same_mask = torch.equal(rk["mask"], rp["mask"])
+    # GAE's advantages before whitening: returns = advantages + values
+    adv = {impl: b["returns"] - b["values"] * b["batch"]["mask"]
+           for impl, b in (("kernel", bk), ("plain", bp))}
+    errs = {k: max_err(a, b) for k, a, b in (
+        ("logprobs", rk["logprobs"], rp["logprobs"]),
+        ("lp_ref", bk["lp_ref"], bp["lp_ref"]),
+        ("values", bk["values"], bp["values"]),
+        ("advantages", adv["kernel"], adv["plain"]))}
+    # the policy loss is printed, not held: over an unchanged policy it is
+    # the mean of whitened advantages, about 1e-8, whatever they are
+    rel = {k: (mk[k], mp[k]) for k in ("critic_loss", "grad_norm")}
+    finite = all(torch.isfinite(x).all() for x in (
+        rk["logprobs"], bk["lp_ref"], bk["values"],
+        bk["batch"]["advantages"]))
+    print(f"[10 parity] {ARCH} RL, fp32 full width ({rcfg.n_layers} layers, "
+          f"d {rcfg.d_model}, vocab {rcfg.vocab_size}, "
+          f"{rcfg.param_count() / 1e9:.3f} B parameters), greedy PPO, 16 "
+          f"prompts x 4 rollouts = 64 rows, colocated plan: tokens identical="
+          f"{same_tok} masks identical={same_mask}; max diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + " (tol 1e-3); " + ", ".join(
+              f"{k} {a:.6g} vs {b:.6g}" for k, (a, b) in rel.items())
+          + f" (rtol 1e-3); policy loss {mk['loss']:.3g} vs "
+          f"{mp['loss']:.3g} (not held) | card {card}", flush=True)
+    print(f"[10 parity] launches per stage (flash, decode): kernel run "
+          f"{lk}, plain run {lp}; {time.monotonic() - t0:.1f}s | card "
+          f"{card}", flush=True)
+    check(finite, "non-finite log-probs, values or advantages")
+    check(same_tok and same_mask, "kernel and plain RL runs generate "
+          "different tokens")
+    check(all(v <= 1e-3 for v in errs.values()), f"RL parity: {errs}")
+    check(all(rel_close(a, b) for a, b in rel.values()),
+          f"RL losses disagree: {rel}")
+    check(lk["GEN"][0] > 0 and lk["GEN"][1] > 0 and lk["INF"][0] > 0,
+          f"the kernel run did not launch both kernels in GEN and flash in "
+          f"INF: {lk}")
+    check(lk["INF"][1] == 0, f"INF launched decode_attention: {lk}")
+    check(lk["TRAIN"] == (0, 0), f"TRAIN launched kernels: {lk}")
+    check(all(v == (0, 0) for v in lp.values()),
+          f"the plain run launched kernels: {lp}")
+
+
+def rl_phase11(torch, dev, fa, dec, card):
+    """``repro_torch.launch.train`` at qwen3-0.6b's full width through
+    ``run_rl``: GRPO 3 steps, GRPO --async 3 steps, PPO 2 steps, batch 16;
+    then the e2e actor for 30 GRPO iterations.  Returns the launches at
+    each RL-path shape in the first run (GRPO, the searched plan)."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.rl.trainer import RLTrainer
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(RLTrainer)
+    totals = None
+    try:
+        for extra in (["--rl", "grpo", "--steps", "3"],
+                      ["--rl", "grpo", "--steps", "3", "--async"],
+                      ["--rl", "ppo", "--steps", "2"]):
+            argv = ["--arch", ARCH, "--batch", "16"] + extra
+            hook.iters.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.monotonic()
+            print(f"[11 train] python -m repro_torch.launch.train "
+                  f"{' '.join(argv)}", flush=True)
+            out = train_mod.run_rl(train_mod.parse_args(argv))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            tr, cmp = out["trainer"], out["compare"]
+            eng = tr.engine
+            spans = {}
+            for e in eng.timeline:
+                if e.task >= 0:
+                    spans.setdefault((e.iteration, e.task), {})[e.kind] = \
+                        e.time
+            per_iter = {}        # iteration -> {task name: ms}
+            for (it, t), v in sorted(spans.items()):
+                per_iter.setdefault(it, {})[tr.wf.task(t).name] = \
+                    (v["end"] - v["start"]) * 1e3
+            # a sync follows each trained iteration (none after a fill)
+            trained = [it for it, tasks in per_iter.items()
+                       if any(n.endswith("_training") for n in tasks)]
+            for it, ms_ in zip(trained, eng.sync_durations):
+                per_iter[it]["sync"] = ms_ * 1e3
+            ms = [m for m in out["metrics"]]
+            check(all(math.isfinite(v) for m in ms for v in m.values()),
+                  "non-finite RL metrics")
+            launches = [hook.by_kind(i) for i in range(len(hook.iters))]
+            check(all(lk.get("TRAIN", (0, 0)) == (0, 0) for lk in launches),
+                  f"TRAIN launched kernels: {launches}")
+            run = {key: sum(lk.get(kind, (0, 0))[i] for lk in launches)
+                   for key, kind, i in (
+                       ("flash_attention/rl_gen_prefill", "GEN", 0),
+                       ("flash_attention/rl_inf", "INF", 0),
+                       ("decode_attention/rl_gen_decode", "GEN", 1))}
+            check(all(n > 0 for n in run.values()),
+                  f"the RL run did not launch both kernels: {launches}")
+            totals = totals or run
+            if "--async" in extra:
+                check(ms[0]["sync_gb"] == 0.0 and all(
+                    m["sync_gb"] > 0 for m in ms[1:]),
+                    "async: the fill iteration synced or a later one not")
+                rec = eng.pipeline.records[-1]
+                check(rec.weight_version - rec.gen_version == 1,
+                      f"async staleness {rec}")
+            print(f"[11 train] plan grouping={out['search'].grouping} sizes="
+                  f"{out['search'].sizes}, predicted "
+                  f"{out['search'].cost * 1e3:.3f} ms/iter on the 8-GPU "
+                  f"reference pool; measured {cmp['measured_iter_s'] * 1e3:.1f}"
+                  f" ms/iter vs cost-model {cmp['predicted_iter_s'] * 1e3:.3f}"
+                  f" ms/iter (ratio {cmp['ratio']:.1f}; from the last two "
+                  f"GEN starts of the replayed timeline) | card {card}",
+                  flush=True)
+            for it, tasks in per_iter.items():
+                print(f"[11 train] iteration {it} (Event timeline, ms): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in tasks.items())
+                      + f" | card {card}", flush=True)
+            print(f"[11 train] launches per iteration and stage (flash, "
+                  f"decode): {launches}, in all {run}; peak "
+                  f"{peak / 2**30:.2f} GiB; {wall:.1f}s in all | card {card}",
+                  flush=True)
+            del out, tr, eng
+            torch.cuda.empty_cache()
+        e2e = ModelConfig(name="rl-actor", n_layers=4, d_model=192,
+                          n_heads=4, n_kv_heads=2, head_dim=48, d_ff=576,
+                          vocab_size=16, dtype="float32")
+        hook.iters.clear()
+        t0 = time.monotonic()
+        out = train_mod.run_rl(train_mod.parse_args(
+            ["--arch", ARCH, "--rl", "grpo", "--steps", "30", "--batch",
+             "16"]), cfg=e2e)
+        rewards = [m["reward_mean"] for m in out["metrics"]]
+        check(all(math.isfinite(r) for r in rewards),
+              "non-finite e2e rewards")
+        print(f"[11 train] e2e actor (d 192, 4 layers, hd 48, 4:2 heads, "
+              f"fp32), GRPO 30 iterations of 16 prompts x 4: reward "
+              + ", ".join(f"iter {i} {rewards[i]:.3f}"
+                          for i in (0, 10, 20, 29))
+              + f" (printed, not a gate); "
+              f"{time.monotonic() - t0:.1f}s | card {card}", flush=True)
+    finally:
+        restore()
+    return totals
 
 
 def main() -> None:
@@ -448,6 +709,89 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"[3 kernels] small matrix: {n_cases} cases agree with the plain "
           f"versions (fp32 2e-4, bf16 2e-2)", flush=True)
+
+    # fp32 attention at the RL path's shapes (qwen3-0.6b's heads; 16 prompts
+    # x 4 rollouts = 64 rows, prompt 5 + 3 new tokens, decode wave 32)
+    f32 = torch.float32
+
+    def fp32_flash_case(B_, S_):
+        q, k, v = (randn(B_, S_, n, hd, dtype=f32) for n in (H, KV, KV))
+        out = fa.flash_attention(q, k, v, causal=True)
+        ref = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        check(bool(torch.isfinite(out).all()) and err <= tol(f32, torch),
+              f"flash_attention fp32 {tuple(q.shape)}: max abs err {err}")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), torch,
+                     flush)
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         causal=True),
+                        torch, flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), torch, flush)
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+        flops = 4.0 * B_ * H * hd * (S_ * (S_ + 1) // 2)
+        return q, err, ms, plain, lib, nbytes, flops
+
+    def fp32_decode_case(B_, L_, P_):
+        pos = torch.randint(P_, L_, (B_,), generator=g, device=dev)
+        q = randn(B_, H, hd, dtype=f32)
+        k, v = (randn(B_, L_, KV, hd, dtype=f32) for _ in range(2))
+        k_pos, valid = cache_mod.ring_slot_positions(L_, None, pos)
+        bias = attn.decode_bias(pos[:, None], k_pos, causal=True,
+                                window=None, k_valid=valid,
+                                batch=B_).contiguous()
+        out = dec.decode_attention(q, k, v, bias)
+        ref = dec.decode_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        check(bool(torch.isfinite(out).all()) and err <= tol(f32, torch),
+              f"decode_attention fp32 {tuple(k.shape)}: max abs err {err}")
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), \
+            v.transpose(1, 2).contiguous()
+        mask4 = bias[:, None, None, :]
+        ms = time_ms(lambda: dec.decode_attention(q, k, v, bias), torch,
+                     flush)
+        plain = time_ms(lambda: dec.decode_attention_plain(q, k, v, bias),
+                        torch, flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, enable_gqa=True), torch, flush)
+        n_valid = int((bias == 0).sum())
+        nbytes = (q.numel() * 4 + out.numel() * 4 + bias.numel() * 4
+                  + 2 * n_valid * KV * hd * 4)
+        flops = 4.0 * H * hd * n_valid
+        return k, err, ms, plain, lib, nbytes, flops
+
+    RL_ROWS, RL_PROMPT, RL_NEW = 64, 5, 3
+    RL_WAVE = 32
+    rl_cases = {
+        "flash_attention/rl_gen_prefill": (
+            "flash_attention", "GEN prefill of one admission wave",
+            fp32_flash_case(RL_WAVE, RL_PROMPT)),
+        "flash_attention/rl_inf": (
+            "flash_attention", "INF forward over the rollouts",
+            fp32_flash_case(RL_ROWS, RL_PROMPT + RL_NEW)),
+        "decode_attention/rl_gen_decode": (
+            "decode_attention", "GEN decode step of one wave",
+            fp32_decode_case(RL_WAVE, RL_PROMPT + RL_NEW, RL_PROMPT)),
+    }
+    for key, (kname, what, (x, err, ms, plain, lib, nbytes, flops)) in \
+            rl_cases.items():
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = flops / PEAK_FLOPS[str(f32)] * 1e3
+        print(f"[3 kernels] {kname} at the RL path's {what} shape "
+              f"{tuple(x.shape)} fp32 (CUDA cores): err {err:.3g} (tol "
+              f"2e-4) | kernel {spread(ms)}, plain {spread(plain)}, sdpa "
+              f"{spread(lib)}, bound {max(b_bytes, b_ops):.5f} ms "
+              f"({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP) | card "
+              f"{card}", flush=True)
+        results[key] = dict(
+            name=key, route="cuda", source=results[kname]["source"],
+            replaces=results[kname]["replaces"], max_abs_err=err, ms=ms[0],
+            plain_ms=plain[0], bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            library_ms=lib[0])
 
     # RWKV6 scan at the serving path's prefill shape (one admission wave of
     # rwkv6-3b), with tests/test_kernels.py's input distribution
@@ -813,6 +1157,16 @@ def main() -> None:
           f"{got['flash_attention']}, of which on the tensor cores {n_tc}")
     results["mamba_scan"]["launches"] = got["mamba_scan"]
     del rep
+    torch.cuda.empty_cache()
+
+    # ---- 10. RL parity: one greedy PPO iteration, kernels against plain --
+    rl_phase10(torch, dev, cfg, attn, fa, dec, card)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the RL launcher at full width, then the e2e actor -----------
+    # the RL rows' launches: the launcher's GRPO run (3 iterations)
+    for key, n in rl_phase11(torch, dev, fa, dec, card).items():
+        results[key]["launches"] = n
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

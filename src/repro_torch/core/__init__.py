@@ -1,1 +1,1 @@
-"""Host-side planning helpers the port's serving path needs."""
+"""HetRL scheduler: the paper's search, cost model and simulator (the port's own copies of ``repro.core``; framework-free numpy)."""

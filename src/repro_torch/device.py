@@ -15,6 +15,8 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.tree import tree_leaves
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -48,3 +50,17 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def wait_for(out) -> None:
+    """Wait for the work queued so far on the device of ``out`` (a tensor
+    or a tree of them): a CUDA event recorded on the current stream after
+    that work, then waited on.  A no-op on the CPU and for trees that
+    hold no tensor."""
+    dev = next((t.device for t in tree_leaves(out) if torch.is_tensor(t)),
+               None)
+    if dev is None or dev.type != "cuda":
+        return
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    ev.synchronize()

@@ -24,9 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.kernels.guard import refuse_grad
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -38,6 +41,7 @@ GROUP = 4            # query heads per block at most
 launches = 0        # kernel launches since the last reset (chip_smoke reads)
 
 _fn = None
+_count_lock = threading.Lock()
 _tickets: Dict[torch.device, torch.Tensor] = {}
 _sms: Dict[torch.device, int] = {}
 
@@ -147,6 +151,7 @@ def decode_attention(q, k, v, bias, *, cap: Optional[float] = None):
         return decode_attention_plain(q, k, v, bias, cap=cap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k, v, bias)
     _check(q, k, v, bias)
     B, H, hd = q.shape
     L, KV = k.shape[1], k.shape[2]
@@ -173,5 +178,6 @@ def decode_attention(q, k, v, bias, *, cap: Optional[float] = None):
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"CUDA error {err}")
-    launches += 1
+    with _count_lock:          # RL engine lanes launch from threads
+        launches += 1
     return out

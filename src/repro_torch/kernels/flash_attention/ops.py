@@ -26,9 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.guard import refuse_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
@@ -38,6 +41,7 @@ launches = 0        # kernel launches since the last reset (chip_smoke reads)
 launches_tc = 0     # of which on the tensor-core (bf16) kernel
 
 _fn = None
+_count_lock = threading.Lock()
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -118,6 +122,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                      cap=cap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -137,6 +142,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"CUDA error {err}")
-    launches += 1
-    launches_tc += tensor_cores.value
+    with _count_lock:          # RL engine lanes launch from threads
+        launches += 1
+        launches_tc += tensor_cores.value
     return out

@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.guard import refuse_grad
+
 STATE_DIMS = (8, 16)               # instantiated in the CUDA source
 
 launches = 0        # kernel launches since the last reset (chip_smoke reads)
@@ -87,6 +89,7 @@ def mamba_scan(dt, x, Bm, Cm, A):
         return mamba_scan_plain(dt, x, Bm, Cm, A)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    refuse_grad("mamba_scan", dt, x, Bm, Cm, A)
     _check(dt, x, Bm, Cm, A)
     B, S, di = x.shape
     ds = Bm.shape[2]

@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.guard import refuse_grad
+
 HEAD_DIMS = (32, 64, 128)          # instantiated in the CUDA source
 CHUNKS = (16, 32, 64)
 
@@ -90,6 +92,7 @@ def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
         return rwkv6_scan_plain(r, k, v, logw, u)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
+    refuse_grad("rwkv6_scan", r, k, v, logw, u)
     _check(r, k, v, logw, u)
     if chunk not in CHUNKS:
         raise ValueError(f"rwkv6_scan chunk {chunk} not in the kernel's "

@@ -33,9 +33,11 @@ from typing import Optional
 
 import torch
 
+
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import FFN, Mixer, ModelConfig
+from repro_torch.tree import tree_map
 
 
 def effective_window(cfg: ModelConfig, spec, long_mode: bool) -> Optional[int]:
@@ -76,12 +78,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
             layer["cm_shift"] = zeros((R, batch, cfg.d_model), dtype)
         blocks[f"layer{j}"] = layer
     return {"blocks": blocks, "pos": 0}
-
-
-def tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def gather_slots(blocks, idx):

@@ -5,9 +5,12 @@ mixers with dense FFNs, MoE FFNs and the RWKV channel mix.  Block params
 are stacked over a leading ``[R]`` repeats dim as in the JAX package; its
 ``lax.scan`` over the stack becomes a Python loop over ``R``, and each
 layer writes its cache entry in place into the ``[R, ...]`` leaves' slice
-``r``.  The MoE aux loss is computed and dropped, as the JAX decode and
-serving paths drop it.  Feature frontends and encoder-only models are not
-yet ported and raise ``NotImplementedError``.
+``r``.  ``forward`` returns the summed MoE aux loss as ``aux_loss`` (the
+training loss adds it); decode drops it, as the JAX decode path does.
+``forward(attn_impl=...)`` chooses the attention path per call (the
+trainer's loss passes ``"plain"``: the CUDA kernels have no backward).
+Feature frontends and encoder-only models are not yet ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -108,18 +111,20 @@ def _tree_index(tree, r: int):
 # ---------------------------------------------------------------------------
 
 def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
-                   cache_entry):
-    """One mixer + FFN layer over a whole sequence.  With ``cache_entry``
+                   cache_entry, attn_impl: Optional[str] = None):
+    """One mixer + FFN layer over a whole sequence; returns (x, aux) with
+    the layer's MoE aux loss (0 without MoE).  With ``cache_entry``
     (this layer's cache views at one repeat: {"k", "v"} [B, L, KV, hd],
     {"tm_shift", "wkv", "cm_shift"} or {"conv", "ssm"}) the layer's
-    decode state is written into it."""
+    decode state is written into it.  ``attn_impl`` is passed to
+    ``multihead_attention(force_impl=...)`` (None: the module default)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == Mixer.ATTENTION:
         window = cache_mod.effective_window(cfg, spec, long_mode)
         q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
         y = attn_mod.multihead_attention(
             q, k, v, positions, positions, causal=cfg.causal, window=window,
-            cap=cfg.attn_softcap)
+            cap=cfg.attn_softcap, force_impl=attn_impl)
         B, S = h.shape[:2]
         x = x + y.reshape(B, S, -1) @ p["attn"]["wo"]
         if cache_entry is not None:
@@ -134,13 +139,14 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
                 cache_entry[name].copy_(t)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.moe:
-        return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
+        y, aux = moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)
+        return x + y, aux
     if spec.ffn == FFN.RWKV_CHANNEL:
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
         if cache_entry is not None:
             cache_entry["cm_shift"].copy_(h[:, -1, :])
-        return x + y
-    return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+        return x + y, 0.0
+    return x + apply_ffn(p["ffn"], cfg, spec.ffn, h), 0.0
 
 
 def _entry(leaf: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
@@ -150,10 +156,14 @@ def _entry(leaf: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
 
 def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
             long_mode: bool = False, return_cache: bool = False,
-            max_cache_len: Optional[int] = None) -> Dict[str, Any]:
+            max_cache_len: Optional[int] = None,
+            attn_impl: Optional[str] = None) -> Dict[str, Any]:
     """Full-sequence forward over ``inputs["tokens"]`` [B, S].  Returns
-    {"logits" [B, S, V], "hidden"} and, with ``return_cache``, a decode
-    cache primed with the sequence (``{"blocks", "pos": S}``)."""
+    {"logits" [B, S, V], "aux_loss" (fp32 scalar), "hidden"} and, with
+    ``return_cache``, a decode cache primed with the sequence
+    (``{"blocks", "pos": S}``).  ``attn_impl`` ("plain" | "kernel" |
+    None for the module default) picks every attention layer's path for
+    this call only, so concurrent callers never share a toggle."""
     check_supported(cfg)
     tokens = inputs["tokens"]
     x = embed_tokens(params["embed"], cfg, tokens)
@@ -166,15 +176,22 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
                                      long_mode=long_mode,
                                      dtype=params["final_norm"]["scale"].dtype,
                                      device=x.device)
+    aux = None                  # summed only over MoE layers: no kernel else
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
             entry = (None if cache is None
                      else _entry(cache["blocks"][f"layer{j}"], r))
-            x = _layer_forward(bp[f"layer{j}"], cfg, spec, x, positions,
-                               long_mode=long_mode, cache_entry=entry)
+            x, a = _layer_forward(bp[f"layer{j}"], cfg, spec, x, positions,
+                                  long_mode=long_mode, cache_entry=entry,
+                                  attn_impl=attn_impl)
+            if torch.is_tensor(a):
+                aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    out = {"logits": unembed(params["embed"], cfg, x), "hidden": x}
+    out = {"logits": unembed(params["embed"], cfg, x), "aux_loss": aux,
+           "hidden": x}
     if cache is not None:
         cache["pos"] = S
         out["cache"] = cache

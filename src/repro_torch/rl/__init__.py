@@ -1,1 +1,1 @@
-"""RL-side helpers the serving path needs (single-wave rollout)."""
+"""RL side of the port: rollouts, objectives, advantages, rewards, weight sync and the plan-driven trainer."""

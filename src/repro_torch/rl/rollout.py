@@ -1,11 +1,14 @@
-"""Actor generation: autoregressive sampling with a KV cache.
+"""Actor generation: autoregressive sampling with a KV cache, and the
+teacher-forced log-probs of a generated sequence.
 
-Port of ``repro.rl.rollout`` lines 28-72 — the *single-wave* reference
+Port of ``repro.rl.rollout``.  ``generate`` is the *single-wave* reference
 path: prefill the prompt once (``forward(return_cache=True)``), then one
 ``decode_step`` per new token over the whole batch; every sequence
 decodes all ``max_new_tokens`` steps and dead rows are masked, not
 retired.  The continuous-batching engine (``repro_torch.genserve``)
 produces the same masked outputs when the batch fits one wave.
+``sequence_logprobs`` scores the generated part under teacher forcing:
+the INF reference forward and the actor's training loss.
 """
 from __future__ import annotations
 
@@ -58,3 +61,18 @@ def generate(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
             "gen_tokens": gen_tokens,
             "logprobs": torch.stack(lps, dim=1),
             "mask": torch.stack(alives, dim=1).float()}
+
+
+def sequence_logprobs(params, cfg: ModelConfig, sequences, gen_start: int,
+                      attn_impl: Optional[str] = None):
+    """Teacher-forced logprobs of the generated part.  sequences [B, S].
+
+    Returns (logprobs [B, S - gen_start] for tokens at positions
+    gen_start..S-1, each predicted from the previous position; the
+    forward's output dict).  ``attn_impl`` as in ``T.forward``: the
+    training loss passes ``"plain"``, inference keeps the default."""
+    out = T.forward(params, cfg, {"tokens": sequences}, attn_impl=attn_impl)
+    logits = out["logits"][:, gen_start - 1:-1]
+    targets = sequences[:, gen_start:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, -1, targets[..., None])[..., 0], out

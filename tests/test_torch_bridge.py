@@ -78,6 +78,69 @@ def test_round_trip_bit_exact(name):
                                               cfg.rwkv_head_dim)
 
 
+def _state_tree(alg, moment_dtype, gen_is_actor):
+    """A reference trainer's ``state_tree()`` shape after one Adam step
+    (non-zero moments), built from the JAX package's own functions."""
+    from repro.optim import adam as jadam
+    from repro.rl import rewards as jrewards
+    cfg = dataclasses.replace(SMOKE["qwen3-0.6b"], vocab_size=16,
+                              dtype="float32")
+    ks = jax.random.split(jax.random.PRNGKey(5), 4)
+    ocfg = jadam.AdamConfig(lr=1e-2, moment_dtype=moment_dtype)
+
+    @jax.jit
+    def stepped(params, key):
+        grads = jax.tree_util.tree_map(
+            lambda p: jax.random.normal(key, p.shape, p.dtype), params)
+        return jadam.adam_update(params, grads,
+                                 jadam.init_adam_state(params, ocfg), ocfg)
+    actor0 = JT.init_params(ks[0], cfg)
+    actor, actor_opt, _ = stepped(actor0, ks[1])
+    tree = {"actor": actor, "ref": actor0, "actor_opt": actor_opt,
+            "gen_params": actor if gen_is_actor else actor0,
+            "weight_version": jax.numpy.asarray(3, jax.numpy.int32)}
+    if alg == "ppo":
+        cp = (JT.init_params(ks[2], cfg), jrewards.init_value_head(ks[3],
+                                                                   cfg))
+        (tree["critic"], tree["value_head"]), tree["critic_opt"], _ = \
+            stepped(cp, ks[3])
+    return cfg, jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("alg,moment_dtype,gen_is_actor", [
+    ("grpo", "float32", True), ("grpo", "bfloat16", False),
+    ("ppo", "float32", False), ("ppo", "bfloat16", True)])
+def test_state_tree_round_trip_bit_exact(alg, moment_dtype, gen_is_actor):
+    """The RL trainer's whole state: actor, ref and generation params,
+    Adam's step and moments (bf16 included), PPO's critic, value head and
+    tuple-shaped critic moments, the weight version."""
+    from repro_torch.configs.archs import SMOKE as TSMOKE
+    from repro_torch.data.synthetic import AdditionTask
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    cfg, tree = _state_tree(alg, moment_dtype, gen_is_actor)
+    tcfg = dataclasses.replace(TSMOKE["qwen3-0.6b"], vocab_size=16,
+                               dtype="float32")
+    ts = bridge.from_numpy_state_tree(tree, tcfg, "cpu")
+    assert (ts["gen_params"] is ts["actor"]) == gen_is_actor
+    trainer = RLTrainer(tcfg, RLConfig(algorithm=alg), AdditionTask(9),
+                        device="cpu")
+    trainer.load_state_tree(ts)
+    assert trainer.weight_version == 3
+    back = bridge.to_numpy_state_tree(trainer.state_tree())
+    src = jax.tree_util.tree_leaves_with_path(tree)
+    dst = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in src] == [p for p, _ in dst]
+    for (path, a), (_, b) in zip(src, dst):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+    if alg == "ppo":
+        assert isinstance(back["critic_opt"]["m"], tuple)
+        assert set(back["value_head"]) == {"w"}
+    if moment_dtype == "bfloat16":
+        assert ts["actor_opt"]["m"]["embed"]["tokens"].dtype == torch.bfloat16
+
+
 def test_bridge_rejects_unstacked_blocks():
     cfg = SMOKE["qwen3-0.6b"]
     tree = jax.tree_util.tree_map(

@@ -356,3 +356,105 @@ def test_mamba_wrapper_rejects_what_the_kernel_does_not_take():
         t_mamba._check(x, x[:, :4], bc, bc, a)
     with pytest.raises(ValueError, match="shapes Bm"):
         t_mamba._check(x, x, bc[:, :4], bc[:, :4], a)
+
+
+# ---------------------------------------------------------------------------
+# autograd through the kernels is refused; the RL iteration on the card
+# ---------------------------------------------------------------------------
+
+def test_refuse_grad_guard():
+    """The guard every CUDA wrapper calls before it launches (it runs
+    before any build, so it holds on the CPU too)."""
+    from repro_torch.kernels.guard import refuse_grad
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        refuse_grad("k", torch.zeros(3), x)
+    with torch.no_grad():
+        refuse_grad("k", x)
+    with torch.inference_mode():
+        refuse_grad("k", x)
+    refuse_grad("k", torch.zeros(3), None)
+
+
+def _grad_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q, k = rn(1, 16, 4, 64), rn(1, 16, 2, 64)
+    qd, kd = rn(2, 4, 64), rn(2, 16, 2, 64)
+    bias = torch.zeros((2, 16), device=dev)
+    r, kk, v, logw, u = _rwkv_inputs(g, dev, 1, 16, 2, 64)
+    dt = torch.rand((1, 16, 64), generator=g, device=dev) * 0.1
+    x, bm = rn(1, 16, 64), rn(1, 16, 16)
+    a = -torch.rand((64, 16), generator=g, device=dev)
+    return {"flash_attention": (t_flash.flash_attention, (q, k, k)),
+            "decode_attention": (t_decode.decode_attention,
+                                 (qd, kd, kd, bias)),
+            "rwkv6_scan": (t_rwkv.rwkv6_scan, (r, kk, v, logw, u)),
+            "mamba_scan": (t_mamba.mamba_scan, (dt, x, bm, bm, a))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "rwkv6_scan", "mamba_scan"])
+def test_wrappers_refuse_autograd_on_the_card(name):
+    """Under grad mode an input that requires grad raises (the kernel's
+    output would carry no grad_fn); under no_grad / inference_mode the
+    same call launches."""
+    dev = _cuda()
+    fn, args = _grad_cases(dev)[name]
+    leaky = [args[0].clone().requires_grad_(True)] + list(args[1:])
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*leaky)
+    with torch.no_grad():
+        fn(*leaky)
+    with torch.inference_mode():
+        fn(*args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ppo_iteration_on_the_card_matches_cpu():
+    """One greedy PPO iteration of the qwen3 smoke (vocab 16, fp32) on the
+    card against the same on the CPU from the same state: identical
+    tokens, log-probs and losses within 2e-4; GEN and INF launch both
+    attention kernels, TRAIN none."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.data.synthetic import AdditionTask, PromptDataset
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    dev = _cuda()
+    cfg = dataclasses.replace(SMOKE["qwen3-0.6b"], vocab_size=16,
+                              dtype="float32")
+    rl = RLConfig(algorithm="ppo", n_rollouts=4, max_new_tokens=3,
+                  greedy=True, lr=1e-3)
+    cpu = RLTrainer(cfg, rl, AdditionTask(9), seed=0, device="cpu")
+    card = RLTrainer(cfg, rl, AdditionTask(9), seed=0, device=dev)
+    card.load_state_tree(bridge.from_numpy_state_tree(
+        bridge.to_numpy_state_tree(cpu.state_tree()), cfg, dev))
+    counts = []
+    orig = card.before_stage
+
+    def hook(stage, bb):
+        counts.append((stage[0].kind.name, t_flash.launches,
+                       t_decode.launches))
+        return orig(stage, bb)
+    card.before_stage = hook
+    prompts, answers = next(iter(PromptDataset(AdditionTask(9), batch=4,
+                                               seed=1)))
+    m_cpu = cpu.iteration(prompts, answers, None)
+    t_flash.launches = t_decode.launches = 0
+    m_card = card.iteration(prompts, answers, None)
+    counts.append(("END", t_flash.launches, t_decode.launches))
+    for k in ("reward_mean", "kl", "loss", "critic_loss", "grad_norm",
+              "gen_len"):
+        np.testing.assert_allclose(m_card[k], m_cpu[k], rtol=2e-4,
+                                   atol=2e-4)
+    kinds = [c[0] for c in counts]
+    assert kinds == ["GEN", "INF", "TRAIN", "END"]
+    (_, f0, d0), (_, f1, d1), (_, f2, d2), (_, f3, d3) = counts
+    assert f1 > f0 == 0 and d1 > d0 == 0            # GEN: prefill + decode
+    assert f2 > f1 and d2 == d1                     # INF: forward only
+    assert (f3, d3) == (f2, d2)                     # TRAIN: no kernel

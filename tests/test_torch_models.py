@@ -28,6 +28,7 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.config import FFN, reduced  # noqa: E402
+from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -38,20 +39,29 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import rwkv as trwkv  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.config import FFN as TFFN  # noqa: E402
+from repro_torch.models.config import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.models.config import reduced as treduced  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 JAMBA3 = "jamba-1.5-large-398b-3layer"   # attn/dense, mamba/MoE, mamba/dense
+E2E = "rl-actor-e2e"   # examples/train_rl_e2e.py's actor
 ARCHS = ["qwen3-0.6b", "gemma2-27b", "rwkv6-3b", "jamba-1.5-large-398b",
-         JAMBA3, "mixtral-8x7b", "granite-moe-3b-a800m"]
+         JAMBA3, "mixtral-8x7b", "granite-moe-3b-a800m", E2E]
 
 
 def _cfgs(name):
-    """(JAX config, port config) of a test architecture: a smoke, or
-    the 3-layer Jamba cut that holds each of its three layer kinds."""
+    """(JAX config, port config) of a test architecture: a smoke, the
+    3-layer Jamba cut that holds each of its three layer kinds, or the RL
+    e2e actor (d 192, 4 layers, hd 48, 4 query heads over 2 KV heads,
+    the addition task's 16 tokens, fp32)."""
     if name == JAMBA3:
         return (reduced(JAMBA_1_5_LARGE, n_layers=3),
                 treduced(tarchs.JAMBA_1_5_LARGE, n_layers=3))
+    if name == E2E:
+        kw = dict(name="rl-actor", n_layers=4, d_model=192, n_heads=4,
+                  n_kv_heads=2, head_dim=48, d_ff=576, vocab_size=16,
+                  dtype="float32")
+        return JModelConfig(**kw), TModelConfig(**kw)
     return SMOKE[name], tarchs.SMOKE[name]
 
 
@@ -299,6 +309,8 @@ def test_forward_and_per_row_decode(name, impl):
                          return_cache=True, max_cache_len=P + N + 8)
         np.testing.assert_allclose(out["logits"].numpy(),
                                    np.asarray(ref["logits"]), **TOL)
+        np.testing.assert_allclose(out["aux_loss"].numpy(),
+                                   np.asarray(ref["aux_loss"]), **TOL)
         jc, tc = ref["cache"], out["cache"]
         assert int(jc["pos"]) == tc["pos"]
         _assert_cache_close(tc["blocks"], jc["blocks"])
