@@ -8,8 +8,9 @@ JAX package) at the full width of qwen3-0.6b (attention), of rwkv6-3b
 (RWKV6 time mix) and of jamba-1.5-large-398b (attention + Mamba, dense
 and MoE FFNs; its first 2 and 4 layers, since the whole model does not
 fit one card), then the RL path (scheduler -> Plan -> engine -> GEN /
-INF / TRAIN -> sync) at qwen3-0.6b's full width, and exits non-zero on
-any failure.  Phases, each printing its result:
+INF / TRAIN -> sync) at qwen3-0.6b's full width, the LM train mode,
+checkpoints, and the elastic plan swaps and fault recovery, and exits
+non-zero on any failure.  Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
              fails without CUDA.
@@ -78,6 +79,36 @@ any failure.  Phases, each printing its result:
              then the e2e actor (d 192, 4 layers) for 30 GRPO iterations,
              its reward printed.  The RL rows of the kernels line take
              their launches from the GRPO run.
+ 12. lm      ``repro_torch.launch.train --arch qwen3-0.6b --steps 5 --batch
+             4 --seq 64``: the LM mode at full width in bf16 (vocab
+             151,936); losses and grad norms finite, the step-0 loss within
+             0.1 of its expectation over uniform labels on the step-0
+             logits (ln V plus the init's logit spread); ms/step and peak
+             memory.  Then one step of the first 2 layers in fp32 on the
+             card against the same step on the CPU: loss and grad norm
+             within 2e-4 relative, post-Adam parameters within 2e-4 where
+             the two gradients agree (2 lr + 2e-4 elsewhere).
+ 13. ckpt    ``checkpoint.io`` on the card: the full-width RL actor (fp32,
+             1.76 GB) and the LM phase's bf16 parameters, cuda -> file ->
+             cuda bit for bit, write and read GB/s; the full-width GRPO
+             ``state_tree`` (8.8 GB) refused with ``CheckpointError``
+             naming the 4 GiB cap, no file and no .tmp left.
+ 14. elastic ``ElasticController`` (``ckpt_dir=None``) on the full-width GRPO
+             trainer (vocab 16, fp32, batch 16): drop_tail swaps the plan
+             (two epochs in ``epoch_report``), transient_crash is absorbed
+             by retries, permanent_crash forces a replan, link_throttle
+             fires a reactive replan after the calibration warmup; in every
+             iteration, before and after each event, GEN launches both
+             attention kernels and INF flash_attention, TRAIN none.
+ 15. launcher ``launch.train --rl grpo --require-recover`` with ``--drift
+             drop_tail``, ``--fault ckpt_fail``, ``ckpt_flaky`` and
+             ``ckpt_corrupt`` at full width cut to the first 8 layers (the
+             whole state, 2.5 GB, must fit the format's 4 GiB);
+             ``ckpt_corrupt`` prints ``load_latest fell back to ...``.
+ 16. control no fault: the phase-14 trainer with the monitor and deadlines
+             armed as the launcher arms them, 12 iterations; how often
+             each fires (printed, not a gate); the local microbench of
+             ``core.profiler``.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -85,12 +116,15 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -510,11 +544,521 @@ def rl_phase11(torch, dev, fa, dec, card):
     return totals
 
 
+def gib(n: float) -> float:
+    return n / 2**30
+
+
+def free(torch) -> None:
+    """Collect the trainers an earlier phase left (trainer and engine hold
+    each other, so only the cycle collector frees them) and return their
+    memory to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_phase12(torch, dev, card):
+    """``launch.train`` in its LM mode at qwen3-0.6b's full width (bf16,
+    vocab 151,936), then one step of a 2-layer cut in fp32 on the card
+    against the same step on the CPU."""
+    from repro_torch.configs import archs
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    cfg = archs.get(ARCH)
+    V = cfg.vocab_size
+    # the step-0 expectation: over uniform labels the loss is the mean of
+    # logsumexp(z) - mean(z) over positions, on the run's own first batch
+    # and seed-0 weights (ln V plus the init's logit spread)
+    with torch.no_grad():
+        p0 = T.init_params(cfg, seed=0, device=dev)
+        b0 = train_mod.make_batch(
+            cfg, torch.Generator(device=dev).manual_seed(0), 4, 64)
+        z = T.forward(p0, cfg, {"tokens": b0["tokens"]},
+                      attn_impl="plain")["logits"].float()
+        expect0 = float((torch.logsumexp(z, -1) - z.mean(-1)).mean())
+        del p0, z
+    torch.cuda.empty_cache()
+    argv = ["--arch", ARCH, "--steps", "5", "--batch", "4", "--seq", "64"]
+    free(torch)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    print(f"[12 lm] python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    out = train_mod.main(argv)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses, gn, secs = out["losses"], out["grad_norms"], out["step_s"]
+    ms = sorted(s * 1e3 for s in secs[1:])
+    print(f"[12 lm] {ARCH} full width bf16 ({cfg.n_layers} layers, vocab "
+          f"{V}, {cfg.param_count() / 1e9:.3f} B parameters), batch 4 x seq "
+          f"64: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; grad norms " + ", ".join(f"{x:.3f}" for x in gn)
+          + f"; step 0 {secs[0] * 1e3:.1f} ms (first launches), steps 1-4 "
+          f"median {ms[len(ms) // 2]:.1f} ms/step ({ms[0]:.1f}-{ms[-1]:.1f});"
+          f" peak {gib(peak - base):.2f} GiB above the {gib(base):.2f} GiB "
+          f"allocated before it; {wall:.1f}s | card {card}", flush=True)
+    print(f"[12 lm] step-0 loss {losses[0]:.4f}: ln V = {math.log(V):.4f} "
+          f"(diff {losses[0] - math.log(V):+.4f}); the uniform-label "
+          f"expectation on the step-0 logits {expect0:.4f} (diff "
+          f"{losses[0] - expect0:+.4f}, tol 0.1)", flush=True)
+    check(all(math.isfinite(x) for x in losses + gn), "non-finite LM loss")
+    check(abs(losses[0] - expect0) <= 0.1, f"step-0 loss {losses[0]} is "
+          f"not within 0.1 of its uniform-label expectation {expect0}")
+    check(abs(losses[0] - math.log(V)) <= 0.5, f"step-0 loss {losses[0]} "
+          f"is not near ln V = {math.log(V)}")
+    lm_params = out["params"]
+    del out
+    torch.cuda.empty_cache()
+
+    # one step, 2 layers at full width, fp32: the card against the CPU
+    cut = dataclasses.replace(first_layers(cfg, 2), dtype="float32")
+    opt = adam.AdamConfig(lr=1e-3, total_steps=5)
+    step = steps_mod.make_train_step(cut, opt)
+    p_cpu = T.init_params(cut, seed=0, device="cpu")
+    batch = train_mod.make_batch(cut, torch.Generator().manual_seed(1), 4, 64)
+    res = {}
+    for d in ("cpu", dev):
+        p = p_cpu if d == "cpu" else tree_unflatten(
+            p_cpu, [t.to(d) for t in tree_leaves(p_cpu)])
+        b = {k: v.to(d) for k, v in batch.items()}
+        flat = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+        with torch.enable_grad():
+            loss = steps_mod.lm_loss(tree_unflatten(p, flat), cut, b)
+            gs = torch.autograd.grad(loss, flat)
+        p1, _, m = step(p, adam.init_adam_state(p, opt), b)
+        res[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
+                       [t.cpu() for t in tree_leaves(p1)],
+                       [g.cpu() for g in gs])
+    (lc, nc, pc, gc), (lg, ng, pg, gg) = res["cpu"], res[str(dev)]
+    # where |g| >= 1e-6 and the two gradients agree within 1e-3 of |g|
+    # ("firm"), Adam's step must agree; elsewhere it is about lr * sign(g)
+    # on either side (rows of tokens absent from the batch get g = 0 and
+    # stay put on both)
+    firm_err, loose_err, n_firm, n_big = 0.0, 0.0, 0, 0
+    for a, b_, g1, g2 in zip(pg, pc, gg, gc):
+        d_ = (a - b_).abs()
+        big = g2.abs() >= 1e-6
+        firm = big & ((g1 - g2).abs() <= 1e-3 * g2.abs())
+        n_firm += int(firm.sum())
+        n_big += int(big.sum())
+        if firm.any():
+            firm_err = max(firm_err, float(d_[firm].max()))
+        loose_err = max(loose_err, float(d_.max()))
+    print(f"[12 lm] one step, first 2 layers at full width in fp32 "
+          f"({cut.param_count() / 1e9:.3f} B parameters), batch 4 x 64, "
+          f"card vs CPU: loss {lg:.6f} vs {lc:.6f}, grad norm {ng:.6f} vs "
+          f"{nc:.6f} (rtol 2e-4); post-Adam parameters max diff "
+          f"{firm_err:.3g} where the gradients agree ({n_firm} of the "
+          f"{n_big} with |g| >= 1e-6; tol 2e-4), {loose_err:.3g} over all "
+          f"(tol 2 lr + 2e-4) | card {card}", flush=True)
+    check(rel_close(lg, lc, 2e-4) and rel_close(ng, nc, 2e-4),
+          "LM step: card and CPU loss or grad norm disagree")
+    check(firm_err <= 2e-4 and loose_err <= 2e-3 + 2e-4
+          and n_firm >= 0.9 * n_big, "LM step: card and CPU post-Adam "
+          "parameters disagree")
+    return lm_params
+
+
+def ckpt_phase13(torch, dev, card, lm_params):
+    """Checkpoint round trips on the card: the full-width RL actor (fp32)
+    and the LM phase's bf16 parameters, bit for bit; the full-width GRPO
+    state over the format's cap refused before any write."""
+    import shutil
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import archs
+    from repro_torch.data.synthetic import AdditionTask, VOCAB_SIZE
+    from repro_torch.models import transformer as T
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    from repro_torch.tree import tree_leaves, tree_map
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    rcfg = dataclasses.replace(archs.get(ARCH), vocab_size=VOCAB_SIZE,
+                               dtype="float32")
+    actor = T.init_params(rcfg, seed=0, device=dev)
+    for label, tree in (("RL actor, fp32", actor),
+                        ("LM parameters, bf16", lm_params)):
+        p = str(d / "tree.msgpack")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n = ckpt_io.save(p, tree)
+        tw = time.monotonic() - t0
+        like = tree_map(torch.zeros_like, tree)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = ckpt_io.restore(p, like)
+        torch.cuda.synchronize()
+        tr = time.monotonic() - t0
+        same = all(a.device == b.device and a.dtype == b.dtype and
+                   torch.equal(a.view(torch.int16) if a.dtype ==
+                               torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype ==
+                               torch.bfloat16 else b)
+                   for a, b in zip(tree_leaves(got), tree_leaves(tree)))
+        print(f"[13 ckpt] {ARCH} full width, {label}: {n / 1e9:.3f} GB, "
+              f"{len(tree_leaves(tree))} leaves; cuda -> file "
+              f"{tw:.2f} s ({n / tw / 1e9:.2f} GB/s), file -> cuda {tr:.2f} "
+              f"s ({n / tr / 1e9:.2f} GB/s); bit-exact={same} | card {card}",
+              flush=True)
+        check(same, f"checkpoint round trip of the {label} is not "
+              f"bit-exact")
+        # where save's and restore's time goes: the device-host copies, the
+        # crc32 over the payload, the file write and read on their own
+        leaves = tree_leaves(tree)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        host = [ckpt_io._host_bytes(x) for x in leaves]
+        t_d2h = time.monotonic() - t0
+        t0 = time.monotonic()
+        crc = 0
+        for h in host:
+            crc = zlib.crc32(h, crc)
+        t_crc = time.monotonic() - t0
+        q = str(d / "raw.bin")
+        t0 = time.monotonic()
+        with open(q, "wb") as f:
+            for h in host:
+                f.write(h)
+        t_w = time.monotonic() - t0
+        t0 = time.monotonic()
+        with open(q, "rb") as f:
+            raw = bytearray(os.path.getsize(q))
+            f.readinto(raw)
+        t_r = time.monotonic() - t0
+        t0 = time.monotonic()
+        dev_copy = torch.frombuffer(raw, dtype=torch.uint8).to(dev)
+        torch.cuda.synchronize()
+        t_h2d = time.monotonic() - t0
+        print(f"[13 ckpt] {label} by part ({n / 1e9:.3f} GB): device->host "
+              f"{t_d2h:.2f} s, crc32 {t_crc:.2f} s, file write {t_w:.2f} s; "
+              f"file read {t_r:.2f} s, host->device {t_h2d:.2f} s (one "
+              f"pageable copy) | card {card}", flush=True)
+        os.remove(q)
+        os.remove(p)
+        del got, like, host, raw, dev_copy
+    del actor
+    torch.cuda.empty_cache()
+    task = AdditionTask(max_operand=9)
+    tr_ = RLTrainer(rcfg, RLConfig(algorithm="grpo", n_rollouts=4,
+                                   max_new_tokens=task.max_answer_len),
+                    task, seed=0, device=dev)
+    state = tr_.state_tree()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    p = str(d / "state.msgpack")
+    try:
+        ckpt_io.save(p, state)
+        refused = None
+    except ckpt_io.CheckpointError as e:
+        refused = str(e)
+    left = sorted(x.name for x in d.iterdir()) if d.exists() else []
+    print(f"[13 ckpt] {ARCH} full-width GRPO state_tree ({nbytes / 1e9:.2f} "
+          f"GB in {len(tree_leaves(state))} leaves): "
+          f"{'refused: ' + refused if refused else 'WRITTEN'}; files left "
+          f"{left}", flush=True)
+    check(refused is not None and "4 GiB" in refused,
+          "the full-width state over 4 GiB was not refused")
+    check(not left, f"the refused save left {left}")
+    shutil.rmtree(d, ignore_errors=True)
+    del tr_, state
+    free(torch)
+
+
+def _rl_setup(torch, dev, cfg, batch=16):
+    """The launcher's RL setup at ``cfg``'s width (the addition task, the
+    8-GPU pool, a GRPO trainer on the card) on the fault tests' plan
+    (``tests/test_faults.py``): GEN on a group of its own, the other tasks
+    on the rest of the pool.  The plan the launcher searches keeps each
+    group inside one machine, so a cross-machine throttle would slow none
+    of its tasks; on this one actor training crosses machines."""
+    from repro_torch.core import enumerate as enum_mod, topology, workflow
+    from repro_torch.core.plan import check_constraints
+    from repro_torch.data.synthetic import (AdditionTask, PromptDataset,
+                                            VOCAB_SIZE)
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    cfg = dataclasses.replace(cfg, vocab_size=VOCAB_SIZE, dtype="float32")
+    task = AdditionTask(max_operand=9)
+    topo = topology.build_testbed("single_region",
+                                  counts={"A100": 4, "L4": 4})
+    wf = workflow.make_workflow("grpo", workflow.LLMSpec.from_model_config(
+        cfg), synchronous=True, global_batch=batch, n_rollouts=4,
+        seq_in=task.prompt_len, seq_out=task.max_answer_len)
+    grouping = ((0,), tuple(range(1, wf.n_tasks)))
+    plan = enum_mod.build_plan(topo, wf, grouping, enum_mod.proportional_sizes(
+        wf, grouping, topo.n), list(range(topo.n)))
+    ok, msg = check_constraints(topo, wf, plan)
+    check(ok, msg)
+    tr = RLTrainer(cfg, RLConfig(algorithm="grpo", n_rollouts=4,
+                                 max_new_tokens=task.max_answer_len,
+                                 lr=1e-3),
+                   task, seed=0, plan=plan, topo=topo, wf=wf, device=dev)
+    ds = iter(PromptDataset(task, batch=batch, seed=1))
+    rng = torch.Generator(device=dev).manual_seed(42)
+    return tr, topo, ds, rng
+
+
+def _check_launches(hook, label):
+    """Every iteration's GEN launched both attention kernels, INF flash,
+    TRAIN none.  Returns the per-iteration launches."""
+    per = [hook.by_kind(i) for i in range(len(hook.iters))]
+    for i, lk in enumerate(per):
+        check(lk.get("GEN", (0, 0))[0] > 0 and lk.get("GEN", (0, 0))[1] > 0
+              and lk.get("INF", (0, 0))[0] > 0,
+              f"{label}: iteration {i} did not launch both kernels in GEN "
+              f"and flash in INF: {lk}")
+        check(lk.get("TRAIN", (0, 0)) == (0, 0),
+              f"{label}: TRAIN launched kernels: {lk}")
+    return per
+
+
+def elastic_phase14(torch, dev, fa, dec, card):
+    """The elastic controller on the full-width GRPO trainer (vocab 16,
+    fp32, batch 16, the searched plan), ``ElasticConfig(ckpt_dir=None)``:
+    drop_tail swaps the plan, transient_crash retries, permanent_crash
+    forces a replan, link_throttle fires a reactive replan after the
+    calibration warmup.  Returns the launches of iterations after a swap."""
+    from repro_torch.configs import archs
+    from repro_torch.core import retry, topology
+    from repro_torch.core.workflow import TaskKind
+    from repro_torch.engine.elastic import ElasticConfig, ElasticController
+    from repro_torch.engine.executor import TaskExecutionError
+    from repro_torch.faults import FaultInjector, fault_scenario
+    from repro_torch.obs import calibrate as obs_cal
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.rl.trainer import RLTrainer
+    cfg = archs.get(ARCH)
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(RLTrainer)
+    after_swap = {}
+    try:
+        for scen, n_iter in (("drop_tail", 6), ("transient_crash", 3),
+                             ("permanent_crash", 4), ("link_throttle", 9)):
+            hook.iters.clear()
+            t0 = time.monotonic()
+            tr, topo, ds, rng = _rl_setup(torch, dev, cfg)
+            wf = tr.wf
+            train_task = next(t for t in range(wf.n_tasks)
+                              if wf.task(t).kind == TaskKind.TRAIN)
+            feed = (topology.drift_scenario("drop_tail", topo, at=2)
+                    if scen == "drop_tail" else (lambda it, topo=topo: topo))
+            ctrl = ElasticController(tr, feed, ElasticConfig(ckpt_dir=None))
+            inj = None
+            if scen != "drop_tail":
+                inj = FaultInjector(fault_scenario(
+                    scen, at=1 if scen != "link_throttle" else 3, topo=topo,
+                    train_task=train_task, n_tasks=wf.n_tasks))
+                tr.engine.attach_fault_injector(inj)
+                tr.engine.set_task_retry(retry.RetryPolicy(
+                    max_attempts=3, base_delay_s=0.05))
+            if scen == "link_throttle":
+                probe = FaultInjector(inj.plan).bind(tr.engine)
+                probe.begin_iteration(3)
+                dil = {wf.task(t).name: round(probe.dilation(t), 3)
+                       for t in range(wf.n_tasks)}
+                print(f"[14 elastic] plan {[(g.tasks, g.devices) for g in tr.plan.groups]}"
+                      f"; link_throttle's replay dilation per task while "
+                      f"active: {dil}", flush=True)
+            r0 = obs_metrics.counter("engine.task_retries").value
+            f0 = obs_metrics.counter("engine.task_failures").value
+            epochs, lines, recs = [], [], []
+            for it in range(n_iter):
+                prompts, answers = next(ds)
+                try:
+                    m = tr.iteration(prompts, answers, rng)
+                except TaskExecutionError as e:
+                    rec = ctrl.handle_failure(it, e)
+                    recs.append(rec)
+                    lines.append(f"iteration {it}: {type(e.cause).__name__}"
+                                 f" -> forced replan, epoch {rec.epoch}")
+                    m = tr.iteration(prompts, answers, rng)
+                check(all(math.isfinite(float(v)) for v in m.values()),
+                      f"{scen}: non-finite metrics")
+                epochs.append(tr.engine.epoch)
+                if scen == "link_throttle" and it == 2:
+                    cal = obs_cal.fit_from_engine(tr.engine)
+                    mon = obs_cal.DivergenceMonitor(threshold=2.0,
+                                                    sustain=2)
+                    tr.engine.attach_divergence_monitor(mon, cal)
+                    tr.engine.set_task_deadlines(cal, slack=5.0)
+                    ctrl.monitor = mon
+                rec = ctrl.poll(it)
+                if rec is not None:
+                    recs.append(rec)
+                    d = rec.decision
+                    why = ""
+                    if rec.reactive:
+                        mon = ctrl.monitor
+                        why = " (drifted, EWMA measured/predicted: " + ", ".join(
+                            f"{wf.task(t).name} {mon.ratio(t):.2f}"
+                            for t in mon.drifted_tasks()) + ")"
+                    lines.append(
+                        f"iteration {it}: {'reactive' if rec.reactive else 'drift'}"
+                        f"{why} switch={d.switch} old {d.old_cost * 1e3:.3f} ms "
+                        f"new {d.new_cost * 1e3:.3f} ms -> epoch {rec.epoch}")
+                    if scen == "link_throttle" and rec.reactive:
+                        break
+            torch.cuda.synchronize()
+            per = _check_launches(hook, f"[14 elastic] {scen}")
+            retries = obs_metrics.counter("engine.task_retries").value - r0
+            fails = obs_metrics.counter("engine.task_failures").value - f0
+            rows = tr.engine.epoch_report()
+            print(f"[14 elastic] {scen}: " + "; ".join(lines or ["no record"])
+                  + f"; retries {retries:.0f}, task failures {fails:.0f}; "
+                  f"epoch per iteration {epochs}; " + ", ".join(
+                      f"epoch {r['epoch']} {r['iterations']} iters "
+                      f"{r['measured_iter_s'] * 1e3:.1f} ms/iter"
+                      for r in rows)
+                  + f"; {time.monotonic() - t0:.1f}s | card {card}",
+                  flush=True)
+            print(f"[14 elastic] {scen} launches per iteration (flash, "
+                  f"decode): {per}", flush=True)
+            if scen == "drop_tail":
+                check(len(ctrl.swaps) == 1 and epochs[-1] == 1
+                      and [r["epoch"] for r in rows] == [0, 1],
+                      f"drop_tail: no swap to epoch 1 ({epochs}, {rows})")
+                after_swap = per[epochs.index(1)]
+            elif scen == "transient_crash":
+                check(retries == 2 and fails == 0,
+                      f"transient_crash: retries {retries}, failures {fails}")
+            elif scen == "permanent_crash":
+                check(any(r.forced and r.applied for r in recs)
+                      and tr.engine.epoch >= 1,
+                      "permanent_crash: no forced replan")
+            else:
+                check(any(r.reactive for r in recs) and inj.fired(
+                    "link_throttle"), "link_throttle: no reactive replan")
+            del tr, ctrl, inj
+            free(torch)
+    finally:
+        restore()
+    return after_swap
+
+
+def launcher_phase15(torch, dev, fa, dec, card):
+    """``launch.train --rl grpo --require-recover`` with ``--drift
+    drop_tail``, then ``--fault ckpt_fail``, ``ckpt_flaky`` and
+    ``ckpt_corrupt``, at qwen3-0.6b's full width cut to its first 8 layers
+    (the whole trainer state, about 2.5 GB, then fits the checkpoint
+    format's 4 GiB; at 28 layers it is 8.8 GB)."""
+    import shutil
+    from repro_torch.configs import archs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.rl.trainer import RLTrainer
+    from repro_torch.tree import tree_leaves
+    cut = first_layers(archs.get(ARCH), 8)
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(RLTrainer)
+    ckpt_dir = Path(train_mod.CKPT_DIR)
+    try:
+        for extra in (["--drift", "drop_tail", "--steps", "6"],
+                      ["--fault", "ckpt_fail", "--steps", "4"],
+                      ["--fault", "ckpt_flaky", "--steps", "4"],
+                      ["--fault", "ckpt_corrupt", "--steps", "4"]):
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            hook.iters.clear()
+            argv = ["--arch", ARCH, "--rl", "grpo", "--batch", "16",
+                    "--require-recover"] + extra
+            print(f"[15 launcher] python -m repro_torch.launch.train "
+                  f"{' '.join(argv)}, first 8 of {archs.get(ARCH).n_layers} "
+                  f"layers at full width (depth cut: the state must fit the "
+                  f"checkpoint format's 4 GiB)", flush=True)
+            t0 = time.monotonic()
+            out = train_mod.run_rl(train_mod.parse_args(argv), cfg=cut)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            tr, ctrl = out["trainer"], out["controller"]
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(tr.state_tree()))
+            per = _check_launches(hook, f"[15 launcher] {extra[1]}")
+            rows = tr.engine.epoch_report()
+            print(f"[15 launcher] {extra[1]}: recovered line "
+                  f"{out['recovered']!r}; state {nbytes / 1e9:.2f} GB; swaps "
+                  f"{len(ctrl.swaps)}, records {len(ctrl.records)} (reactive "
+                  f"{sum(r.reactive for r in ctrl.records)}); " + ", ".join(
+                      f"epoch {r['epoch']} {r['iterations']} iters "
+                      f"{r['measured_iter_s'] * 1e3:.1f} ms/iter"
+                      for r in rows)
+                  + f"; launches per iteration {per}; {wall:.1f}s | card "
+                  f"{card}", flush=True)
+            if extra[1] == "drop_tail":
+                check(any(r.applied and not r.reactive for r in ctrl.records)
+                      and len(rows) >= 2, "drop_tail: no plan swap")
+            elif extra[1] == "ckpt_corrupt":
+                check(out["recovered"] is not None and out["recovered"]
+                      .startswith("recovered: load_latest fell back to "),
+                      f"ckpt_corrupt: {out['recovered']}")
+            else:
+                check(out["recovered"] is not None,
+                      f"{extra[1]}: no recovery line")
+            del out, tr, ctrl
+            free(torch)
+    finally:
+        restore()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def control_phase16(torch, dev, fa, dec, card):
+    """No fault injected: the full-width GRPO trainer with the divergence
+    monitor and the calibrated deadlines armed as the launcher arms them
+    (threshold 2.0, sustain 2, slack 5.0) after a 3-iteration warmup,
+    then 12 iterations under a constant feed: how often do they fire?
+    Also the local microbench the calibration can record."""
+    from repro_torch.configs import archs
+    from repro_torch.core import profiler
+    from repro_torch.engine.elastic import ElasticConfig, ElasticController
+    from repro_torch.obs import calibrate as obs_cal
+    from repro_torch.obs import metrics as obs_metrics
+    t0 = time.monotonic()
+    tr, topo, ds, rng = _rl_setup(torch, dev, archs.get(ARCH))
+    ctrl = ElasticController(tr, lambda it: topo,
+                             ElasticConfig(ckpt_dir=None))
+    for _ in range(3):
+        tr.iteration(*next(ds), rng)
+    cal = obs_cal.fit_from_engine(tr.engine, measure_local=True)
+    mon = obs_cal.DivergenceMonitor(threshold=2.0, sustain=2)
+    tr.engine.attach_divergence_monitor(mon, cal)
+    tr.engine.set_task_deadlines(cal, slack=5.0)
+    ctrl.monitor = mon
+    m0 = obs_metrics.counter("engine.deadline_misses").value
+    fired_at = []
+    for it in range(3, 15):
+        m = tr.iteration(*next(ds), rng)
+        check(all(math.isfinite(float(v)) for v in m.values()),
+              "control: non-finite metrics")
+        rec = ctrl.poll(it)
+        if rec is not None:
+            fired_at.append((it, rec.decision.switch, rec.epoch))
+    misses = obs_metrics.counter("engine.deadline_misses").value - m0
+    ratios = {tr.wf.task(t).name: round(mon.ratio(t), 3)
+              for t in range(tr.wf.n_tasks)}
+    print(f"[16 control] no fault, full width, monitor (threshold 2.0, "
+          f"sustain 2) and deadlines (slack 5.0) armed after 3 warmup "
+          f"iterations, 12 iterations: monitor fires {mon.fire_count} "
+          f"(reactive replans at (iteration, switch, epoch) {fired_at}), "
+          f"deadline misses {misses:.0f}; last EWMA measured/predicted "
+          f"ratios {ratios}; calibration global scale "
+          f"{cal.global_scale:.4g} from {cal.n_samples} samples; "
+          f"{time.monotonic() - t0:.1f}s | card {card}", flush=True)
+    tf = profiler.calibrate_local_device(device=dev)
+    bw = profiler.calibrate_local_hbm(device=dev)
+    print(f"[16 control] local microbench (core.profiler, 8 fp32 1024^2 "
+          f"matmuls; 8 passes of a 64 MB copy-scale): {tf:.2f} TFLOP/s fp32, "
+          f"{bw:.1f} GB/s; in the fit: {cal.local_tflops:.2f} TFLOP/s, "
+          f"{cal.local_hbm_gbps:.1f} GB/s | card {card}", flush=True)
+    check(tf > 0 and bw > 0 and cal.local_tflops > 0,
+          "the local microbench measured nothing")
+    del tr, ctrl
+    free(torch)
+    return mon.fire_count, misses
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA card")
+    os.chdir(ROOT)       # the launcher's checkpoints: results/elastic_ckpt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.nn.functional as F
@@ -1168,6 +1712,25 @@ def main() -> None:
     for key, n in rl_phase11(torch, dev, fa, dec, card).items():
         results[key]["launches"] = n
     torch.cuda.empty_cache()
+
+    # ---- 12. the LM mode at full width; one step card against CPU --------
+    lm_params = lm_phase12(torch, dev, card)
+
+    # ---- 13. checkpoints on the card --------------------------------------
+    ckpt_phase13(torch, dev, card, lm_params)
+    del lm_params
+    torch.cuda.empty_cache()
+
+    # ---- 14. elastic plan swaps and faults at full width -------------------
+    after = elastic_phase14(torch, dev, fa, dec, card)
+    print(f"[14 elastic] launches in the first iteration after the swap "
+          f"(flash, decode): {after}", flush=True)
+
+    # ---- 15. the launcher's drift and checkpoint faults, 8-layer cut -------
+    launcher_phase15(torch, dev, fa, dec, card)
+
+    # ---- 16. no-fault control: spurious fires of the monitor and deadlines -
+    control_phase16(torch, dev, fa, dec, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,6 +6,10 @@ it and no JAX.  The serving path: ``launch.serve`` -> ``genserve`` ->
 ``csrc``).  The RL path: ``launch.train --rl`` -> the scheduler
 (``core``) -> ``Plan`` -> ``engine`` (GEN through ``genserve``, INF,
 TRAIN on the plain attention with autograd and ``optim.adam``, weight
-sync) driven by ``rl.trainer``.  Entry points run on the card (``cuda``)
-unless the caller passes ``device="cpu"``.
+sync) driven by ``rl.trainer``; with ``--drift`` / ``--fault`` the elastic
+controller (``engine.elastic``) swaps plans, retries and escalates
+faults (``faults``, ``core.retry``) and checkpoints the state
+(``checkpoint``, the JAX package's file format).  ``launch.train``
+without ``--rl`` runs LM train steps (``launch.steps``).  Entry points
+run on the card (``cuda``) unless the caller passes ``device="cpu"``.
 """

@@ -4,15 +4,18 @@ Port of the numpy part of ``repro.data.synthetic``: integer addition.
 Prompts are "a+b=" over a small digit vocabulary; the programmatic
 reward scores generated completions by digit-level correctness of the
 sum (1.0 for exact, partial credit per digit).  Prompts drawn from the
-same seed are identical to the reference's.  ``random_lm_batch`` (the
-LM mode's random-token stream) is not yet ported.
+same seed are identical to the reference's.  ``random_lm_batch`` draws
+its tokens from an explicit ``torch.Generator`` (the reference's come
+from a JAX key, which torch cannot reproduce: parity tests feed both
+packages the same numpy batch).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 # vocabulary: 0-9 digits, '+', '=', PAD, BOS, EOS
 PAD, BOS, EOS, PLUS, EQ = 10, 11, 12, 13, 14
@@ -76,3 +79,15 @@ class PromptDataset:
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         while True:
             yield self.task.sample_batch(self.rng, self.batch)
+
+
+def random_lm_batch(gen: torch.Generator, batch: int, seq: int,
+                    vocab: int) -> Dict[str, torch.Tensor]:
+    """Generic LM batch for throughput-style runs, on ``gen``'s device:
+    uniform tokens, next-token labels (the tokens rolled left by one),
+    an all-ones fp32 loss mask."""
+    tokens = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=gen.device)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones((batch, seq), dtype=torch.float32, device=gen.device)
+    return {"tokens": tokens, "labels": labels, "loss_mask": mask}

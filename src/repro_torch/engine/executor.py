@@ -13,8 +13,23 @@ through the same device-availability logic as ``core.simulator.simulate``
 the ``Event``/``SimResult`` dataclasses with the simulator, so a Fig-7
 style measured-vs-predicted comparison is ``compare_with_simulator()``.
 
-Everything the engine derives from the scheduler's ``Plan`` lives in a
-``PlanContext`` (plan epoch 0: the port does not swap plans yet).
+Plan epochs (§6 online redeployment): everything the engine derives from
+the scheduler's ``Plan`` lives in a swappable ``PlanContext``; a running
+session swaps plans at an iteration boundary through ``apply_plan`` —
+trainer/optimizer state is untouched, a weight-migration event priced by
+``core.redeploy.transition_cost`` is replayed onto the timeline, and all
+subsequent events carry the new plan epoch so steady-state estimates
+never straddle a swap.  On one card every plan's groups fold onto it, so
+a swap moves no weights; the new context's folding records the
+collisions.
+
+Fault hardening, as the reference: an attached ``faults.FaultInjector``
+raises its scheduled faults before each task attempt and dilates the
+replayed durations, transient failures retry under ``core.retry``, a
+failure beyond the budget (or a permanent one) raises
+``TaskExecutionError``, calibrated per-task deadlines count misses, and
+an attached ``obs.calibrate.DivergenceMonitor`` sees every iteration's
+measured against predicted task times.
 
 Port of ``repro.engine.executor``.  A task's measured duration ends at a
 CUDA event recorded on the current stream after the task and waited on
@@ -23,12 +38,12 @@ so the ``Event`` timeline times the card's work, not the launch queue
 (both are no-ops on the CPU).  Lanes of disjoint plan groups still run
 in threads; on one card they share its stream, so a lane's wait also
 covers the other lane's earlier work — the folding's collision flags
-(every group collides on one card) mark those events.
+(every group collides on one card) mark those events.  A stage waits
+for every lane before it raises, so a fault in one lane is never lost
+behind another's.
 
-Not yet ported (ROADMAP.md §1 item 8): plan swaps (``apply_plan``,
-``update_topology``), the fault injector, task retries and deadlines,
-and the divergence monitor; and (item 9) the gen/train wall-clock
-overlap, which needs GEN on devices of its own.
+Not yet ported (ROADMAP.md §1 item 9): the gen/train wall-clock overlap,
+which needs GEN on devices of its own.
 """
 from __future__ import annotations
 
@@ -36,11 +51,12 @@ import dataclasses
 import math
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core import retry as retry_mod
 from repro_torch.core.costmodel import CostModel
 from repro_torch.core.plan import Plan, predicted_occupancy
 from repro_torch.core.simulator import Event, SimResult, simulate
@@ -53,6 +69,33 @@ from repro_torch.engine.placement import build_placement, fold_plan
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
+# pseudo task id for the weight-migration event a plan swap replays onto
+# the timeline (real workflow tasks are 0..n_tasks-1)
+MIGRATION_TASK = -1
+
+
+class TaskExecutionError(Exception):
+    """A task executor failed beyond the engine's retry budget (or
+    permanently).  Carries enough context for the elastic controller to
+    escalate: the task, its assigned plan devices, and — for permanent
+    faults — the device ids presumed dead."""
+
+    def __init__(self, task: int, name: str, devices, attempts: int,
+                 cause: BaseException, *, permanent: bool = False,
+                 dead_devices=()):
+        super().__init__(
+            f"task {task} ({name}) failed "
+            f"{'permanently' if permanent else f'after {attempts} attempts'}"
+            f": {cause!r}")
+        self.task = task
+        self.task_name = name
+        self.devices = tuple(int(d) for d in devices)
+        self.attempts = attempts
+        self.cause = cause
+        self.permanent = permanent
+        self.dead_devices = tuple(int(d) for d in dead_devices)
+
+
 @dataclasses.dataclass
 class EngineResult:
     metrics: Dict[str, float]
@@ -63,7 +106,10 @@ class EngineResult:
 
 @dataclasses.dataclass
 class PlanContext:
-    """Everything the engine derives from one ``Plan``."""
+    """Everything the engine derives from one ``Plan`` — the swappable
+    unit of the plan-epoch model.  ``apply_plan`` builds a fresh context;
+    nothing in it survives a swap except through the explicit transition
+    (device availability is re-seeded at the migration end time)."""
     epoch: int
     plan: Plan
     topo: Optional[Topology]
@@ -71,6 +117,7 @@ class PlanContext:
     gen_task: int
     actor_train: int
     dev_free: Dict[int, float]            # plan-device availability (replay)
+    start_iter: int = 0                   # first engine iteration in epoch
     folding: Any = None                   # placement.DeviceFolding
 
 
@@ -85,7 +132,12 @@ class Engine:
         if asynchronous is None:
             asynchronous = not wf.synchronous
         self.pipeline = AsyncPipeline(asynchronous)
-        self.ctx = self._make_context(plan, topo)
+        self.ctx = self._make_context(plan, topo, epoch=0, start_iter=0)
+        self.ctx_history: List[PlanContext] = []   # retired epochs, oldest first
+        # set when a topology drift could not be adopted because the
+        # incumbent plan references dropped devices (predictions keep
+        # pricing the old environment until a feasible plan lands)
+        self.topology_stale = False
         self._done_at: Dict[tuple, float] = {}
         self._sync_done = 0.0
         self._iter = 0
@@ -102,12 +154,28 @@ class Engine:
         self._wave_pred_sum = 0.0
         self._wave_calls = 0
         self._t0 = time.monotonic()
-        # measured weight-sync wall-clock per trained iteration
+        # measured weight-sync wall-clock per trained iteration — the
+        # sample obs.calibrate fits the reshard/sync coefficient from
         self.sync_durations: List[float] = []
+        # optional reactive-drift hook (obs.calibrate.DivergenceMonitor)
+        self.divergence_monitor = None
+        self._div_cost_model = None
+        self._pred_cache: Optional[tuple] = None
+        # fault hardening: optional injector (faults), bounded retry for
+        # transient task failures, calibrated per-task deadlines
+        # (predicted × slack; post-hoc — a launched task is not
+        # preempted, so a miss is a signal, not an abort)
+        self.fault_injector = None
+        self.task_retry = retry_mod.RetryPolicy(max_attempts=3,
+                                                base_delay_s=0.02)
+        self._retry_sleep = time.sleep
+        self._deadline_slack: Optional[float] = None
+        self._deadline_cm = None
+        self._deadline_cache: Optional[tuple] = None
 
     # -- plan context ---------------------------------------------------
-    def _make_context(self, plan: Plan,
-                      topo: Optional[Topology]) -> PlanContext:
+    def _make_context(self, plan: Plan, topo: Optional[Topology],
+                      epoch: int, start_iter: int) -> PlanContext:
         missing = set(range(self.wf.n_tasks)) - set(plan.parallel)
         if missing:
             raise ValueError(f"plan does not cover workflow tasks {missing}")
@@ -125,7 +193,7 @@ class Engine:
         dev_free = {int(d): 0.0 for t in range(self.wf.n_tasks)
                     for d in plan.assignment[t].reshape(-1)}
         # commit each task's state onto its owning placement (no-op on
-        # one device)
+        # one device; rebuilt on every elastic plan swap)
         install = getattr(self.state, "install_placements", None)
         if install is not None:
             install(placements, self.wf)
@@ -139,9 +207,11 @@ class Engine:
                 float(pl.n_devices))
             obs_metrics.gauge(f"placement.tp_realized.{name}").set(
                 float(pl.tp_eff))
-        return PlanContext(0, plan, topo, placements, gen_task,
-                           actor_train, dev_free, folding=folding)
+        return PlanContext(epoch, plan, topo, placements, gen_task,
+                           actor_train, dev_free, start_iter,
+                           folding=folding)
 
+    # back-compat accessors: the live context is authoritative
     @property
     def plan(self) -> Plan:
         return self.ctx.plan
@@ -170,6 +240,93 @@ class Engine:
     def _dev_free(self) -> Dict[int, float]:
         return self.ctx.dev_free
 
+    def update_topology(self, topo: Topology) -> None:
+        """Adopt a drifted topology *without* swapping plans (the elastic
+        controller stays on the incumbent): predictions now price the new
+        environment; no epoch bump, no migration, no placement rebuild.
+
+        If the incumbent plan no longer fits the drifted topology (a
+        device drop re-indexed the survivors and ``reschedule`` found no
+        feasible challenger), the old topology is kept for prediction —
+        simulating the incumbent on the shrunken device list would index
+        out of range — and the epoch is marked unpredictable
+        (``topology_stale``): ``epoch_report`` rows show it explicitly
+        instead of crashing, and ``compare_with_simulator`` keeps
+        pricing the environment the plan actually describes."""
+        if self.ctx.plan is not None and topo is not None \
+                and not self.ctx.plan.fits_topology(topo):
+            self.topology_stale = True
+            return
+        self.topology_stale = False
+        self.ctx = dataclasses.replace(self.ctx, topo=topo)
+
+    def apply_plan(self, plan: Plan, *, topo: Optional[Topology] = None,
+                   carry_pending: bool = True) -> Dict[str, float]:
+        """Swap the execution plan at an iteration boundary (§6 online
+        redeployment) without losing trainer/optimizer state.
+
+        On one card every plan's groups fold onto it: the swap moves no
+        weights and rebuilds the placements only.  The swap replays a
+        weight-migration event priced by
+        ``core.redeploy.transition_cost`` (old plan -> new plan on the
+        new topology): it starts once every device of the outgoing plan
+        is quiesced, occupies the transition window, and re-seeds the new
+        plan's device availability at its end — so the replayed timeline
+        accounts for the §6 "applied immediately after checkpointing"
+        pause.  Generation additionally waits for the migrated weights
+        the way it waits for a weight sync.
+
+        The async one-step-staleness invariant is preserved explicitly:
+        with ``carry_pending`` (default) the in-flight rollout bundle
+        generated under the old plan is carried across the swap and
+        trained next iteration (still exactly one sync behind); with
+        ``carry_pending=False`` the bundle is drained and the pipeline
+        refills, making the first post-swap iteration a fill iteration.
+
+        Returns transition telemetry (seconds, epoch, migration window).
+        """
+        from repro_torch.core import redeploy
+        old = self.ctx
+        with obs_trace.span("engine.swap", iteration=self._iter,
+                            epoch=old.epoch + 1) as sp:
+            topo = topo if topo is not None else old.topo
+            trans_s = 0.0
+            if topo is not None:
+                trans_s = redeploy.transition_cost(topo, self.wf, old.plan,
+                                                   plan, topo_old=old.topo)
+            # migration window on the replay clock: begins when the
+            # outgoing plan's devices are all idle (iteration boundary +
+            # in-flight sync)
+            t0 = max(list(old.dev_free.values()) + [self._sync_done])
+            t1 = t0 + trans_s
+            new_epoch = old.epoch + 1
+            # the replay window [t0, t1) is priced, not measured — the
+            # host observes the swap as one instant
+            wall = time.monotonic() - self._t0
+            self.timeline.append(Event(t0, "start", self._iter,
+                                       MIGRATION_TASK, epoch=new_epoch,
+                                       t_wall=wall, span=sp.id or None))
+            self.timeline.append(Event(t1, "end", self._iter,
+                                       MIGRATION_TASK, epoch=new_epoch,
+                                       t_wall=wall, span=sp.id or None))
+            ctx = self._make_context(plan, topo, epoch=new_epoch,
+                                     start_iter=self._iter)
+            for d in ctx.dev_free:
+                ctx.dev_free[d] = t1
+            self._sync_done = max(self._sync_done, t1)
+            dropped = 0
+            if not carry_pending:
+                dropped = int(self.pipeline.drain() is not None)
+            self.ctx_history.append(old)
+            self.ctx = ctx
+            self.topology_stale = False  # the new plan fits its topology
+            sp.set("transition_cost_s", trans_s)
+        obs_metrics.counter("engine.swaps").inc()
+        obs_metrics.gauge("engine.plan_epoch").set(new_epoch)
+        return {"transition_cost_s": trans_s, "epoch": float(new_epoch),
+                "migration_start_s": t0, "migration_end_s": t1,
+                "dropped_bundles": float(dropped)}
+
     # -- stage dispatch ------------------------------------------------
     def _lanes(self, stage: Sequence[int]) -> List[List[int]]:
         """Partition a stage's tasks by plan task group (colocated tasks
@@ -182,10 +339,20 @@ class Engine:
     def _run_stage(self, stage: Sequence[int], bb: Dict[str, Any],
                    durations: Dict[int, float],
                    meta: Dict[int, tuple]) -> None:
+        inj = self.fault_injector
+
+        def attempt_task(t, fn, attempt):
+            if inj is not None:
+                inj.before_task(t, attempt)
+            out = fn(self.state, bb, self.placements[t])
+            if out is not None:
+                wait_for(out)
+
         def run_lane(lane: List[int]) -> None:
             for t in lane:
                 task = self.wf.task(t)
                 fn = tasks_mod.executor_for(task)
+                devs = [int(d) for d in self.plan.assignment[t].reshape(-1)]
                 pl = self.placements[t]
                 mesh_attr = "x".join(str(s) for s in pl.mesh_shape) + "@" \
                     + ",".join(str(getattr(d, "id", d))
@@ -195,20 +362,54 @@ class Engine:
                                     epoch=self.ctx.epoch,
                                     mesh=mesh_attr) as sp:
                     t0 = time.monotonic()
-                    out = fn(self.state, bb, pl)
-                    if out is not None:
-                        wait_for(out)
+                    try:
+                        retry_mod.retry_call(
+                            lambda a, t=t, fn=fn: attempt_task(t, fn, a),
+                            policy=self.task_retry,
+                            on_retry=lambda a, e, t=t, sp=sp:
+                                self._on_task_retry(t, a, e, sp),
+                            sleep=self._retry_sleep)
+                    except retry_mod.RetryExhausted as e:
+                        obs_metrics.counter("engine.task_failures").inc()
+                        sp.set("failed", True)
+                        raise TaskExecutionError(
+                            t, task.name, devs, e.attempts, e.last) from e
+                    except retry_mod.PermanentError as e:
+                        obs_metrics.counter("engine.task_failures").inc()
+                        sp.set("failed", True)
+                        raise TaskExecutionError(
+                            t, task.name, devs, 1, e, permanent=True,
+                            dead_devices=getattr(e, "devices", ())) from e
                     t1 = time.monotonic()
-                durations[t] = t1 - t0
+                dur = t1 - t0
+                if inj is not None:
+                    # undeclared degradations stretch the replay clock,
+                    # never the host clock — this is what the divergence
+                    # monitor "measures"
+                    dur *= inj.dilation(t)
+                durations[t] = dur
                 meta[t] = (t0 - self._t0, sp.id)
+                deadline = self._task_deadline(t)
+                if deadline is not None and dur > deadline:
+                    obs_metrics.counter("engine.deadline_misses").inc()
+                    sp.set("deadline_s", deadline)
+                    sp.set("deadline_exceeded", True)
 
         lanes = self._lanes(stage)
         if len(lanes) == 1:
             run_lane(lanes[0])
             return
         with ThreadPoolExecutor(max_workers=len(lanes)) as pool:
-            for f in [pool.submit(run_lane, lane) for lane in lanes]:
-                f.result()
+            futs = [pool.submit(run_lane, lane) for lane in lanes]
+            wait(futs)
+        # every lane has ended: raise the first failure in lane order, the
+        # others noted on it (none is left unread in a future)
+        errors = [f.exception() for f in futs if f.exception() is not None]
+        if errors:
+            for other in errors[1:]:
+                errors[0].add_note(f"another lane of this stage also "
+                                   f"failed: {other!r}")
+            raise errors[0]
 
     # -- measured-timeline replay --------------------------------------
     def _replay_iteration(self, durations: Dict[int, float],
@@ -263,9 +464,62 @@ class Engine:
         self._iter += 1
         return events
 
+    # -- fault hardening -------------------------------------------------
+    def attach_fault_injector(self, injector) -> None:
+        """Bind a ``faults.FaultInjector`` to this engine: it is
+        clocked at the top of every ``run_iteration``, consulted before
+        each task attempt (raising injected faults), and its dilation
+        stretches measured durations on the replay timeline."""
+        self.fault_injector = injector.bind(self)
+
+    def set_task_retry(self, policy, *, sleep=None) -> None:
+        """Override the transient-failure retry policy (and, for tests,
+        the backoff sleep)."""
+        self.task_retry = policy
+        if sleep is not None:
+            self._retry_sleep = sleep
+
+    def set_task_deadlines(self, cost_model=None, *,
+                           slack: float = 3.0) -> None:
+        """Arm per-task deadlines at predicted × ``slack``.  Only
+        meaningful with a calibrated model (``obs.calibrate.Calibration``
+        or a ``CostModel`` built from one) — the uncalibrated analytical
+        model is orders of magnitude off wall clock.  Misses are counted
+        (``engine.deadline_misses``) and stamped on the task span; the
+        task is never aborted (a launched task is not preempted)."""
+        self._deadline_slack = slack
+        self._deadline_cm = cost_model
+        self._deadline_cache = None
+
+    def _task_deadline(self, t: int) -> Optional[float]:
+        if self._deadline_slack is None or self.topo is None \
+                or self.topology_stale:
+            return None
+        if self._deadline_cache is None \
+                or self._deadline_cache[0] != self.ctx.epoch:
+            src = self._deadline_cm
+            if src is None:
+                return None
+            cm = src.cost_model(self.topo, self.wf) \
+                if hasattr(src, "cost_model") else src
+            self._deadline_cache = (
+                self.ctx.epoch,
+                {tt: cm.task_cost(self.plan, tt).total
+                 * self._deadline_slack
+                 for tt in range(self.wf.n_tasks)})
+        return self._deadline_cache[1].get(t)
+
+    def _on_task_retry(self, t: int, attempt: int,
+                       exc: BaseException, sp) -> None:
+        obs_metrics.counter("engine.task_retries").inc()
+        sp.set("retries", attempt + 1)
+        sp.set("retry_error", type(exc).__name__)
+
     # -- one iteration --------------------------------------------------
     def run_iteration(self, prompts, answers, rng) -> EngineResult:
         t_iter0 = time.monotonic()
+        if self.fault_injector is not None:
+            self.fault_injector.begin_iteration(self._iter)
         with obs_trace.span("engine.iteration", iteration=self._iter,
                             epoch=self.ctx.epoch):
             result = self._run_iteration(prompts, answers, rng)
@@ -276,10 +530,13 @@ class Engine:
             rec = self.pipeline.records[-1]
             obs_metrics.gauge("engine.staleness").set(
                 rec.weight_version - rec.gen_version)
+        self._observe_divergence(result)
         return result
 
     def _run_iteration(self, prompts, answers, rng) -> EngineResult:
         bb: Dict[str, Any] = {"lock": threading.Lock(), "metrics": {}}
+        if self.fault_injector is not None:
+            bb["fault"] = self.fault_injector
         bb.update(self.state.prepare_inputs(prompts, answers, rng))
         self._samples = int(bb["prompts_rep"].shape[0])
         durations: Dict[int, float] = {}
@@ -323,6 +580,47 @@ class Engine:
         events = self._replay_iteration(durations, sync_dur, trained=True,
                                         meta=meta)
         return EngineResult(metrics, events, self._iter - 1, self.ctx.epoch)
+
+    # -- reactive drift hook ---------------------------------------------
+    def attach_divergence_monitor(self, monitor,
+                                  cost_model=None) -> None:
+        """Feed every iteration's measured vs predicted task durations
+        into an ``obs.calibrate.DivergenceMonitor``.  ``cost_model`` may
+        be a ``CostModel`` instance or an ``obs.calibrate.Calibration``
+        (rebuilt against the live topology at each plan epoch); omitted,
+        the uncalibrated analytical model is used — only meaningful if
+        the monitor's threshold accounts for the wall-clock offset."""
+        self.divergence_monitor = monitor
+        self._div_cost_model = cost_model
+        self._pred_cache = None
+
+    def _observe_divergence(self, result: EngineResult) -> None:
+        mon = self.divergence_monitor
+        if mon is None or self.topo is None or self.topology_stale:
+            return
+        if self._pred_cache is None \
+                or self._pred_cache[0] != self.ctx.epoch:
+            src = self._div_cost_model
+            if src is None:
+                cm = CostModel(self.topo, self.wf)
+            elif hasattr(src, "cost_model"):     # a Calibration
+                cm = src.cost_model(self.topo, self.wf)
+            else:
+                cm = src
+            self._pred_cache = (
+                self.ctx.epoch,
+                {t: cm.task_cost(self.plan, t).total
+                 for t in range(self.wf.n_tasks)})
+        starts: Dict[int, float] = {}
+        measured: Dict[int, float] = {}
+        for e in result.events:
+            if e.task < 0:
+                continue
+            if e.kind == "start":
+                starts[e.task] = e.time
+            elif e.kind == "end" and e.task in starts:
+                measured[e.task] = e.time - starts.pop(e.task)
+        mon.observe_iteration(measured, self._pred_cache[1])
 
     # -- decode-wave telemetry -------------------------------------------
     def _record_gen_stats(self, bb: Dict[str, Any]) -> None:
@@ -406,25 +704,39 @@ class Engine:
         return out
 
     # -- measured vs predicted -------------------------------------------
-    def _gen_starts(self) -> List[float]:
+    def _epoch_gen_starts(self, ctx: PlanContext) -> List[float]:
         return sorted(e.time for e in self.timeline
-                      if e.task == self.ctx.gen_task and e.kind == "start")
+                      if e.task == ctx.gen_task and e.kind == "start"
+                      and e.epoch == ctx.epoch)
 
     def measured_result(self) -> SimResult:
-        """Measured timeline in the simulator's SimResult shape; the
-        steady-state iteration time is the delta of the last two
-        generation starts."""
+        """Measured timeline in the simulator's SimResult shape.
+
+        The steady-state iteration time is derived from generation-start
+        deltas *within the current plan epoch* — a swap between the last
+        two generation starts would otherwise fold the migration window
+        (and the old plan's cadence) into the estimate."""
         if not self.timeline:
             return SimResult(0.0, 0.0, 0.0, [])
         makespan = max(e.time for e in self.timeline)
-        gen_starts = self._gen_starts()
-        # the first delta absorbs the kernel builds, so demand a third
-        # start; with fewer, average over the timeline's span
-        if len(gen_starts) >= 3:
+        gen_starts = self._epoch_gen_starts(self.ctx)
+        # epoch 0's first delta absorbs the kernel builds, so demand one
+        # extra start there; post-swap epochs run warm
+        need = 3 if self.ctx.epoch == 0 else 2
+        if len(gen_starts) >= need:
             iter_time = gen_starts[-1] - gen_starts[-2]
         else:
-            times = [e.time for e in self.timeline]
-            iter_time = (max(times) - min(times)) / max(self._iter, 1)
+            # too few starts for a delta: average over the live epoch's
+            # own span (post-migration), never over retired epochs or
+            # the migration window
+            span = [e.time for e in self.timeline
+                    if e.epoch == self.ctx.epoch
+                    and e.task != MIGRATION_TASK]
+            epoch_iters = max(self._iter - self.ctx.start_iter, 1)
+            if span:
+                iter_time = (max(span) - min(span)) / epoch_iters
+            else:
+                iter_time = makespan / max(self._iter, 1)
         iter_time = max(iter_time, 1e-9)
         return SimResult(iter_time, makespan, self._samples / iter_time,
                          sorted(self.timeline, key=lambda e: e.time))
@@ -455,7 +767,8 @@ class Engine:
                                n_iterations: Optional[int] = None
                                ) -> Dict[str, float]:
         """Fig-7 style: measured iteration time vs the cost model's
-        event-driven prediction for the same (wf, plan) on `topo`.
+        event-driven prediction for the same (wf, plan) on `topo` —
+        plan-epoch aware, so both sides describe the *current* plan.
 
         When gcd-folding shrank a task's parallelization (the host has
         fewer devices than the plan assumed), the planned-plan prediction
@@ -464,7 +777,8 @@ class Engine:
         realized tp/dp."""
         if self.topo is None:
             raise ValueError("engine was built without a Topology")
-        n_it = n_iterations or max(self._iter, 4)
+        epoch_iters = self._iter - self.ctx.start_iter
+        n_it = n_iterations or max(epoch_iters, 4)
         sim = simulate(self.topo, self.wf, self.plan,
                        n_iterations=n_it, cost_model=cost_model)
         meas = self.measured_result()
@@ -491,24 +805,27 @@ class Engine:
 
     def epoch_report(self, cost_model: Optional[CostModel] = None
                      ) -> List[Dict[str, float]]:
-        """Per plan-epoch measured-vs-predicted iteration time, in the
-        reference's row format: one row, since the port runs one plan
-        epoch (measured from the last two gen starts, predicted by
-        simulating the plan on its topology)."""
-        ctx = self.ctx
-        starts = self._gen_starts()
-        measured = float("nan")
-        if len(starts) >= 2:
-            measured = starts[-1] - starts[-2]
-        predicted = float("nan")
-        if ctx.topo is not None and ctx.plan.fits_topology(ctx.topo):
-            predicted = simulate(
-                ctx.topo, self.wf, ctx.plan,
-                n_iterations=max(len(starts), 4),
-                cost_model=cost_model).iteration_time
-        return [{"epoch": ctx.epoch, "iterations": len(starts),
-                 "measured_iter_s": measured,
-                 "predicted_iter_s": predicted,
-                 "ratio": measured / predicted
-                 if predicted and np.isfinite(predicted)
-                 else float("nan")}]
+        """Per plan-epoch measured-vs-predicted iteration time: one row
+        per epoch (retired and live), each measured from gen-start deltas
+        strictly inside that epoch and predicted by simulating that
+        epoch's own plan on that epoch's own topology."""
+        rows = []
+        for ctx in self.ctx_history + [self.ctx]:
+            starts = self._epoch_gen_starts(ctx)
+            measured = float("nan")
+            if len(starts) >= 2:
+                measured = starts[-1] - starts[-2]
+            predicted = float("nan")
+            if ctx.topo is not None and ctx.plan.fits_topology(ctx.topo):
+                predicted = simulate(
+                    ctx.topo, self.wf, ctx.plan,
+                    n_iterations=max(len(starts), 4),
+                    cost_model=cost_model).iteration_time
+            rows.append({"epoch": ctx.epoch,
+                         "iterations": len(starts),
+                         "measured_iter_s": measured,
+                         "predicted_iter_s": predicted,
+                         "ratio": measured / predicted
+                         if predicted and np.isfinite(predicted)
+                         else float("nan")})
+        return rows

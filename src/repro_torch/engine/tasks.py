@@ -13,9 +13,9 @@ inference tensors, so the training batch is built from clones
 (``ensure_train_batch``).  TRAIN's losses run the plain attention
 (the trainer passes ``attn_impl="plain"``): the kernels have no backward.
 
-Not yet ported: speculative GEN, chunked admission, injected slot
-failures (the port's ``RLConfig`` has no knob for them) and sharded
-placements (``NotImplementedError``).
+Not yet ported: speculative GEN and chunked admission (the port's
+``RLConfig`` has no knob for them), injected decode-slot failures and
+sharded placements (both ``NotImplementedError``).
 
 Registration is by (TaskKind, task name), with a (TaskKind, None) fallback
 so custom workflows can reuse the generic executor of a kind.
@@ -31,6 +31,11 @@ from repro_torch.core.workflow import Task, TaskKind
 from repro_torch.engine.placement import NOT_PORTED
 from repro_torch.genserve import adapter as genserve
 from repro_torch.rl import gae, losses
+
+SLOT_FAILURE_NOT_PORTED = (
+    "injected decode-slot failures (fault scenario slot_failure) need "
+    "genserve's slot failure and requeue, which is not yet ported "
+    "(ROADMAP.md §1 item 6)")
 
 _EXECUTORS: Dict[Tuple[TaskKind, Optional[str]], Callable] = {}
 
@@ -74,6 +79,9 @@ def run_generation(st, bb, placement):
     B = int(prompts.shape[0])
     wave = plan_mod.decode_wave(B)
     _unsharded(placement)
+    injector = bb.get("fault")
+    if injector is not None and injector.gen_slot_failures() is not None:
+        raise NotImplementedError(SLOT_FAILURE_NOT_PORTED)
     with placement.mesh, torch.inference_mode():
         if B > wave:
             ro, stats = genserve.generate(

@@ -12,6 +12,10 @@ from __future__ import annotations
 
 import torch
 
+# the attention path of every loss under autograd (the RL trainer's and
+# the LM step's): the kernels compute forward values only
+TRAIN_ATTN = "plain"
+
 
 def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(

@@ -42,6 +42,7 @@ from repro_torch.data.synthetic import AdditionTask, EOS
 from repro_torch.device import resolve_device
 from repro_torch.engine.executor import Engine
 from repro_torch.engine.placement import NOT_PORTED
+from repro_torch.kernels.guard import TRAIN_ATTN
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace as obs_trace
@@ -49,9 +50,6 @@ from repro_torch.optim import adam
 from repro_torch.rl import losses, rewards as rewards_mod, rollout
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-# the attention path of the training losses: the CUDA kernels compute
-# forward values only (their wrappers raise under autograd)
-TRAIN_ATTN = "plain"
 
 
 @dataclasses.dataclass(frozen=True)

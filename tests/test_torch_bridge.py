@@ -168,6 +168,8 @@ def _run(code, env=None):
 
 
 def test_port_imports_no_jax_and_no_repro():
+    """Nor msgpack: the port writes the checkpoint format with its own
+    codec."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -175,7 +177,8 @@ def test_port_imports_no_jax_and_no_repro():
         " 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' "
-        "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.') "
+        "or k == 'msgpack' or k.startswith('msgpack.'))\n"
         "print(len(mods), bad)\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr

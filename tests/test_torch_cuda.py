@@ -458,3 +458,91 @@ def test_ppo_iteration_on_the_card_matches_cpu():
     assert f1 > f0 == 0 and d1 > d0 == 0            # GEN: prefill + decode
     assert f2 > f1 and d2 == d1                     # INF: forward only
     assert (f3, d3) == (f2, d2)                     # TRAIN: no kernel
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card_is_bit_exact(tmp_path):
+    """fp32, bf16 and int32 leaves on the card -> file -> the card, bit for
+    bit, on the ``like`` leaves' device and dtype."""
+    from repro_torch.checkpoint import io as ckpt_io
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn((257, 129), generator=g, device=dev),
+            "h": torch.randn((64, 3), generator=g, device=dev).to(
+                torch.bfloat16),
+            "n": torch.arange(11, dtype=torch.int32, device=dev),
+            "t": (torch.randn((5,), generator=g, device=dev), None)}
+    p = str(tmp_path / "card.msgpack")
+    assert ckpt_io.save(p, tree) > 0
+    like = {"w": torch.zeros((257, 129), device=dev),
+            "h": torch.zeros((64, 3), dtype=torch.bfloat16, device=dev),
+            "n": torch.zeros(11, dtype=torch.int32, device=dev),
+            "t": (torch.zeros(5, device=dev), None)}
+    got = ckpt_io.restore(p, like)
+    for a, b in ((got["w"], tree["w"]), (got["h"], tree["h"]),
+                 (got["n"], tree["n"]), (got["t"][0], tree["t"][0])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_over_the_cap_raises_on_the_card(tmp_path):
+    """A tree over 4 GiB on the card (2 x 2.1 GB fp32) raises before any
+    copy or file."""
+    from repro_torch.checkpoint import io as ckpt_io
+    dev = _cuda()
+    tree = {"a": torch.zeros(2**29 + 2**20, device=dev),
+            "b": torch.zeros(2**29, device=dev)}
+    p = str(tmp_path / "big.msgpack")
+    with pytest.raises(ckpt_io.CheckpointError, match="4 GiB"):
+        ckpt_io.save(p, tree)
+    assert not tmp_path.joinpath("big.msgpack").exists()
+    assert not tmp_path.joinpath("big.msgpack.tmp").exists()
+
+
+@pytest.mark.cuda
+def test_drift_swap_on_the_card_launches_the_kernels():
+    """GRPO at qwen3-0.6b's width cut to 2 layers (vocab 16, fp32) under a
+    ``drop_tail`` drift: the controller swaps the plan, and GEN and INF
+    launch both attention kernels in every iteration, before and after
+    the swap."""
+    import dataclasses
+    from repro_torch.configs import archs
+    from repro_torch.core import topology, workflow
+    from repro_torch.core.sha import HybridScheduler
+    from repro_torch.data.synthetic import AdditionTask, PromptDataset
+    from repro_torch.engine.elastic import ElasticConfig, ElasticController
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    dev = _cuda()
+    full = archs.get("qwen3-0.6b")
+    cfg = dataclasses.replace(full, n_layers=2, pattern=full.pattern,
+                              vocab_size=16, dtype="float32")
+    task = AdditionTask(max_operand=9)
+    topo = topology.build_testbed("single_region",
+                                  counts={"A100": 4, "L4": 4})
+    wf = workflow.make_workflow("grpo", workflow.LLMSpec.from_model_config(
+        cfg), synchronous=True, global_batch=8, n_rollouts=4,
+        seq_in=task.prompt_len, seq_out=task.max_answer_len)
+    plan = HybridScheduler(topo, wf, max_groupings=8,
+                           max_sizes_per_grouping=4).search(budget=60).plan
+    tr = RLTrainer(cfg, RLConfig(algorithm="grpo", n_rollouts=4,
+                                 max_new_tokens=task.max_answer_len),
+                   task, seed=0, plan=plan, topo=topo, wf=wf, device=dev)
+    ctrl = ElasticController(tr, topology.drift_scenario("drop_tail", topo,
+                                                         at=1),
+                             ElasticConfig(budget=60, ckpt_dir=None))
+    ds = iter(PromptDataset(task, batch=8, seed=1))
+    rng = torch.Generator(device=dev).manual_seed(0)
+    per_iter = []
+    for it in range(3):
+        t_flash.launches = t_decode.launches = 0
+        tr.iteration(*next(ds), rng)
+        per_iter.append((tr.engine.epoch, t_flash.launches,
+                         t_decode.launches))
+        ctrl.poll(it)
+    assert tr.engine.epoch == 1 and len(ctrl.swaps) == 1
+    assert [e for e, _, _ in per_iter] == [0, 0, 1]
+    assert all(f > 0 and d > 0 for _, f, d in per_iter), per_iter
+    assert [r["epoch"] for r in tr.engine.epoch_report()] == [0, 1]

@@ -24,6 +24,19 @@ from repro_torch.models import sampling as tsampling  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.rl.rollout import SamplerConfig as TSampler  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's default of one thread per core oversubscribes
+    them (two launcher tests took 66 s instead of 24 s under a full
+    load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STATS = ("decode_steps", "slot_steps", "prefills", "admitted", "retired",
          "occupancy_trace")
 

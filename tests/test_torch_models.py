@@ -42,6 +42,19 @@ from repro_torch.models.config import FFN as TFFN  # noqa: E402
 from repro_torch.models.config import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.models.config import reduced as treduced  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's default of one thread per core oversubscribes
+    them (two launcher tests took 66 s instead of 24 s under a full
+    load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 JAMBA3 = "jamba-1.5-large-398b-3layer"   # attn/dense, mamba/MoE, mamba/dense
 E2E = "rl-actor-e2e"   # examples/train_rl_e2e.py's actor
