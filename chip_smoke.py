@@ -9,8 +9,10 @@ JAX package) at the full width of qwen3-0.6b (attention), of rwkv6-3b
 and MoE FFNs; its first 2 and 4 layers, since the whole model does not
 fit one card), then the RL path (scheduler -> Plan -> engine -> GEN /
 INF / TRAIN -> sync) at qwen3-0.6b's full width, the LM train mode,
-checkpoints, and the elastic plan swaps and fault recovery, and exits
-non-zero on any failure.  Phases, each printing its result:
+checkpoints, the elastic plan swaps and fault recovery, and the rest of
+genserve (chunked admission, the paged cache with prefix reuse,
+speculative decoding, slot failures and cancels), and exits non-zero on
+any failure.  Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
              fails without CUDA.
@@ -101,14 +103,38 @@ non-zero on any failure.  Phases, each printing its result:
              iteration, before and after each event, GEN launches both
              attention kernels and INF flash_attention, TRAIN none.
  15. launcher ``launch.train --rl grpo --require-recover`` with ``--drift
-             drop_tail``, ``--fault ckpt_fail``, ``ckpt_flaky`` and
-             ``ckpt_corrupt`` at full width cut to the first 8 layers (the
-             whole state, 2.5 GB, must fit the format's 4 GiB);
-             ``ckpt_corrupt`` prints ``load_latest fell back to ...``.
+             drop_tail``, ``--fault ckpt_fail``, ``ckpt_flaky``,
+             ``ckpt_corrupt`` and ``slot_failure`` at full width cut to the
+             first 8 layers (the whole state, 2.5 GB, must fit the format's
+             4 GiB); ``ckpt_corrupt`` prints ``load_latest fell back to
+             ...``, ``slot_failure`` ``N slot failures requeued``.
  16. control no fault: the phase-14 trainer with the monitor and deadlines
              armed as the launcher arms them, 12 iterations; how often
              each fires (printed, not a gate); the local microbench of
              ``core.profiler``.
+ 17. genserve the rest of the engine at qwen3-0.6b's full width in fp32
+             (batch 48, wave 16, prompt 256 with 128 shared tokens, 64
+             new, greedy), each run against one-shot admission: chunked
+             (C=64), paged (page 16, identity block table), paged with
+             prefix reuse (hit rate > 0, no leaked page under
+             REPRO_OBS_STRICT=1), speculative k=4 with a 2-layer draft of
+             the target's first layers (one-shot) and with the target as
+             its own draft (chunked), slot failures {2: [0, 1]} and
+             cancels {3: [2, 40]}: tokens and masks identical, log-probs
+             within 1e-3; decode_attention launches in every run,
+             flash_attention in one-shot admission only.  Then rwkv6-3b
+             and Jamba's first 2 layers (MoE capacity_factor E / top_k:
+             no token dropped), chunked against one-shot: identical, the
+             scan kernels launched in one-shot only.
+ 18. serve   ``launch.serve`` in bf16 with phase 5's traffic: --prefill-chunk
+             64; --page-size 16 --prefix-cache --shared-prompts 128
+             --expect-prefix-hits; --spec-k 4 --draft-arch qwen3-0.6b
+             (tok/s, TTFT, hit and accept rates, peak memory, launches per
+             kernel); the paged view's gather per decode step.
+ 19. rl      phase 10's PPO iteration with GEN on genserve's chunked
+             admission (prefill_chunk 16, decode_chunk 2): tokens identical
+             to phase 10's, GEN launches decode_attention and no
+             flash_attention, TRAIN nothing.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -186,13 +212,21 @@ def device_ms(fn, torch, flush, kernel: str, iters: int = 30):
     nothing to the event times; ``kernel`` is part of the kernel's name."""
     from repro_torch.launch.profile_serve import device_events
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    times = sorted(ev["dur"] / 1e3 for ev in device_events(prof)
-                   if ev["cat"] == "kernel" and kernel in ev["name"])
+    for attempt in range(2):
+        # a profiling session now and then returns no device activity at
+        # all (seen once on the card for one of phase 3's cases): profile
+        # a second time before failing
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = sorted(ev["dur"] / 1e3 for ev in device_events(prof)
+                       if ev["cat"] == "kernel" and kernel in ev["name"])
+        if len(times) == iters:
+            break
+        print(f"[3 kernels] the profiler saw {len(times)} launches of "
+              f"{kernel}, not {iters} (attempt {attempt + 1})", flush=True)
     check(len(times) == iters, f"the profiler saw {len(times)} launches of "
           f"{kernel}, not {iters}")
     return times[len(times) // 2], times[0], times[-1]
@@ -440,6 +474,7 @@ def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
     check(lk["TRAIN"] == (0, 0), f"TRAIN launched kernels: {lk}")
     check(all(v == (0, 0) for v in lp.values()),
           f"the plain run launched kernels: {lp}")
+    return rk["sequences"], rk["mask"]
 
 
 def rl_phase11(torch, dev, fa, dec, card):
@@ -954,7 +989,8 @@ def launcher_phase15(torch, dev, fa, dec, card):
         for extra in (["--drift", "drop_tail", "--steps", "6"],
                       ["--fault", "ckpt_fail", "--steps", "4"],
                       ["--fault", "ckpt_flaky", "--steps", "4"],
-                      ["--fault", "ckpt_corrupt", "--steps", "4"]):
+                      ["--fault", "ckpt_corrupt", "--steps", "4"],
+                      ["--fault", "slot_failure", "--steps", "4"]):
             shutil.rmtree(ckpt_dir, ignore_errors=True)
             hook.iters.clear()
             argv = ["--arch", ARCH, "--rl", "grpo", "--batch", "16",
@@ -988,6 +1024,10 @@ def launcher_phase15(torch, dev, fa, dec, card):
                 check(out["recovered"] is not None and out["recovered"]
                       .startswith("recovered: load_latest fell back to "),
                       f"ckpt_corrupt: {out['recovered']}")
+            elif extra[1] == "slot_failure":
+                check(out["recovered"] is not None and out["recovered"]
+                      .endswith("slot failures requeued"),
+                      f"slot_failure: {out['recovered']}")
             else:
                 check(out["recovered"] is not None,
                       f"{extra[1]}: no recovery line")
@@ -1051,6 +1091,363 @@ def control_phase16(torch, dev, fa, dec, card):
     del tr, ctrl
     free(torch)
     return mon.fire_count, misses
+
+
+def _zero_counts(*mods):
+    for m in mods:
+        m.launches = 0
+        if hasattr(m, "launches_tc"):
+            m.launches_tc = 0
+
+
+def _same_rollout(a, b, rows=None):
+    """(tokens and masks identical, max log-prob difference) over the
+    valid positions of ``rows`` (all rows by default)."""
+    pick = (lambda t: t) if rows is None else (lambda t: t[rows])
+    ma, mb_ = pick(a["mask"]), pick(b["mask"])
+    same = ma.equal(mb_) and (pick(a["gen_tokens"]) * ma.long()).equal(
+        pick(b["gen_tokens"]) * mb_.long())
+    return same, max_err(pick(a["logprobs"]) * ma, pick(b["logprobs"]) * mb_)
+
+
+def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
+    """The rest of genserve at full width in fp32, held against one-shot
+    admission on the same weights and prompts (qwen3-0.6b, batch 48, wave
+    16, prompt 256 with the first 128 tokens shared, 64 new, greedy):
+    chunked admission, the paged cache (identity block table), radix
+    prefix reuse, speculative decoding (a 2-layer draft of the target's
+    first layers under one-shot admission, the target itself as a draft
+    under chunked admission), slot failures and cancels; then rwkv6-3b
+    and Jamba's 2-layer cut chunked against one-shot.  Launch counts are
+    set to 0 before and read after every run."""
+    from repro_torch.configs import archs
+    from repro_torch.genserve import adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.rl.rollout import SamplerConfig
+    from repro_torch.tree import tree_map
+    t_phase = time.monotonic()
+    cfg = archs.get(ARCH)
+    params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    B, W, P, N = 48, 16, 256, 64
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+    prompts[:, :128] = prompts[0, :128]
+    sampler = SamplerConfig(max_new_tokens=N, greedy=True)
+
+    def serve_on(p, c, pr, w, smp, **kw):
+        """One engine run, launch counts set to 0 just before it:
+        (rollout, stats, launches, seconds)."""
+        _zero_counts(fa, dec, rw, mb)
+        t0 = time.monotonic()
+        ro, st = adapter.generate(p, c, pr, None, smp, wave=w,
+                                  decode_chunk=4, fast_path=False,
+                                  device=dev, **kw)
+        torch.cuda.synchronize()
+        return ro, st, {"flash": fa.launches, "decode": dec.launches,
+                        "rwkv": rw.launches, "mamba": mb.launches}, \
+            time.monotonic() - t0
+
+    def serve(**kw):
+        return serve_on(params, cfg, prompts, W, sampler, **kw)
+
+    old_strict = os.environ.get("REPRO_OBS_STRICT")
+    os.environ["REPRO_OBS_STRICT"] = "1"       # a leaked page raises
+    leaks0 = obs_metrics.counter("pagepool.leaked_pages").value
+    try:
+        modes = {"one-shot": {}, "chunked": dict(prefill_chunk=64),
+                 "paged": dict(prefill_chunk=64, page_size=16),
+                 "prefix": dict(prefill_chunk=64, page_size=16,
+                                prefix_cache=True)}
+        runs = {m: serve(**kw) for m, kw in modes.items()}
+        base = runs["one-shot"][0]
+        for m, (ro, st, n, sec) in runs.items():
+            same, lp = _same_rollout(base, ro)
+            print(f"[17 genserve] {ARCH} fp32 full width, {m}: tokens and "
+                  f"masks identical to one-shot={same}, logprob max diff "
+                  f"{lp:.3g} (tol 1e-3); {st['decode_steps']} decode "
+                  f"rounds, {st['prefill_rounds']} prefill-chunk rounds, "
+                  f"prefix hit rate {st['prefix_hit_rate']:.4f} "
+                  f"({st['prefill_tokens_skipped']} tokens skipped); "
+                  f"launches {n}; {sec:.1f}s | card {card}", flush=True)
+            check(same and lp <= 1e-3, f"{m} admission disagrees with "
+                  f"one-shot (lp {lp})")
+            check(n["decode"] > 0, f"{m}: decode_attention never launched")
+            check((n["flash"] > 0) == (m == "one-shot"),
+                  f"{m}: flash_attention launched {n['flash']} times "
+                  f"(only one-shot admission may)")
+        check(runs["prefix"][1]["prefix_hit_rate"] > 0,
+              "the prefix cache never hit")
+
+        # speculative decoding: greedy tokens identical to the plain run
+        plain_steps = runs["one-shot"][1]["decode_steps"]
+        dcfg = first_layers(cfg, 2)
+        dparams = {"embed": params["embed"],
+                   "final_norm": params["final_norm"],
+                   "blocks": tree_map(lambda t: t[:2], params["blocks"])}
+        for label, kw in (
+                ("2-layer draft, one-shot", dict(
+                    spec_k=4, draft_params=dparams, draft_cfg=dcfg)),
+                ("self-draft, chunked", dict(
+                    spec_k=4, draft_params=params, draft_cfg=cfg,
+                    prefill_chunk=64))):
+            ro, st, n, sec = serve(**kw)
+            same, lp = _same_rollout(base, ro)
+            print(f"[17 genserve] speculative k=4, {label}: tokens identical "
+                  f"to the plain run={same}, logprob max diff {lp:.3g}; "
+                  f"accept rate {st['accept_rate']:.4f} "
+                  f"({st['spec_accepted']}/{st['spec_proposed']}), "
+                  f"{st['spec_tokens']} tokens in {st['decode_steps']} "
+                  f"verify rounds (plain: {plain_steps}); launches {n}; "
+                  f"{sec:.1f}s | card {card}", flush=True)
+            check(same and lp <= 1e-3, f"speculative ({label}) diverged")
+            check(n["decode"] > 0, f"speculative ({label}): no decode "
+                  f"launch")
+            check((n["flash"] > 0) == ("one-shot" in label),
+                  f"speculative ({label}): flash launches {n['flash']}")
+
+        # slot failures and cancels on the prefix-cache engine
+        ref = runs["prefix"][0]
+        ro, st, n, sec = serve(**modes["prefix"], slot_failures={2: [0, 1]})
+        same, lp = _same_rollout(ref, ro)
+        print(f"[17 genserve] slot failures {{2: [0, 1]}} (prefix cache): "
+              f"requeued {st['requeued']}, retired {st['retired']}; every "
+              f"request identical to the undisturbed run={same} (lp diff "
+              f"{lp:.3g}); {sec:.1f}s", flush=True)
+        check(st["requeued"] == 2 and st["retired"] == B and same
+              and lp <= 1e-3, "slot failures: requests not regenerated "
+              "identically")
+        ro, st, n, sec = serve(**modes["prefix"], cancels={3: [2, 40]})
+        keep = [i for i in range(B) if i not in (2, 40)]
+        same, lp = _same_rollout(ref, ro, keep)
+        zero = all(float(ro[k][i].abs().sum()) == 0 for i in (2, 40)
+                   for k in ("gen_tokens", "mask", "logprobs"))
+        print(f"[17 genserve] cancels {{3: [2, 40]}} (one in flight, one "
+              f"queued): cancelled {st['cancelled']}; cancelled rows all "
+              f"zero={zero}; the others identical={same} (lp diff "
+              f"{lp:.3g}); {sec:.1f}s", flush=True)
+        check(st["cancelled"] == 2 and zero and same and lp <= 1e-3,
+              "cancels: wrong rows")
+        leaked = obs_metrics.counter("pagepool.leaked_pages").value - leaks0
+        check(leaked == 0, f"{leaked} leaked pages")
+    finally:
+        if old_strict is None:
+            os.environ.pop("REPRO_OBS_STRICT", None)
+        else:
+            os.environ["REPRO_OBS_STRICT"] = old_strict
+    del params, dparams, runs, base, ref, ro
+    free(torch)
+
+    # recurrent mixers: chunked admission against one-shot (phase 6/8's
+    # traffic); the scans launch in one-shot only
+    small = SamplerConfig(max_new_tokens=16, greedy=True)
+    jcfg = first_layers(archs.get(JAMBA_ARCH), 2)
+    # Jamba's MoE drops tokens past each expert's capacity per group of
+    # tokens, and a prefill chunk is a group of its own, so chunked and
+    # one-shot admission differ there in the JAX package too; at
+    # capacity_factor E / top_k no token can be dropped
+    jcfg = dataclasses.replace(
+        jcfg, capacity_factor=jcfg.n_experts / jcfg.top_k)
+    for c in (archs.get(RWKV_ARCH), jcfg):
+        p_ = T.init_params(c, seed=0, device=dev, dtype=torch.float32)
+        pr = torch.randint(0, c.vocab_size, (12, 64),
+                           generator=torch.Generator().manual_seed(0))
+        one = serve_on(p_, c, pr, 8, small)
+        chk = serve_on(p_, c, pr, 8, small, prefill_chunk=16)
+        same, lp = _same_rollout(one[0], chk[0])
+        scan = "rwkv" if c.name == RWKV_ARCH else "mamba"
+        cut = ("" if c.name == RWKV_ARCH else ", first 2 layers, MoE "
+               f"capacity_factor {c.capacity_factor}")
+        print(f"[17 genserve] {c.name} fp32 full width{cut}"
+              f", 12 requests, wave 8, prompt 64, 16 new: chunked (C=16) "
+              f"identical to one-shot={same}, logprob max diff {lp:.3g}; "
+              f"launches one-shot {one[2]}, chunked {chk[2]}; "
+              f"{one[3]:.1f}s + {chk[3]:.1f}s | card {card}", flush=True)
+        check(same and lp <= 1e-3, f"{c.name}: chunked differs from one-shot")
+        check(one[2][scan] > 0 and chk[2][scan] == 0,
+              f"{c.name}: {scan}_scan must launch in one-shot only")
+        check(chk[2]["decode"] > 0 or c.name == RWKV_ARCH,
+              f"{c.name}: chunked run launched no decode_attention")
+        del p_, one, chk
+        free(torch)
+    print(f"[17 genserve] {time.monotonic() - t_phase:.1f}s | card {card}",
+          flush=True)
+
+
+def serving_phase18(torch, dev, fa, dec, card):
+    """``launch.serve`` in bf16 with phase 5's traffic, three ways:
+    chunked admission, the paged cache with prefix reuse over a shared
+    128-token prompt prefix, and speculative decoding with a qwen3-0.6b
+    draft; then the paged view's copy per decode step."""
+    from repro_torch.configs import archs
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import cache as cache_mod
+    t_phase = time.monotonic()
+    cfg = archs.get(ARCH)
+    W, P, N = 16, 256, 64
+    argv = ["--arch", ARCH, "--batch", "48", "--wave", str(W),
+            "--prompt-len", str(P), "--new-tokens", str(N),
+            "--decode-chunk", "4", "--seed", "0"]
+    reps = {}
+    for label, extra in (
+            ("chunked", ["--prefill-chunk", "64"]),
+            ("prefix", ["--page-size", "16", "--prefix-cache",
+                        "--shared-prompts", "128", "--expect-prefix-hits"]),
+            ("spec", ["--spec-k", "4", "--draft-arch", ARCH])):
+        _zero_counts(fa, dec)
+        t0 = time.monotonic()
+        rep = serve_mod.main(argv + extra)
+        torch.cuda.synchronize()
+        n = {"flash_attention": fa.launches,
+             "decode_attention": dec.launches}
+        gen = rep["gen_tokens"]
+        check(tuple(gen.shape) == (48, N) and int(gen.min()) >= 0
+              and int(gen.max()) < cfg.vocab_size,
+              f"{label}: bad generated tokens {tuple(gen.shape)}")
+        check(bool(torch.isfinite(rep["logprobs"]).all())
+              and float(rep["logprobs"].max()) <= 1e-6,
+              f"{label}: non-finite or positive logprobs")
+        check(float(rep["mask"].sum()) == 48 * N,
+              f"{label}: budgets not fully served")
+        check(n["decode_attention"] > 0, f"{label}: no decode_attention")
+        check((n["flash_attention"] > 0) == (label == "spec"),
+              f"{label}: flash_attention launches {n['flash_attention']}")
+        spec = f", spec k=4 draft {ARCH}" if label == "spec" else ""
+        print(f"[18 serve] {ARCH} bf16 batch 48 wave {W} prompt {P} new {N},"
+              f" {rep['admission']}{spec}"
+              f": {rep['tok_s']:.1f} valid tok/s ({rep['seconds']:.3f} s), "
+              f"TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f} ms p95 "
+              f"{rep['ttft_p95_s'] * 1e3:.1f} ms, {rep['decode_rounds']} "
+              f"decode rounds, {rep['prefill_rounds']} prefill-chunk rounds, "
+              f"busy occupancy {rep['busy_occupancy']:.2f} (ideal "
+              f"{rep['ideal_occupancy']:.2f}), prefix hit rate "
+              f"{rep['prefix_hit_rate']:.4f}, accept rate "
+              f"{rep['accept_rate']:.4f}, peak "
+              f"{rep['peak_bytes'] / 2**30:.2f} GiB; launches (3 passes) "
+              f"{n}; {time.monotonic() - t0:.1f}s | card {card}", flush=True)
+        reps[label] = rep
+    check(reps["prefix"]["prefix_hit_rate"] > 0, "no prefix hit")
+
+    # the paged view's copy per decode step: phase 18's prefix-cache pool
+    # (2 W MP pages, a scattered block table) gathered into the
+    # contiguous view of all 28 layers, against the identity view
+    ps, L = 16, P + N
+    MP = cache_mod.max_pages_per_slot(cfg, L, ps)
+    NP = 2 * W * MP
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    pool = cache_mod.init_paged_cache(cfg, W, L, page_size=ps, n_pages=NP,
+                                      dtype=torch.bfloat16, device=dev)
+    btab = torch.randperm(NP, generator=torch.Generator().manual_seed(0))[
+        :W * MP].view(W, MP).to(dev)
+    gather = time_ms(lambda: cache_mod.paged_view(
+        cfg, pool["blocks"], btab, L, page_size=ps), torch, flush)
+    del pool
+    ident = cache_mod.init_paged_cache(cfg, W, L, page_size=ps,
+                                       dtype=torch.bfloat16, device=dev)
+    itab = torch.as_tensor(cache_mod.identity_block_table(W, MP), device=dev)
+    view = cache_mod.paged_view(cfg, ident["blocks"], itab, L, page_size=ps,
+                                identity=True)
+    copies = sum(not view[k][kk][0].is_contiguous()
+                 for k in view for kk in ("k", "v"))
+    nbytes = 2 * cfg.n_layers * 2 * W * L * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * 2          # read + write, k and v
+    step_ms = reps["prefix"]["seconds"] / reps["prefix"]["decode_rounds"] * 1e3
+    print(f"[18 serve] paged view per decode step, {cfg.n_layers} layers, "
+          f"W {W}, L {L}, page {ps}: gathered (prefix cache, {NP} pages) "
+          f"{spread(gather)} ({nbytes / 1e6:.1f} MB moved, "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s) against "
+          f"{step_ms:.3f} ms per decode step of the prefix-cache run; "
+          f"identity view: {copies} of {2 * len(view)} layer views need a "
+          f"copy (L = {L} is a whole number of pages) | card {card}",
+          flush=True)
+    del ident, view
+
+    # the attention of a prefill chunk and of a verify step: per-row
+    # positions, so plain attention (as in the JAX package), per layer at
+    # this run's shapes, beside sdpa with the same mask
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(3)
+    for label, C, rep in (("prefill chunk", 64, reps["chunked"]),
+                          ("verify", 5, reps["spec"])):
+        pos = torch.randint(0, L - C, (W,), generator=g, device=dev)
+        q = torch.randn((W, C, H, hd), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((W, L + C, KV, hd), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        q_pos = pos[:, None] + torch.arange(C, device=dev)
+        k_pos_c, valid_c = cache_mod.ring_slot_positions(L, None, pos - 1)
+        k_pos = torch.cat([k_pos_c, q_pos], dim=1)
+        k_valid = torch.cat([valid_c, torch.ones_like(q_pos, dtype=bool)],
+                            dim=1)
+        plain = time_ms(lambda: attn.multihead_attention(
+            q, k, v, q_pos, k_pos, causal=True, k_valid=k_valid), torch,
+            flush)
+        ok = (q_pos[:, :, None] >= k_pos[:, None, :]) & k_valid[:, None, :]
+        mask4 = torch.where(ok, 0.0, -1e30).to(torch.bfloat16)[:, None]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask4, enable_gqa=True), torch, flush)
+        sub_ms = rep["seconds"] / rep["decode_rounds"] * 1e3
+        print(f"[18 serve] {label} attention (per-row positions: plain), "
+              f"q [{W},{C},{H},{hd}] k/v [{W},{L + C},{KV},{hd}] bf16: "
+              f"{spread(plain)} per layer, {plain[0] * cfg.n_layers:.3f} ms "
+              f"per step of {cfg.n_layers} layers; sdpa with the same mask "
+              f"{spread(lib)}; the run's {sub_ms:.3f} ms per decode "
+              f"sub-round | card {card}", flush=True)
+    del flush
+    free(torch)
+    print(f"[18 serve] {time.monotonic() - t_phase:.1f}s | card {card}",
+          flush=True)
+    return reps
+
+
+def rl_phase19(torch, dev, cfg, fa, dec, card, ref):
+    """Phase 10's greedy PPO iteration (qwen3-0.6b full width, vocab 16,
+    fp32) with GEN on genserve's chunked admission
+    (``RLConfig(gen_engine="genserve", prefill_chunk=16,
+    decode_chunk=2)``): tokens identical to phase 10's GEN; GEN launches
+    decode_attention and no flash_attention (chunked prefill is plain
+    attention), TRAIN launches nothing."""
+    from repro_torch.data.synthetic import (AdditionTask, PromptDataset,
+                                            VOCAB_SIZE)
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    t0 = time.monotonic()
+    rcfg = dataclasses.replace(cfg, vocab_size=VOCAB_SIZE, dtype="float32")
+    task = AdditionTask(max_operand=9)
+    trainer = RLTrainer(rcfg, RLConfig(
+        algorithm="ppo", n_rollouts=4, max_new_tokens=task.max_answer_len,
+        lr=1e-3, greedy=True, gen_engine="genserve", prefill_chunk=16,
+        decode_chunk=2), task, seed=0, device=dev)
+    prompts, answers = next(iter(PromptDataset(task, batch=16, seed=1)))
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(type(trainer))
+    try:
+        m = trainer.iteration(prompts, answers, None)
+        torch.cuda.synchronize()
+        bb, lk = hook.bb, hook.by_kind(-1)
+    finally:
+        restore()
+    ro = bb["bundle"]["rollout"]
+    same = ro["sequences"].equal(ref[0]) and ro["mask"].equal(ref[1])
+    st = trainer.engine.wave_occupancy_summary()
+    print(f"[19 rl] {ARCH} greedy PPO, GEN on genserve chunked (C=16, "
+          f"decode_chunk 2): tokens and masks identical to phase 10="
+          f"{same}; busy occupancy {m.get('gen_busy_occupancy', 0.0):.2f}, "
+          f"{m.get('gen_prefill_rounds', 0.0):.0f} prefill rounds; measured "
+          f"vs predicted occupancy {st['measured_occupancy']:.2f} / "
+          f"{st['predicted_occupancy']:.2f}; launches per stage (flash, "
+          f"decode) {lk}; {time.monotonic() - t0:.1f}s | card {card}",
+          flush=True)
+    check(same, "chunked GEN differs from phase 10's GEN")
+    check(all(math.isfinite(float(v)) for v in m.values()),
+          "non-finite metrics")
+    check(lk["GEN"][1] > 0 and lk["GEN"][0] == 0,
+          f"GEN must launch decode_attention and no flash: {lk}")
+    check(lk["TRAIN"] == (0, 0), f"TRAIN launched kernels: {lk}")
+    del trainer
+    free(torch)
 
 
 def main() -> None:
@@ -1704,7 +2101,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 10. RL parity: one greedy PPO iteration, kernels against plain --
-    rl_phase10(torch, dev, cfg, attn, fa, dec, card)
+    rl_ref = rl_phase10(torch, dev, cfg, attn, fa, dec, card)
     torch.cuda.empty_cache()
 
     # ---- 11. the RL launcher at full width, then the e2e actor -----------
@@ -1731,6 +2128,15 @@ def main() -> None:
 
     # ---- 16. no-fault control: spurious fires of the monitor and deadlines -
     control_phase16(torch, dev, fa, dec, card)
+
+    # ---- 17. the rest of genserve, fp32, held against one-shot -------------
+    genserve_phase17(torch, dev, fa, dec, rw, mb, card)
+
+    # ---- 18. chunked, prefix-cache and speculative serving, bf16 -----------
+    serving_phase18(torch, dev, fa, dec, card)
+
+    # ---- 19. RL GEN on chunked admission -----------------------------------
+    rl_phase19(torch, dev, cfg, fa, dec, card, rl_ref)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

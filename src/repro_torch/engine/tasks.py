@@ -13,9 +13,11 @@ inference tensors, so the training batch is built from clones
 (``ensure_train_batch``).  TRAIN's losses run the plain attention
 (the trainer passes ``attn_impl="plain"``): the kernels have no backward.
 
-Not yet ported: speculative GEN and chunked admission (the port's
-``RLConfig`` has no knob for them), injected decode-slot failures and
-sharded placements (both ``NotImplementedError``).
+GEN takes ``RLConfig.gen_engine``, ``decode_chunk`` and ``prefill_chunk``
+as the reference's does, and injected decode-slot failures (the fault
+injector's ``gen_slot_failures()``) force the genserve engine.  Not yet
+ported: speculative GEN (the port's ``RLConfig`` has no ``spec_k``) and
+sharded placements (``NotImplementedError``).
 
 Registration is by (TaskKind, task name), with a (TaskKind, None) fallback
 so custom workflows can reuse the generic executor of a kind.
@@ -31,11 +33,6 @@ from repro_torch.core.workflow import Task, TaskKind
 from repro_torch.engine.placement import NOT_PORTED
 from repro_torch.genserve import adapter as genserve
 from repro_torch.rl import gae, losses
-
-SLOT_FAILURE_NOT_PORTED = (
-    "injected decode-slot failures (fault scenario slot_failure) need "
-    "genserve's slot failure and requeue, which is not yet ported "
-    "(ROADMAP.md §1 item 6)")
 
 _EXECUTORS: Dict[Tuple[TaskKind, Optional[str]], Callable] = {}
 
@@ -70,23 +67,30 @@ def run_generation(st, bb, placement):
     """Actor generation on the generation replica (pre-sync weights).
 
     Routed through the continuous-batching engine (``genserve``) when
-    the rollout batch exceeds the plan's decode wave, so
-    ``MAX_DECODE_WAVE`` semantics from the cost model are enforced at
-    execution time; a batch that fits in one wave takes the single-wave
-    rollout path.  Either way the wave stats land in ``bb["gen_stats"]``
-    for the engine's per-wave Event timeline."""
+    the rollout batch exceeds the plan's decode wave (``gen_engine
+    "auto"``), when ``gen_engine`` is ``"genserve"``, or when the fault
+    injector schedules decode-slot failures (they only exist on the
+    engine path), so ``MAX_DECODE_WAVE`` semantics from the cost model
+    are enforced at execution time; otherwise the single-wave rollout
+    path.  Either way the wave stats land in ``bb["gen_stats"]`` for the
+    engine's per-wave Event timeline."""
     prompts = bb["prompts_rep"]
     B = int(prompts.shape[0])
     wave = plan_mod.decode_wave(B)
     _unsharded(placement)
+    mode = st.rl.gen_engine
     injector = bb.get("fault")
-    if injector is not None and injector.gen_slot_failures() is not None:
-        raise NotImplementedError(SLOT_FAILURE_NOT_PORTED)
+    slot_failures = injector.gen_slot_failures() \
+        if injector is not None else None
+    use_engine = mode == "genserve" or (mode == "auto" and B > wave) \
+        or slot_failures is not None
     with placement.mesh, torch.inference_mode():
-        if B > wave:
+        if use_engine:
             ro, stats = genserve.generate(
                 st.gen_params, st.cfg, prompts, bb["rng"], st.sampler,
-                wave=wave, fast_path=False, device=st.device)
+                wave=wave, decode_chunk=st.rl.decode_chunk,
+                prefill_chunk=st.rl.prefill_chunk, fast_path=False,
+                slot_failures=slot_failures, device=st.device)
         else:
             ro = st._generate(st.gen_params, prompts=prompts,
                               rng=bb["rng"])

@@ -45,12 +45,12 @@ exits non-zero unless the scenario's recovery mechanism engaged;
         --require-recover --device cpu
 
 Checkpoints go to ``results/elastic_ckpt`` under the working directory,
-as the reference's.  ``--fault slot_failure`` raises
-``NotImplementedError`` (genserve's slot failure is ROADMAP.md §1 item
-6), and argparse rejects ``--spec-k`` / ``--draft-arch`` (speculative
-GEN, also not yet ported).  ``run_lm`` / ``run_rl(args, cfg=...)`` take
-a config in place of the one ``--arch`` / ``--smoke`` name
-(``chip_smoke.py`` runs depth cuts that way).
+as the reference's.  ``--fault slot_failure`` kills two genserve
+decode slots mid-wave (GEN then runs on the engine path) and recovers
+by requeueing their requests.  Argparse rejects ``--spec-k`` /
+``--draft-arch`` (speculative GEN is not yet ported).  ``run_lm`` /
+``run_rl(args, cfg=...)`` take a config in place of the one ``--arch``
+/ ``--smoke`` name (``chip_smoke.py`` runs depth cuts that way).
 """
 from __future__ import annotations
 
@@ -63,7 +63,6 @@ import torch
 
 from repro_torch.configs import archs
 from repro_torch.device import resolve_device, resolve_dtype
-from repro_torch.engine.tasks import SLOT_FAILURE_NOT_PORTED
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace as obs_trace
 
@@ -111,10 +110,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="write a Chrome-trace JSON of the run")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
-    if args.fault == "slot_failure":
-        raise NotImplementedError(SLOT_FAILURE_NOT_PORTED)
-    return args
+    return ap.parse_args(argv)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +216,11 @@ def _assert_recovered(scenario: str, trainer, controller, injector) -> str:
             "ckpt_corrupt: corruption never fired"
         _, path = ckpt_io.load_latest(CKPT_DIR, trainer.state_tree())
         line = f"recovered: load_latest fell back to {path}"
+    elif scenario == "slot_failure":
+        assert snap.get("gen.slot_failures", 0) > 0, \
+            "slot_failure: no slots failed"
+        line = (f"recovered: {int(snap['gen.slot_failures'])} slot "
+                f"failures requeued")
     else:  # chaos
         assert injector is not None and injector.log, \
             f"{scenario}: no fault events fired"

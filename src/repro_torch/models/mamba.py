@@ -19,7 +19,8 @@ to ``kernels.ops.mamba_scan`` whenever it starts from a zero state
 ``D x`` skip after it; that is the kernel's contract
 (``csrc/mamba_scan.cu``).  A carried state (every decode step, S = 1)
 takes ``ssm_scan`` under either implementation, and ``"plain"`` always
-takes ``ssm_scan``.
+takes ``ssm_scan``.  So does every chunk of chunked admission: it
+carries the slot's state (zeroed at install) and ``valid=``.
 """
 from __future__ import annotations
 
@@ -59,15 +60,28 @@ def init_mamba(gen, cfg: ModelConfig, dtype):
     }
 
 
-def _causal_conv(x, w, b, state=None):
+def _causal_conv(x, w, b, state=None, n_valid=None):
     """Depthwise causal conv. x: [B,S,di], w: [dc,di].  Returns (y,
-    new_state): the state is the trailing dc-1 inputs, in x's dtype."""
+    new_state): the state is the trailing dc-1 inputs, in x's dtype.
+    ``n_valid`` ([B] int) ends each row's state window at its last
+    *valid* input instead of the chunk end (partial chunked-prefill
+    chunks: trailing invalid tokens must not enter the carried state)."""
     dc = w.shape[0]
     if state is None:
         xp = F.pad(x, (0, 0, dc - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
-    new_state = xp[:, xp.shape[1] - (dc - 1):, :] if dc > 1 else None
+    if dc <= 1:
+        new_state = None
+    elif n_valid is None:
+        new_state = xp[:, xp.shape[1] - (dc - 1):, :]
+    else:
+        # xp rows: [dc-1 carried inputs | chunk]; the dc-1 inputs ending
+        # at the last valid token start at index n_valid
+        idx = n_valid.to(torch.int64)[:, None] + torch.arange(
+            dc - 1, device=x.device)
+        new_state = torch.gather(
+            xp, 1, idx[..., None].expand(-1, -1, xp.shape[2]))
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(dc)) + b
     return y, new_state
 
@@ -97,16 +111,22 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[dict] = None,
                 return_state: bool = False, valid=None):
     """x: [B,S,d]. state: {"conv": [B,dc-1,di], "ssm": [B,di,ds]}.
 
-    ``valid`` belongs to chunked prefill, which is not ported."""
-    if valid is not None:
-        raise NotImplementedError("apply_mamba(valid=...): not yet ported")
+    ``valid`` ([B,S] bool) marks real tokens in a chunked-prefill chunk:
+    invalid (trailing) tokens freeze the recurrence — dt is zeroed so
+    the SSM state passes through unchanged, and the conv window ends at
+    each row's last valid input.  Outputs at invalid positions are
+    garbage and must be discarded by the caller."""
     di = cfg.mamba_d_inner
     xz = x @ params["in_proj"]
     u, z = xz[..., :di], xz[..., di:]
+    n_valid = valid.sum(dim=1) if valid is not None else None
     u, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"],
-                               None if state is None else state["conv"])
+                               None if state is None else state["conv"],
+                               n_valid=n_valid)
     u = F.silu(u)
     dt, Bm, Cm, A = _ssm_params(params, cfg, u)
+    if valid is not None:
+        dt = dt * valid[..., None]     # exp(0*A)=1, 0*B*x=0: state frozen
     D = params["D"].float()
     if state is None and attn_mod.get_attention_impl() == "kernel":
         y, h_end = kernel_ops.mamba_scan(

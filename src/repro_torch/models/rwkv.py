@@ -18,7 +18,8 @@ package's ``"pallas"``), ``apply_rwkv`` sends the scan to
 (``state is None``), which is every one-shot prefill; that is the
 kernel's contract (``csrc/rwkv6_scan.cu``).  A carried state (decode)
 takes ``rwkv_scan`` under either implementation, and ``"plain"`` always
-takes ``rwkv_scan``.
+takes ``rwkv_scan``.  So does every chunk of chunked admission: it
+carries the slot's state (zeroed at install) and ``valid=``.
 """
 from __future__ import annotations
 
@@ -127,9 +128,12 @@ def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
                return_state: bool = False, valid=None):
     """x: [B,S,d]. state: {"tm_shift": [B,d], "wkv": [B,H,N,N]}.
 
-    ``valid`` belongs to chunked prefill, which is not ported."""
-    if valid is not None:
-        raise NotImplementedError("apply_rwkv(valid=...): not yet ported")
+    ``valid`` ([B,S] bool) marks real tokens in a chunked-prefill chunk:
+    invalid (trailing) tokens freeze the recurrence — their decay is
+    forced to 1 and their key contribution to 0, so the wkv state passes
+    through unchanged, and ``tm_shift`` carries each row's last *valid*
+    token.  Outputs at invalid positions are garbage and must be
+    discarded by the caller."""
     B, S, d = x.shape
     if state is not None:
         shifted = torch.cat(
@@ -139,6 +143,10 @@ def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
         shifted = token_shift(x)
         wkv0 = None
     r, k, v, g, logw = _project(params, cfg, x, shifted)
+    if valid is not None:
+        vm = valid[:, :, None, None]
+        k = k * vm                       # no state / attention contribution
+        logw = torch.where(vm, logw, 0.0)   # decay 1: state passes through
     u = params["bonus_u"].float()
     if wkv0 is None and attn_mod.get_attention_impl() == "kernel":
         y, wkv_end = kernel_ops.rwkv6_scan(r.float(), k.float(), v.float(),
@@ -153,7 +161,12 @@ def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
     y = y.reshape(B, S, d) * params["out_norm"]["scale"].to(y.dtype)
     y = (y.to(x.dtype) * g) @ params["w_o"]
     if return_state:
-        return y, {"tm_shift": x[:, -1, :], "wkv": wkv_end}
+        if valid is None:
+            tm = x[:, -1, :]
+        else:
+            idx = (valid.sum(dim=1) - 1).clamp(0, S - 1)
+            tm = x[torch.arange(B, device=x.device), idx]
+        return y, {"tm_shift": tm, "wkv": wkv_end}
     return y
 
 

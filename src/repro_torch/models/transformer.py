@@ -1,4 +1,5 @@
-"""Model assembly: init, forward (prefill) and single-token decode.
+"""Model assembly: init, forward (prefill), single-token decode, and the
+chunk steps of chunked prefill and speculative verify.
 
 Port of ``repro.models.transformer`` for attention, RWKV6 and Mamba
 mixers with dense FFNs, MoE FFNs and the RWKV channel mix.  Block params
@@ -215,20 +216,33 @@ def _decode_mask(pos, q_pos, cache_len: int, window: Optional[int],
     return k_pos, valid, bias
 
 
+def _masked_copy(leaf, new, mask) -> None:
+    """leaf <- new (in place), on the rows (axis 0) where ``mask`` [B] is
+    True when a mask is given."""
+    new = new.to(leaf.dtype)
+    if mask is not None:
+        new = torch.where(mask.view((-1,) + (1,) * (leaf.ndim - 1)), new,
+                          leaf)
+    leaf.copy_(new)
+
+
 def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
-                  mask):
+                  mask, write_mask=None):
     """x: [B, 1, d]; ``entry``: this layer's cache views at one repeat,
     updated in place.  Attention writes k/v at `pos` (an int, or a [B]
     tensor of per-row positions: every slot keeps its own RoPE phase,
     ring offset and validity mask) and reads `mask`, this step's
     ``_decode_mask`` for the layer's cache; RWKV6 advances its
     ``tm_shift`` / ``wkv`` state and Mamba its ``conv`` / ``ssm`` state
-    by one token."""
+    by one token.  With ``write_mask`` [B] only its rows' cache and state
+    change."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == Mixer.ATTENTION:
         q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
         ck, cv = entry["k"], entry["v"]
-        cache_mod.write_kv(ck, cv, k, v, pos, window)
+        cache_mod.write_kv(ck, cv, k, v, pos, window,
+                           valid=None if write_mask is None
+                           else write_mask[:, None])
         k_pos, valid, bias = mask
         y = attn_mod.multihead_attention(
             q, ck, cv, q_pos, k_pos, causal=True, window=window,
@@ -238,7 +252,7 @@ def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
         key, _, apply = _MIXERS[spec.mixer]
         y, st_new = apply(p[key], cfg, h, state=entry, return_state=True)
         for name, t in st_new.items():
-            entry[name].copy_(t)
+            _masked_copy(entry[name], t, write_mask)
         x = x + y
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.moe:
@@ -246,19 +260,22 @@ def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
     if spec.ffn == FFN.RWKV_CHANNEL:
         shifted = entry["cm_shift"][:, None, :].to(h.dtype)
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
-        entry["cm_shift"].copy_(h[:, -1, :])
+        _masked_copy(entry["cm_shift"], h[:, -1, :], write_mask)
         return x + y
     return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
-                long_mode: bool = False):
+                long_mode: bool = False, write_mask=None):
     """tokens: [B, 1].  Returns (logits [B, V], cache).
 
     ``cache["pos"]`` is an int (every row at the same position) or a [B]
     tensor of per-row positions — the batched path the genserve wave
     decode uses.  The cache leaves are updated in place; the returned
-    cache holds the same leaves with ``pos + 1``."""
+    cache holds the same leaves with ``pos + 1``.  ``write_mask`` [B]
+    bool limits the writes (k/v, recurrent state, cm_shift) to its rows:
+    the JAX engine merges the other rows back instead
+    (``scatter_slots(..., emit)``), which an in-place step cannot."""
     check_supported(cfg)
     pos = cache["pos"]
     x = embed_tokens(params["embed"], cfg, tokens)
@@ -279,7 +296,160 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                     masks[key] = _decode_mask(pos, q_pos, *key, x.shape[0])
                 mask = masks[key]
             x = _layer_decode(bp[f"layer{j}"], cfg, spec, x, entry, pos,
-                              q_pos, window, mask)
+                              q_pos, window, mask, write_mask)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], cfg, x)[:, 0]
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill and speculative verify (bounded chunks against a live
+# cache at per-row cursors)
+# ---------------------------------------------------------------------------
+
+def _chunk_attention(p, cfg: ModelConfig, spec, h, entry, pos, q_pos,
+                     chunk_valid, long_mode):
+    """Attention of a [B, C] chunk against the *pre-write* cache
+    concatenated with the chunk's fresh k/v: causal within the chunk,
+    the ragged-cache bias over per-row absolute positions.  Returns
+    (y [B, C, H*hd] before ``wo``, k, v, window)."""
+    window = cache_mod.effective_window(cfg, spec, long_mode)
+    q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
+    ck0, cv0 = entry["k"], entry["v"]
+    # cache contents before this chunk (cursor pos-1); pos == 0 rows see
+    # an all-invalid cache
+    k_pos_c, valid_c = cache_mod.ring_slot_positions(ck0.shape[1], window,
+                                                     pos - 1)
+    y = attn_mod.multihead_attention(
+        q, torch.cat([ck0.to(k.dtype), k], dim=1),
+        torch.cat([cv0.to(v.dtype), v], dim=1),
+        q_pos, torch.cat([k_pos_c, q_pos], dim=1),
+        causal=True, window=window, cap=cfg.attn_softcap,
+        k_valid=torch.cat([valid_c, chunk_valid], dim=1))
+    B, C = h.shape[:2]
+    return y.reshape(B, C, -1), k, v, window
+
+
+def _layer_prefill_chunk(p, cfg: ModelConfig, spec, x, entry, pos, valid,
+                         n_valid, long_mode):
+    """x: [B, C, d], one bounded prompt chunk per slot at the [B] cursors
+    `pos`; `valid` [B, C] marks the real tokens.  Writes (in place) the
+    chunk's k/v at the per-row cursors and the recurrent state of the
+    rows with ``n_valid > 0``; a row with ``n_valid == 0`` keeps its cache
+    untouched.  A sequence of chunk steps reproduces the one-shot
+    prefill (ring windows included: every in-window position is still
+    resident when the chunk that needs it arrives)."""
+    B, C = x.shape[:2]
+    q_pos = pos[:, None] + torch.arange(C, device=x.device)
+    live = n_valid > 0
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec.mixer == Mixer.ATTENTION:
+        y, k, v, window = _chunk_attention(p, cfg, spec, h, entry, pos,
+                                           q_pos, valid, long_mode)
+        cache_mod.write_kv(entry["k"], entry["v"], k, v, pos, window,
+                           valid=valid)
+        x = x + y @ p["attn"]["wo"]
+    else:
+        key, _, apply = _MIXERS[spec.mixer]
+        names = (("conv", "ssm") if spec.mixer == Mixer.MAMBA
+                 else ("tm_shift", "wkv"))
+        y, st_new = apply(p[key], cfg, h, state={n: entry[n] for n in names},
+                          return_state=True, valid=valid)
+        for name, t in st_new.items():
+            _masked_copy(entry[name], t, live)
+        x = x + y
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.moe:
+        return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
+    if spec.ffn == FFN.RWKV_CHANNEL:
+        shifted = torch.cat([entry["cm_shift"][:, None, :].to(h.dtype),
+                             h[:, :-1]], dim=1)
+        y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
+        idx = (n_valid - 1).clamp(0, C - 1)
+        _masked_copy(entry["cm_shift"],
+                     h[torch.arange(B, device=x.device), idx], live)
+        return x + y
+    return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+
+
+def prefill_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
+                       n_valid, long_mode: bool = False):
+    """One bounded prompt-ingestion step: tokens [B, C] chunks.
+
+    ``cache["pos"]`` is a [B] tensor of per-slot prefill cursors (tokens
+    already ingested); ``n_valid`` [B] counts the real tokens in each
+    row's chunk (0 = slot idle: its cache stays untouched).  The cache is
+    written in place.  Returns (last_logits [B, V], cache): `last_logits`
+    is each row's logit at its last valid chunk token — the first-token
+    sampling point when a slot's final chunk lands — and the returned
+    ``pos`` advances by ``n_valid``."""
+    check_supported(cfg)
+    pos = cache["pos"].to(torch.int64)
+    B, C = tokens.shape
+    n_valid = torch.as_tensor(n_valid, device=tokens.device).to(torch.int64)
+    valid = torch.arange(C, device=tokens.device)[None, :] < n_valid[:, None]
+    x = embed_tokens(params["embed"], cfg, tokens)
+    for r in range(cfg.n_pattern_repeats):
+        bp = _tree_index(params["blocks"], r)
+        for j, spec in enumerate(cfg.pattern):
+            x = _layer_prefill_chunk(
+                bp[f"layer{j}"], cfg, spec, x,
+                _entry(cache["blocks"][f"layer{j}"], r), pos, valid,
+                n_valid, long_mode)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    idx = (n_valid - 1).clamp(0, C - 1)
+    h_last = x[torch.arange(B, device=x.device), idx]
+    logits = unembed(params["embed"], cfg, h_last)
+    return logits, {"blocks": cache["blocks"], "pos": pos + n_valid}
+
+
+def verify_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
+                      long_mode: bool = False):
+    """One batched target step over a [B, C] candidate chunk
+    ([t0, d_1..d_{C-1}] at each row's ``cache["pos"]`` cursor).
+
+    Returns (logits [B, C, V], deltas): logits at *every* chunk position
+    (position j scores the token after the candidate prefix up to j),
+    and ``deltas`` — per layer ``{"k", "v"}`` ``[R, B, C, KV, hd]``, the
+    chunk's fresh projections, NOT written to the cache: the caller
+    commits the accepted prefix with ``cache.write_kv(..., valid=<short
+    mask>)``.  Requires an attention-only config
+    (``cache.supports_speculative_target``)."""
+    check_supported(cfg)
+    for spec in cfg.pattern:
+        if spec.mixer != Mixer.ATTENTION:
+            raise ValueError(
+                "speculative verify requires attention-only targets "
+                f"(got {spec.mixer}: recurrent state cannot roll back "
+                "rejected tokens)")
+        if spec.ffn == FFN.RWKV_CHANNEL:
+            raise ValueError("speculative verify cannot roll back the "
+                             "rwkv_channel cm_shift state")
+    pos = cache["pos"].to(torch.int64)
+    B, C = tokens.shape
+    q_pos = pos[:, None] + torch.arange(C, device=tokens.device)
+    chunk_valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)
+    x = embed_tokens(params["embed"], cfg, tokens)
+    deltas = {f"layer{j}": {"k": [], "v": []}
+              for j in range(len(cfg.pattern))}
+    for r in range(cfg.n_pattern_repeats):
+        bp = _tree_index(params["blocks"], r)
+        for j, spec in enumerate(cfg.pattern):
+            p = bp[f"layer{j}"]
+            h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+            y, k, v, _ = _chunk_attention(
+                p, cfg, spec, h, _entry(cache["blocks"][f"layer{j}"], r),
+                pos, q_pos, chunk_valid, long_mode)
+            x = x + y @ p["attn"]["wo"]
+            h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+            if spec.moe:
+                x = x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
+            else:
+                x = x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+            deltas[f"layer{j}"]["k"].append(k)
+            deltas[f"layer{j}"]["v"].append(v)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], cfg, x)
+    deltas = {n: {kk: torch.stack(ts) for kk, ts in d.items()}
+              for n, d in deltas.items()}
+    return logits, deltas

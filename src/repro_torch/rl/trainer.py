@@ -73,6 +73,13 @@ class RLConfig:
     # overlaps training on iteration t's rollouts (§2.1); the PPO ratio
     # absorbs the one-step staleness of logp_old
     asynchronous: bool = False
+    # GEN executor routing: "auto" takes the single-wave path when the
+    # rollout batch fits in one decode wave and the continuous-batching
+    # engine (genserve) beyond it; "rollout"/"genserve" force a path
+    gen_engine: str = "auto"
+    decode_chunk: int = 1            # genserve decode steps per host round
+    prefill_chunk: int = 0           # genserve chunked admission (tokens
+    #                                  per mixed round; 0 = one-shot)
 
 
 def default_plan(wf: workflow.RLWorkflow, n_devices: Optional[int] = None):

@@ -13,8 +13,8 @@ package (``repro.faults``, ``core.retry`` and the hardened engine).
   trainer restores the surviving checkpoint bitwise;
 - an undeclared link throttle is detected by the divergence monitor
   alone; faults raised inside concurrent lanes reach ``retry_call`` and
-  ``TaskExecutionError`` and none is lost; injected slot failures are
-  refused (genserve's slot failure is not yet ported);
+  ``TaskExecutionError`` and none is lost; injected slot failures
+  requeue through genserve;
 - ``--require-recover`` on the engine-side scenarios reaches the same kind
   of recovery on both launchers (checkpoint, chaos and drift:
   ``tests/test_torch_elastic.py``).
@@ -383,14 +383,35 @@ def test_faults_in_two_lanes_raise_the_first_and_note_the_other():
     assert ei.value.task == critic
 
 
-def test_slot_failure_is_refused():
+def test_slot_failure_is_refused(capsys, monkeypatch, tmp_path):
+    """Refused before genserve's slot failure was ported; now the scenario
+    runs: on the engine, GEN takes genserve with the injector's slot
+    failures and requeues the two dead slots' requests (the metric
+    counts them, the iteration completes); through the launcher,
+    ``--fault slot_failure --require-recover`` prints the reference's
+    recovery line."""
+    obs_metrics.reset()
     trainer, topo, wf = make_trainer()
     attach(trainer, fault_scenario("slot_failure", at=0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_iters(trainer, 1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tlaunch.parse_args(["--arch", "qwen3-0.6b", "--rl", "grpo",
-                            "--fault", "slot_failure"])
+    run_iters(trainer, 1)
+    assert obs_metrics.snapshot()["gen.slot_failures"] == 2
+    monkeypatch.chdir(tmp_path)
+    argv = ["--arch", "qwen3-0.6b", "--smoke", "--rl", "grpo", "--steps",
+            "4", "--batch", "4", "--search-budget", "40", "--fault",
+            "slot_failure", "--require-recover"]
+    jmetrics.reset()
+    import sys
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    jlaunch.main()
+    jl = capsys.readouterr().out.splitlines()
+    obs_metrics.reset()
+    out = tlaunch.main(argv + ["--device", "cpu"])
+    tl = capsys.readouterr().out.splitlines()
+    assert tl[-1] == jl[-1] == "done"
+    assert out["recovered"] == "recovered: 2 slot failures requeued"
+    assert recovery_kind(tl) == recovery_kind(jl)
+    assert [ln for ln in tl if ln.startswith("faults:")] == \
+        [ln for ln in jl if ln.startswith("faults:")]
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 JAX engine on bridged weights (greedy: identical tokens, masks and
 slot-table stats; logprobs within 2e-4), sampled mode by distribution,
 and the device rule of the entry points."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -160,22 +162,59 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
 @pytest.mark.parametrize("flag", [["--prefill-chunk", "8"],
                                   ["--page-size", "8"], ["--prefix-cache"],
                                   ["--spec-k", "2"]])
-def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
-                     *flag])
+def test_unported_options_raise(flag, capsys):
+    """The launcher's engine flags (refused before genserve was ported)
+    now serve on the CPU, and the report has each mode's line: chunked
+    admission's busy occupancy, the paged admission line (a page size
+    implies --prefill-chunk min(P, 16); --prefix-cache implies --page-size
+    8), the prefix cache's hit rate, the speculative accept rate with
+    the parity gate."""
+    extra = {"--spec-k": ["--draft-arch", "qwen3-0.6b",
+                          "--check-spec-parity"],
+             "--prefix-cache": ["--shared-prompts", "10",
+                                "--expect-prefix-hits"]}.get(flag[0], [])
+    rep = tserve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+                       "--batch", "6", "--wave", "3", "--prompt-len", "12",
+                       "--new-tokens", "5", *flag, *extra])
+    out = capsys.readouterr().out
+    assert rep["gen_tokens"].shape == (6, 5)
+    assert float(rep["mask"].sum()) == 30
+    if flag[0] == "--prefill-chunk":
+        assert "admission=chunked (C=8)" in out
+        assert "busy wave occupancy" in out and rep["prefill_rounds"] > 0
+    elif flag[0] == "--page-size":
+        assert "admission=chunked (C=12) paged (page=8)" in out
+    elif flag[0] == "--prefix-cache":
+        assert "paged (page=8) +prefix-cache" in out
+        assert "prefix cache:" in out and rep["prefix_hit_rate"] > 0
+    else:
+        assert "speculative: k=2 draft=qwen3-0.6b accept rate" in out
+        assert "spec parity: speculative == non-speculative" in out
+        assert 0 <= rep["accept_rate"] <= 1 and rep["spec_proposed"] > 0
 
 
 def test_unported_engine_arguments_raise():
+    """Every engine argument of the JAX adapter is taken now; only
+    ``mesh`` (sharded serving) is refused, naming ROADMAP.md §1 item 9."""
     cfg = tarchs.SMOKE["qwen3-0.6b"]
     tp = TT.init_params(cfg)
     prompts = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tadapter.generate(tp, cfg, prompts, None, TSampler(greedy=True),
+                          fast_path=False, device="cpu", mesh=object())
+    dcfg = dataclasses.replace(cfg, name="draft", n_layers=1)
     for kw in ({"slot_failures": {1: [0]}}, {"cancels": {1: [0]}},
-               {"mesh": object()}, {"prefill_chunk": 4}, {"spec_k": 2},
-               {"admission": "sjf"}, {"sjf_aging": 2}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tadapter.generate(tp, cfg, prompts, None, TSampler(greedy=True),
-                              fast_path=False, device="cpu", **kw)
+               {"prefill_chunk": 4}, {"prefill_chunk": 2, "page_size": 2,
+                                      "prefix_cache": True, "pool_pages": 8},
+               {"spec_k": 2, "draft_params": TT.init_params(dcfg),
+                "draft_cfg": dcfg},
+               {"admission": "sjf", "sjf_aging": 2},
+               {"decode_path": "vmapped", "prompt_lens": [4, 2]}):
+        out, stats = tadapter.generate(
+            tp, cfg, prompts, None, TSampler(max_new_tokens=3, greedy=True),
+            fast_path=False, device="cpu", **kw)
+        assert stats["engine"] == "genserve", kw
+        assert out["gen_tokens"].shape == (2, 3), kw
 
 
 def test_serve_launcher_on_cpu(capsys, tmp_path):

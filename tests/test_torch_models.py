@@ -165,7 +165,8 @@ def test_rwkv_scan_vs_jax(carried):
 @pytest.mark.parametrize("carried", [False, True])
 def test_apply_rwkv_vs_jax(carried, impl):
     """apply_rwkv (projections, scan, group norm, gate) and its returned
-    state; under "kernel" a zero-state call takes the kernel wrapper."""
+    state; under "kernel" a zero-state call takes the kernel wrapper.
+    Then the chunked-prefill ``valid=`` path on the same inputs."""
     cfg = SMOKE["rwkv6-3b"]
     H, N, d = cfg.rwkv_n_heads, cfg.rwkv_head_dim, cfg.d_model
     p = jrwkv.init_rwkv(jax.random.PRNGKey(4), cfg, jnp.float32)
@@ -191,10 +192,20 @@ def test_apply_rwkv_vs_jax(carried, impl):
     for key in ("tm_shift", "wkv"):
         np.testing.assert_allclose(st[key].numpy(), np.asarray(sj[key]),
                                    **TOL, err_msg=key)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trwkv.apply_rwkv(jax.tree_util.tree_map(_t, p),
-                         tarchs.SMOKE["rwkv6-3b"], _t(x),
-                         valid=torch.ones((2, S), dtype=torch.bool))
+    # the chunked-prefill path: valid prefixes of S and S // 2 tokens
+    valid = np.arange(S)[None, :] < np.array([S, S // 2])[:, None]
+    yj, sj = jrwkv.apply_rwkv(p, cfg, x, state=state, return_state=True,
+                              valid=jnp.asarray(valid))
+    yt, st = trwkv.apply_rwkv(
+        jax.tree_util.tree_map(_t, p), tarchs.SMOKE["rwkv6-3b"], _t(x),
+        state=None if state is None
+        else jax.tree_util.tree_map(_t, state), return_state=True,
+        valid=_t(valid))
+    np.testing.assert_allclose(yt.numpy()[valid], np.asarray(yj)[valid],
+                               **TOL)
+    for key in ("tm_shift", "wkv"):
+        np.testing.assert_allclose(st[key].numpy(), np.asarray(sj[key]),
+                                   **TOL, err_msg=key)
 
 
 def test_qkv_project_qk_norm():
@@ -391,7 +402,8 @@ def test_ssm_scan_vs_jax(carried):
 def test_apply_mamba_vs_jax(carried, impl):
     """apply_mamba (in_proj, causal conv, selective scan, gate) and its
     returned conv / ssm state; under "kernel" a zero-state call takes
-    the kernel wrapper and adds D x after it."""
+    the kernel wrapper and adds D x after it.  Then the chunked-prefill
+    ``valid=`` path on the same inputs."""
     cfg = SMOKE["jamba-1.5-large-398b"]
     di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
     p = jmamba.init_mamba(jax.random.PRNGKey(5), cfg, jnp.float32)
@@ -421,9 +433,19 @@ def test_apply_mamba_vs_jax(carried, impl):
     for key in ("conv", "ssm"):
         np.testing.assert_allclose(st[key].numpy(), np.asarray(sj[key]),
                                    **TOL, err_msg=key)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmamba.apply_mamba(tp, tcfg, _t(x),
-                           valid=torch.ones((2, S), dtype=torch.bool))
+    # the chunked-prefill path: valid prefixes of S and S // 2 tokens
+    valid = np.arange(S)[None, :] < np.array([S, S // 2])[:, None]
+    yj, sj = jmamba.apply_mamba(p, cfg, x, state=state, return_state=True,
+                                valid=jnp.asarray(valid))
+    yt, st = tmamba.apply_mamba(
+        tp, tcfg, _t(x), return_state=True, valid=_t(valid),
+        state=None if state is None
+        else jax.tree_util.tree_map(_t, state))
+    np.testing.assert_allclose(yt.numpy()[valid], np.asarray(yj)[valid],
+                               **TOL)
+    for key in ("conv", "ssm"):
+        np.testing.assert_allclose(st[key].numpy(), np.asarray(sj[key]),
+                                   **TOL, err_msg=key)
 
 
 # ---------------------------------------------------------------------------
