@@ -11,8 +11,10 @@ fit one card), then the RL path (scheduler -> Plan -> engine -> GEN /
 INF / TRAIN -> sync) at qwen3-0.6b's full width, the LM train mode,
 checkpoints, the elastic plan swaps and fault recovery, and the rest of
 genserve (chunked admission, the paged cache with prefix reuse,
-speculative decoding, slot failures and cancels), and exits non-zero on
-any failure.  Phases, each printing its result:
+speculative decoding, slot failures and cancels), then the rest of the
+model zoo (hubert-xlarge's encoder and pixtral-12b at full width) and
+speculative GEN in the RL engine, and exits non-zero on any failure.
+Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
              fails without CUDA.
@@ -22,7 +24,9 @@ any failure.  Phases, each printing its result:
              per kernel of every source.
   3. kernels each CUDA kernel against its plain PyTorch version at the
              serving paths' shapes (attention also at Jamba's GQA-8
-             heads) and on a small matrix, timed beside the plain version
+             heads and at pixtral-12b's 32:8 heads) and on a small
+             matrix (hubert-xlarge's non-causal B 2, S 1000, 16:16 heads
+             of 80 among its cases), timed beside the plain version
              and one library call where one exists; kernel and library
              times as median (min-max) of 30 calls, and each kernel's
              own device time (torch.profiler) over 30 more.
@@ -135,6 +139,29 @@ any failure.  Phases, each printing its result:
              admission (prefill_chunk 16, decode_chunk 2): tokens identical
              to phase 10's, GEN launches decode_attention and no
              flash_attention, TRAIN nothing.
+ 20. zoo     hubert-xlarge at full width (48 layers, d 1280, 16:16 heads of
+             80): one encoder forward in fp32 on features [2, 1000, 512],
+             with the kernels and with the plain attention, logits within
+             2e-4 (rtol and atol, TF32 off), the kernel run launching
+             flash_attention 48 times, all non-causal, and no
+             decode_attention; the same in bf16 at [4, 1024] (48
+             tensor-core launches); ``launch.train --arch hubert-xlarge
+             --steps 3 --batch 4 --seq 1024`` (bf16); ``launch.serve --arch
+             pixtral-12b`` at full width in bf16 with phase 5's traffic
+             (flash_attention once per layer per admit, all on the tensor
+             cores, decode_attention once per layer per decode step);
+             ``launch.train --arch pixtral-12b --steps 3 --seq 256`` on its
+             first 8 of 40 layers (128 feature positions, 128 tokens);
+             then hubert's non-causal attention at [4, 1024, 16, 80] in
+             bf16 and fp32 against the plain version and sdpa, timed as
+             phase 3 times its rows.
+ 21. rl spec phase 10's PPO iteration with speculative GEN (spec_k 4, the
+             default draft: 7 window-free layers): tokens and masks
+             identical to phase 10's, log-probs within 1e-3; GEN launches
+             flash_attention in both models' one-shot prefill and
+             decode_attention in the draft's steps (verify is plain),
+             TRAIN nothing; accept rate and GEN ms; then ``launch.train
+             --rl grpo --spec-k 4`` for 2 steps.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -162,6 +189,8 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 ARCH = "qwen3-0.6b"
 RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
+HUBERT_ARCH = "hubert-xlarge"
+PIXTRAL_ARCH = "pixtral-12b"
 
 
 def fail(msg: str) -> None:
@@ -398,6 +427,35 @@ class StageLaunches:
         return out
 
 
+class GenCalls:
+    """Within the block, each call of the RL GEN task's
+    ``genserve.generate`` leaves its engine stats (the engine pops them
+    from the blackboard into its timeline) and its ms, the card
+    synchronized on both sides, in ``stats`` / ``ms``."""
+
+    def __init__(self, torch):
+        from repro_torch.engine import tasks
+        self.torch, self.mod = torch, tasks.genserve
+        self.stats, self.ms = [], []
+
+    def __enter__(self):
+        self.orig = orig = self.mod.generate
+
+        def generate(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ro, st = orig(*a, **k)
+            self.torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.stats.append(dict(st))
+            return ro, st
+        self.mod.generate = generate
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.generate = self.orig
+
+
 def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
     """One greedy PPO iteration of full-width qwen3-0.6b (vocab 16, fp32)
     with 16 prompts x 4 rollouts = 64 rows (two decode waves of 32) on
@@ -422,9 +480,12 @@ def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
         for impl in ("kernel", "plain"):
             attn.set_attention_impl(impl)
             trainer.load_state_tree(state0)
-            m = trainer.iteration(prompts, answers, None)
-            torch.cuda.synchronize()
+            with GenCalls(torch) as calls:
+                m = trainer.iteration(prompts, answers, None)
+                torch.cuda.synchronize()
             runs[impl] = (m, hook.bb, hook.by_kind(-1))
+            if impl == "kernel":
+                gen_ms = calls.ms[0]
     finally:
         attn.set_attention_impl("kernel")
         restore()
@@ -457,7 +518,8 @@ def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
           + " (tol 1e-3); " + ", ".join(
               f"{k} {a:.6g} vs {b:.6g}" for k, (a, b) in rel.items())
           + f" (rtol 1e-3); policy loss {mk['loss']:.3g} vs "
-          f"{mp['loss']:.3g} (not held) | card {card}", flush=True)
+          f"{mp['loss']:.3g} (not held); GEN {gen_ms:.1f} ms (kernel run) "
+          f"| card {card}", flush=True)
     print(f"[10 parity] launches per stage (flash, decode): kernel run "
           f"{lk}, plain run {lp}; {time.monotonic() - t0:.1f}s | card "
           f"{card}", flush=True)
@@ -474,7 +536,7 @@ def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
     check(lk["TRAIN"] == (0, 0), f"TRAIN launched kernels: {lk}")
     check(all(v == (0, 0) for v in lp.values()),
           f"the plain run launched kernels: {lp}")
-    return rk["sequences"], rk["mask"]
+    return rk["sequences"], rk["mask"], rk["logprobs"], gen_ms
 
 
 def rl_phase11(torch, dev, fa, dec, card):
@@ -1096,8 +1158,9 @@ def control_phase16(torch, dev, fa, dec, card):
 def _zero_counts(*mods):
     for m in mods:
         m.launches = 0
-        if hasattr(m, "launches_tc"):
-            m.launches_tc = 0
+        for extra in ("launches_tc", "launches_noncausal"):
+            if hasattr(m, extra):
+                setattr(m, extra, 0)
 
 
 def _same_rollout(a, b, rows=None):
@@ -1450,6 +1513,337 @@ def rl_phase19(torch, dev, cfg, fa, dec, card, ref):
     free(torch)
 
 
+def attn_row(torch, F, fa, flush, B, S, H, KV, hd, dtype, causal, card,
+             label):
+    """One flash_attention row of the kernels line, timed as phase 3
+    times its rows: error against the plain version, kernel (event and
+    device time), plain and sdpa times, and the bound recounted from
+    these inputs (every (query, key) pair of the mask is computed)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device="cuda")
+               .to(dtype) for n in (H, KV, KV))
+    run = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    out = run()
+    ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    check(bool(torch.isfinite(out).all()) and err <= tol(dtype, torch),
+          f"flash_attention {label}: max abs err {err}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = time_ms(run, torch, flush)
+    dev_ms = device_ms(run, torch, flush,
+                       "flash_tc" if dtype == torch.bfloat16 else "flash_fwd")
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                    torch, flush)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), torch, flush)
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4.0 * B * H * hd * pairs
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    name = str(dtype).replace("torch.", "")
+    print(f"[20 zoo] flash_attention ({label}) q{tuple(q.shape)} "
+          f"k{tuple(k.shape)} {name} causal={causal}: err {err:.3g} (tol "
+          f"{tol(dtype, torch):g}) | kernel {spread(ms)}, device "
+          f"{spread(dev_ms)}, plain {spread(plain)}, sdpa {spread(lib)}, "
+          f"kernel/sdpa {ms[0] / lib[0]:.2f}, bound "
+          f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB = "
+          f"{b_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP = {b_ops:.4f} ms) | "
+          f"card {card}", flush=True)
+    return dict(max_abs_err=err, ms=ms[0], plain_ms=plain[0],
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=lib[0])
+
+
+def zoo_phase20(torch, dev, fa, dec, card):
+    """The model zoo's two feature-frontend architectures at full width:
+    hubert-xlarge's encoder forward in fp32, kernel against plain, and
+    in bf16 through the kernel; its LM mode in bf16; pixtral-12b served
+    in bf16 with phase 5's traffic; pixtral-12b's LM mode on its first 8
+    layers; then hubert's non-causal attention rows.  Returns the rows
+    for the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.configs import archs
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    t_phase = time.monotonic()
+    hcfg = archs.get(HUBERT_ARCH)
+    H, KV, hd = hcfg.n_heads, hcfg.n_kv_heads, hcfg.resolved_head_dim
+    rows = {}
+
+    # (i) the encoder forward: fp32, kernel against plain (TF32 off)
+    t0 = time.monotonic()
+    params = T.init_params(hcfg, seed=0, device=dev, dtype=torch.float32)
+    fg = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((2, 1000, hcfg.feature_dim), generator=fg,
+                        device=dev)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        _zero_counts(fa, dec)
+        with torch.inference_mode():
+            logits = T.forward(params, hcfg, {"features": feats},
+                               attn_impl=impl)["logits"]
+        torch.cuda.synchronize()
+        runs[impl] = (logits, fa.launches, fa.launches_noncausal,
+                      dec.launches)
+    (lk, nk, nck, dk), (lp, np_, ncp, dp) = runs["kernel"], runs["plain"]
+    rerr = rel_err(lk, lp, 2e-4)
+    n_attn = hcfg.n_layers
+    print(f"[20 zoo] {HUBERT_ARCH} fp32 full width ({hcfg.n_layers} layers, "
+          f"d {hcfg.d_model}, {H}:{KV} heads of {hd}, "
+          f"{hcfg.param_count() / 1e9:.3f} B parameters), encoder forward "
+          f"on features [2, 1000, {hcfg.feature_dim}]: logits "
+          f"{tuple(lk.shape)}, kernel vs plain max abs diff "
+          f"{max_err(lk, lp):.3g}, allclose ratio {rerr:.3g} (rtol = atol "
+          f"= 2e-4); launches flash {nk} (non-causal {nck}), decode {dk}; "
+          f"plain run flash {np_}, decode {dp}; {time.monotonic() - t0:.1f}s"
+          f" | card {card}", flush=True)
+    check(bool(torch.isfinite(lk).all()), "non-finite hubert logits")
+    check(rerr <= 2e-4, f"hubert kernel and plain forwards disagree: {rerr}")
+    check(nk == nck == n_attn and dk == 0,
+          f"hubert kernel run: flash {nk} (non-causal {nck}), decode {dk}; "
+          f"expected {n_attn} non-causal flash and no decode")
+    check(np_ == 0 and dp == 0, "the plain hubert run launched a kernel")
+    rows["flash_attention/hubert_fp32"] = nk
+    del runs, lk, lp, logits
+    free(torch)
+
+    # the same encoder in bf16 at the LM run's shape, through the kernel
+    bparams = T.init_params(hcfg, seed=0, device=dev, dtype=torch.bfloat16)
+    del params
+    free(torch)
+    feats = torch.randn((4, 1024, hcfg.feature_dim), generator=fg,
+                        device=dev).to(torch.bfloat16)
+    outs = {}
+    for impl in ("kernel", "plain"):
+        _zero_counts(fa, dec)
+        with torch.inference_mode():
+            outs[impl] = T.forward(bparams, hcfg, {"features": feats},
+                                   attn_impl=impl)["logits"].float()
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            nb, nb_tc, nb_nc = fa.launches, fa.launches_tc, \
+                fa.launches_noncausal
+    print(f"[20 zoo] {HUBERT_ARCH} bf16 encoder forward on features "
+          f"[4, 1024, {hcfg.feature_dim}]: launches flash {nb} (tensor cores "
+          f"{nb_tc}, non-causal {nb_nc}); kernel vs plain logits max abs "
+          f"diff {max_err(outs['kernel'], outs['plain']):.3g} (printed: 48 "
+          f"layers of bf16 rounding) | card {card}", flush=True)
+    check(bool(torch.isfinite(outs["kernel"]).all()),
+          "non-finite bf16 hubert logits")
+    check(nb == nb_tc == nb_nc == n_attn, f"bf16 hubert: flash {nb}, "
+          f"tensor cores {nb_tc}, non-causal {nb_nc}; expected {n_attn}")
+    rows["flash_attention/hubert_bf16"] = nb
+    del bparams, outs, feats
+    free(torch)
+
+    # (ii) the LM mode at full width, bf16
+    argv = ["--arch", HUBERT_ARCH, "--steps", "3", "--batch", "4", "--seq",
+            "1024"]
+    _zero_counts(fa, dec)
+    lm_run(torch, dev, train_mod, argv, None, "20 zoo", card)
+    check(fa.launches == 0 and dec.launches == 0,
+          "LM training launched an attention kernel")
+
+    # (iii) pixtral-12b served at full width, bf16, phase 5's traffic
+    pcfg = archs.get(PIXTRAL_ARCH)
+    W, P, N = 16, 256, 64
+    argv = ["--arch", PIXTRAL_ARCH, "--batch", "48", "--wave", str(W),
+            "--prompt-len", str(P), "--new-tokens", str(N),
+            "--decode-chunk", "4", "--seed", "0"]
+    _zero_counts(fa, dec)
+    t0 = time.monotonic()
+    rep = serve_mod.main(argv)
+    torch.cuda.synchronize()
+    passes = 3                          # warm-up, timed, TTFT
+    got = {"flash_attention": fa.launches, "decode_attention": dec.launches}
+    want = {"flash_attention": pcfg.n_layers * passes * rep["prefills"],
+            "decode_attention": pcfg.n_layers * passes
+            * rep["decode_rounds"]}
+    gen = rep["gen_tokens"]
+    check(tuple(gen.shape) == (48, N) and int(gen.min()) >= 0
+          and int(gen.max()) < pcfg.vocab_size,
+          f"pixtral: bad generated tokens {tuple(gen.shape)}")
+    check(bool(torch.isfinite(rep["logprobs"]).all())
+          and float(rep["logprobs"].max()) <= 1e-6,
+          "pixtral: non-finite or positive logprobs")
+    check(float(rep["mask"].sum()) == 48 * N,
+          "pixtral: budgets not fully served")
+    print(f"[20 zoo] {PIXTRAL_ARCH} bf16 full width ({pcfg.n_layers} layers, "
+          f"d {pcfg.d_model}, {pcfg.param_count() / 1e9:.2f} B parameters), "
+          f"batch 48 wave {W} prompt {P} new {N}: {rep['tok_s']:.1f} valid "
+          f"tok/s ({rep['valid_tokens']:.0f} tokens in {rep['seconds']:.3f} "
+          f"s), TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{rep['ttft_p95_s'] * 1e3:.1f} ms, {rep['decode_rounds']} decode "
+          f"rounds, {rep['prefills']} prefills, occupancy "
+          f"{rep['mean_occupancy']:.2f} (ideal {rep['ideal_occupancy']:.2f}), "
+          f"peak {rep['peak_bytes'] / 2**30:.2f} GiB; launches (3 passes) "
+          f"{got} (expected {want}), flash on the tensor cores "
+          f"{fa.launches_tc}; {time.monotonic() - t0:.1f}s | card {card}",
+          flush=True)
+    check(got == want, f"pixtral serving launches {got}, expected {want}")
+    check(fa.launches_tc == got["flash_attention"],
+          f"bf16 flash launches {got['flash_attention']}, of which on the "
+          f"tensor cores {fa.launches_tc}")
+    rows["flash_attention/pixtral_prefill"] = got["flash_attention"]
+    rows["decode_attention/pixtral_decode"] = got["decode_attention"]
+    del rep, gen
+    free(torch)
+
+    # (iv) pixtral-12b's LM mode, its first 8 layers at full width
+    cut = first_layers(pcfg, 8)
+    n = cut.param_count()
+    print(f"[20 zoo] {PIXTRAL_ARCH} LM mode, first {cut.n_layers} of "
+          f"{pcfg.n_layers} layers at full width: {n / 1e9:.3f} B "
+          f"parameters = {n * 2 / 1e9:.1f} GB bf16 weights, "
+          f"{n * 2 / 1e9:.1f} GB gradients, {n * 8 / 1e9:.1f} GB fp32 Adam "
+          f"moments (overwritten in place by the launcher's step)",
+          flush=True)
+    _zero_counts(fa, dec)
+    lm_run(torch, dev, train_mod, ["--arch", PIXTRAL_ARCH, "--steps", "3",
+                                   "--seq", "256"], cut, "20 zoo", card)
+    check(fa.launches == 0 and dec.launches == 0,
+          "LM training launched an attention kernel")
+
+    # (v) hubert's non-causal attention rows
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    out = {}
+    for dtype, key in ((torch.bfloat16, "flash_attention/hubert_bf16"),
+                       (torch.float32, "flash_attention/hubert_fp32")):
+        out[key] = dict(
+            name=key, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:26",
+            launches=rows[key],
+            **attn_row(torch, F, fa, flush, 4, 1024, H, KV, hd, dtype, False,
+                       card, HUBERT_ARCH))
+    del flush
+    free(torch)
+    print(f"[20 zoo] {time.monotonic() - t_phase:.1f}s | card {card}",
+          flush=True)
+    return out, rows
+
+
+def lm_run(torch, dev, train_mod, argv, cfg, tag, card):
+    """``launch.train`` in its LM mode (``run_lm``; ``cfg`` a depth cut or
+    None): finite losses and grad norms; prints them, ms per step and the
+    peak memory above what was allocated before."""
+    free(torch)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    print(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}"
+          + ("" if cfg is None else f" (cfg: first {cfg.n_layers} layers)"),
+          flush=True)
+    out = train_mod.run_lm(train_mod.parse_args(argv), cfg=cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses, gn, secs = out["losses"], out["grad_norms"], out["step_s"]
+    ms = sorted(s * 1e3 for s in secs[1:])
+    c = out["cfg"]
+    print(f"[{tag}] {c.name} LM {c.dtype} ({c.n_layers} layers, "
+          f"{c.param_count() / 1e9:.3f} B parameters): losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.3f}" for x in gn)
+          + f"; step 0 {secs[0] * 1e3:.1f} ms, later steps median "
+          f"{ms[len(ms) // 2]:.1f} ms/step ({ms[0]:.1f}-{ms[-1]:.1f}); peak "
+          f"{gib(peak - base):.2f} GiB above the {gib(base):.2f} GiB "
+          f"allocated before it; {time.monotonic() - t0:.1f}s | card {card}",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses + gn),
+          f"{c.name}: non-finite LM loss or grad norm")
+    del out
+    free(torch)
+
+
+def rl_spec_phase21(torch, dev, cfg, fa, dec, card, ref):
+    """Phase 10's greedy PPO iteration (qwen3-0.6b full width, vocab 16,
+    fp32) with speculative GEN (``RLConfig(spec_k=4)``, the default draft:
+    the target's first quarter, 7 layers, window-free): tokens and masks
+    identical to phase 10's GEN, log-probs within 1e-3; GEN launches
+    flash_attention in the target's and the draft's one-shot prefill and
+    decode_attention in the draft's steps (verify is plain attention),
+    TRAIN nothing.  Then ``launch.train --rl grpo --spec-k 4``."""
+    from repro_torch.data.synthetic import (AdditionTask, PromptDataset,
+                                            VOCAB_SIZE)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.rl.trainer import RLConfig, RLTrainer
+    t0 = time.monotonic()
+    K = 4
+    rcfg = dataclasses.replace(cfg, vocab_size=VOCAB_SIZE, dtype="float32")
+    task = AdditionTask(max_operand=9)
+    trainer = RLTrainer(rcfg, RLConfig(
+        algorithm="ppo", n_rollouts=4, max_new_tokens=task.max_answer_len,
+        lr=1e-3, greedy=True, spec_k=K), task, seed=0, device=dev)
+    prompts, answers = next(iter(PromptDataset(task, batch=16, seed=1)))
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(type(trainer))
+    try:
+        with GenCalls(torch) as calls:
+            m = trainer.iteration(prompts, answers, None)
+            torch.cuda.synchronize()
+        bb, lk = hook.bb, hook.by_kind(-1)
+    finally:
+        restore()
+    dcfg = trainer._spec_draft[0]
+    st, gen_ms = calls.stats[0], calls.ms[0]
+    ro = bb["bundle"]["rollout"]
+    same = ro["sequences"].equal(ref[0]) and ro["mask"].equal(ref[1])
+    lp_err = max_err(ro["logprobs"], ref[2])
+    want_gen = ((rcfg.n_layers + dcfg.n_layers) * st["prefills"],
+                dcfg.n_layers * (K + 1) * st["decode_steps"])
+    print(f"[21 rl spec] {ARCH} greedy PPO, GEN speculative k={K} with the "
+          f"default draft ({dcfg.name}: {dcfg.n_layers} layers, "
+          f"window-free): tokens and masks identical to phase 10={same}, "
+          f"log-prob max diff {lp_err:.3g} (tol 1e-3); accept rate "
+          f"{st['accept_rate']:.4f} ({st['spec_accepted']}/"
+          f"{st['spec_proposed']} drafts, {st['spec_tokens']} tokens in "
+          f"{st['decode_steps']} verify rounds, {st['prefills']} prefills); "
+          f"GEN {gen_ms:.1f} ms against phase 10's {ref[3]:.1f} ms; "
+          f"launches per stage (flash, decode) {lk}, GEN expected "
+          f"{want_gen}; {time.monotonic() - t0:.1f}s | card {card}",
+          flush=True)
+    check(same, "speculative GEN differs from phase 10's GEN")
+    check(lp_err <= 1e-3, f"speculative GEN log-probs differ by {lp_err}")
+    check(all(math.isfinite(float(v)) for v in m.values()),
+          "non-finite metrics")
+    check(lk["GEN"] == want_gen, f"GEN launches {lk['GEN']}, expected "
+          f"{want_gen}")
+    check(lk["INF"][0] > 0 and lk["INF"][1] == 0,
+          f"INF must launch flash and no decode: {lk}")
+    check(lk["TRAIN"] == (0, 0), f"TRAIN launched kernels: {lk}")
+    del trainer, bb, ro
+    free(torch)
+
+    argv = ["--arch", ARCH, "--batch", "16", "--rl", "grpo", "--steps", "2",
+            "--spec-k", str(K)]
+    t0 = time.monotonic()
+    print(f"[21 rl spec] python -m repro_torch.launch.train "
+          f"{' '.join(argv)}", flush=True)
+    with GenCalls(torch) as calls:
+        out = train_mod.run_rl(train_mod.parse_args(argv))
+        torch.cuda.synchronize()
+    ms = out["metrics"]
+    check(len(ms) == 2 and all(math.isfinite(v) for x in ms
+                               for v in x.values()),
+          "non-finite RL metrics with --spec-k")
+    check(len(calls.stats) == 2 and all(s["spec_proposed"] > 0
+                                        for s in calls.stats),
+          "--spec-k: GEN did not run speculative decoding")
+    cmp = out["compare"]
+    print(f"[21 rl spec] --spec-k {K}: GEN "
+          + ", ".join(f"{x:.1f}" for x in calls.ms) + " ms, accept rate "
+          + ", ".join(f"{s['accept_rate']:.4f}" for s in calls.stats)
+          + f"; reward {ms[-1]['reward_mean']:.3f}; measured "
+          f"{cmp['measured_iter_s'] * 1e3:.1f} ms/iter; "
+          f"{time.monotonic() - t0:.1f}s | card {card}", flush=True)
+    del out
+    free(torch)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1607,6 +2001,16 @@ def main() -> None:
         **decode_case(H, KV, ARCH))
     flash_case(jcfg.n_heads, jcfg.n_kv_heads, JAMBA_ARCH)
     decode_case(jcfg.n_heads, jcfg.n_kv_heads, JAMBA_ARCH)
+    # pixtral-12b's serving shapes (phase 20; hd 128 as qwen3's)
+    pxcfg = archs.get(PIXTRAL_ARCH)
+    check(pxcfg.resolved_head_dim == hd, "pixtral's head dim is not 128")
+    for key, case in (("flash_attention/pixtral_prefill", flash_case),
+                      ("decode_attention/pixtral_decode", decode_case)):
+        kname = key.split("/")[0]
+        results[key] = dict(
+            name=key, route="cuda", source=results[kname]["source"],
+            replaces=results[kname]["replaces"],
+            **case(pxcfg.n_heads, pxcfg.n_kv_heads, PIXTRAL_ARCH))
 
     # small matrix: GQA/MQA, hd 64/80/128, window, caps, ragged S / L
     n_cases = 0
@@ -1616,7 +2020,8 @@ def main() -> None:
                 (1, 100, 4, 1, 128, True, 64, None),
                 (2, 200, 4, 2, 80, True, None, 50.0),
                 (1, 77, 8, 8, 128, False, None, None),
-                (1, 130, 4, 2, 64, True, 64, 30.0)]:
+                (1, 130, 4, 2, 64, True, 64, 30.0),
+                (2, 1000, 16, 16, 80, False, None, None)]:   # hubert
             q, k, v = (randn(B, S, n, d_, dtype=dtype) for n in (h_, kv_, kv_))
             out = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      cap=cap)
@@ -2137,6 +2542,16 @@ def main() -> None:
 
     # ---- 19. RL GEN on chunked admission -----------------------------------
     rl_phase19(torch, dev, cfg, fa, dec, card, rl_ref)
+
+    # ---- 20. the model zoo: hubert-xlarge and pixtral-12b ------------------
+    zoo_rows, zoo_launches = zoo_phase20(torch, dev, fa, dec, card)
+    results.update(zoo_rows)
+    for key in ("flash_attention/pixtral_prefill",
+                "decode_attention/pixtral_decode"):
+        results[key]["launches"] = zoo_launches[key]
+
+    # ---- 21. RL GEN with speculative decoding --------------------------------
+    rl_spec_phase21(torch, dev, cfg, fa, dec, card, rl_ref)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

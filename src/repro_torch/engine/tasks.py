@@ -14,16 +14,18 @@ inference tensors, so the training batch is built from clones
 (the trainer passes ``attn_impl="plain"``): the kernels have no backward.
 
 GEN takes ``RLConfig.gen_engine``, ``decode_chunk`` and ``prefill_chunk``
-as the reference's does, and injected decode-slot failures (the fault
-injector's ``gen_slot_failures()``) force the genserve engine.  Not yet
-ported: speculative GEN (the port's ``RLConfig`` has no ``spec_k``) and
-sharded placements (``NotImplementedError``).
+as the reference's does; injected decode-slot failures (the fault
+injector's ``gen_slot_failures()``) and speculative decoding
+(``RLConfig.spec_k``, with the draft of ``_draft_model``) force the
+genserve engine.  Sharded placements are not yet ported
+(``NotImplementedError``).
 
 Registration is by (TaskKind, task name), with a (TaskKind, None) fallback
 so custom workflows can reuse the generic executor of a kind.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -62,18 +64,50 @@ def _unsharded(placement) -> None:
 # GEN
 # ---------------------------------------------------------------------------
 
+def _draft_model(st):
+    """The speculative-decoding draft of this trainer, resolved once and
+    cached on ``st`` as ``_spec_draft`` = (config, params):
+    ``rl.draft_arch`` names a configs.archs entry (the smoke variant when
+    the target has at most 4 layers; vocab and dtype the target's, so
+    the logits align), ``""`` a window-free copy of the target with
+    ``len(pattern) * max(R // 4, 1)`` layers.  Weights are drawn from
+    seed 7 on the trainer's device: a deployment would load a trained
+    draft; acceptance rate, not weight quality, is what varies here."""
+    cached = getattr(st, "_spec_draft", None)
+    if cached is not None:
+        return cached
+    from repro_torch.configs import archs
+    from repro_torch.models import transformer as T
+    name = st.rl.draft_arch
+    cfg = st.cfg
+    if name:
+        dcfg = dataclasses.replace(
+            archs.get(name, smoke=cfg.n_layers <= 4),
+            vocab_size=cfg.vocab_size, dtype=cfg.dtype)
+    else:
+        pattern = tuple(dataclasses.replace(s, window=None)
+                        for s in cfg.pattern)
+        dcfg = dataclasses.replace(
+            cfg, name=f"{cfg.name}-draft", pattern=pattern,
+            n_layers=len(pattern) * max(cfg.n_pattern_repeats // 4, 1))
+    dparams = T.init_params(dcfg, seed=7, device=st.device)
+    st._spec_draft = (dcfg, dparams)
+    return st._spec_draft
+
+
 @register(TaskKind.GEN)
 def run_generation(st, bb, placement):
     """Actor generation on the generation replica (pre-sync weights).
 
     Routed through the continuous-batching engine (``genserve``) when
     the rollout batch exceeds the plan's decode wave (``gen_engine
-    "auto"``), when ``gen_engine`` is ``"genserve"``, or when the fault
+    "auto"``), when ``gen_engine`` is ``"genserve"``, when the fault
     injector schedules decode-slot failures (they only exist on the
-    engine path), so ``MAX_DECODE_WAVE`` semantics from the cost model
-    are enforced at execution time; otherwise the single-wave rollout
-    path.  Either way the wave stats land in ``bb["gen_stats"]`` for the
-    engine's per-wave Event timeline."""
+    engine path), or with speculative decoding (``spec_k > 0``), so
+    ``MAX_DECODE_WAVE`` semantics from the cost model are enforced at
+    execution time; otherwise the single-wave rollout path.  Either way
+    the wave stats land in ``bb["gen_stats"]`` for the engine's per-wave
+    Event timeline."""
     prompts = bb["prompts_rep"]
     B = int(prompts.shape[0])
     wave = plan_mod.decode_wave(B)
@@ -82,15 +116,21 @@ def run_generation(st, bb, placement):
     injector = bb.get("fault")
     slot_failures = injector.gen_slot_failures() \
         if injector is not None else None
+    spec_k = st.rl.spec_k
+    draft_params, draft_cfg = None, None
+    if spec_k > 0:
+        draft_cfg, draft_params = _draft_model(st)
     use_engine = mode == "genserve" or (mode == "auto" and B > wave) \
-        or slot_failures is not None
+        or slot_failures is not None or spec_k > 0
     with placement.mesh, torch.inference_mode():
         if use_engine:
             ro, stats = genserve.generate(
                 st.gen_params, st.cfg, prompts, bb["rng"], st.sampler,
                 wave=wave, decode_chunk=st.rl.decode_chunk,
                 prefill_chunk=st.rl.prefill_chunk, fast_path=False,
-                slot_failures=slot_failures, device=st.device)
+                slot_failures=slot_failures, spec_k=spec_k,
+                draft_params=draft_params, draft_cfg=draft_cfg,
+                device=st.device)
         else:
             ro = st._generate(st.gen_params, prompts=prompts,
                               rng=bb["rng"])

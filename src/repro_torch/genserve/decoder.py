@@ -597,7 +597,6 @@ def _check_spec(cfg: ModelConfig, draft_params, draft_cfg) -> None:
             "mask out after rollback")
     if draft_cfg.vocab_size != cfg.vocab_size:
         raise ValueError("draft and target must share a vocabulary")
-    T.check_supported(draft_cfg)
 
 
 def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
@@ -631,7 +630,6 @@ def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
       dequeued if pending, evicted and zeroed if in flight; their output
       rows are all zero with an all-zero mask."""
     gcfg.validate()
-    T.check_supported(cfg)
     spec = gcfg.spec_k > 0
     if spec:
         _check_spec(cfg, draft_params, draft_cfg)

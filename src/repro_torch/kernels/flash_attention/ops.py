@@ -20,7 +20,8 @@ float32 runs the CUDA-core kernel, whose fp32 products hold the 2e-4
 parity that TF32 would not.  Neither is a fallback for the other: a
 failed launch raises.  ``launches`` counts every launch,
 ``launches_tc`` the ones that the CUDA source reports it sent to the
-tensor-core kernel.
+tensor-core kernel, ``launches_noncausal`` those with ``causal=False``
+(the encoder-only models' attention).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0        # kernel launches since the last reset (chip_smoke reads)
 launches_tc = 0     # of which on the tensor-core (bf16) kernel
+launches_noncausal = 0   # of which with causal=False
 
 _fn = None
 _count_lock = threading.Lock()
@@ -116,7 +118,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     cap: Optional[float] = None):
     """q: [B, S, H, hd], k/v: [B, S, KV, hd] -> [B, S, H, hd]."""
-    global launches, launches_tc
+    global launches, launches_tc, launches_noncausal
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      cap=cap)
@@ -145,4 +147,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with _count_lock:          # RL engine lanes launch from threads
         launches += 1
         launches_tc += tensor_cores.value
+        launches_noncausal += not causal
     return out

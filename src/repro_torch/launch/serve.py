@@ -14,7 +14,10 @@ random, drawn from --seed.
 
 Any architecture of attention, RWKV6 and Mamba layers with dense or MoE
 FFNs runs at its full width in its config's dtype: ``--arch rwkv6-3b``
-serves the 3.07 B-parameter RWKV6 model in bf16 with the same arguments.
+serves the 3.07 B-parameter RWKV6 model in bf16 with the same arguments,
+and ``--arch pixtral-12b`` its decoder on token prompts, as the JAX
+launcher does.  The encoder-only ``hubert-xlarge`` has no decode step
+and exits with the JAX launcher's message.
 ``--arch jamba-1.5-large-398b`` builds the whole 72-layer Jamba model
 (398.6 B parameters, 797 GB in bf16), which does not fit one
 card; as the JAX launcher, this one has no depth flag.  A caller that
@@ -136,7 +139,8 @@ def prepare(args: argparse.Namespace, cfg: Optional[ModelConfig] = None):
     device = resolve_device(args.device)
     cfg = cfg or archs.get(args.arch, smoke=args.smoke)
     if cfg.is_encoder_only:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving "
+                         f"(run classification via launch.train instead)")
     dtype = resolve_dtype(args.dtype or cfg.dtype)
     params = T.init_params(cfg, seed=args.seed, device=device, dtype=dtype)
     draft_params = draft_cfg = None

@@ -25,9 +25,12 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             long_mode: bool = False) -> torch.Tensor:
-    """Mean masked next-token NLL (fp32 logits) plus the MoE aux loss."""
-    out = T.forward(params, cfg, {"tokens": batch["tokens"]},
-                    long_mode=long_mode, attn_impl=TRAIN_ATTN)
+    """Mean masked next-token NLL (fp32 logits) plus the MoE aux loss.
+    ``batch`` holds the model inputs (``tokens`` and / or ``features``,
+    see ``T.embed_inputs``), ``labels`` [B, S] over the whole sequence
+    and an optional ``loss_mask``."""
+    out = T.forward(params, cfg, batch, long_mode=long_mode,
+                    attn_impl=TRAIN_ATTN)
     logits = out["logits"].float()
     labels = batch["labels"]
     mask = batch.get("loss_mask")
@@ -42,9 +45,12 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 
 def make_train_step(cfg: ModelConfig,
-                    opt_cfg: Optional[adam.AdamConfig] = None):
+                    opt_cfg: Optional[adam.AdamConfig] = None, *,
+                    donate: bool = False):
     """``train_step(params, opt_state, batch) -> (new_params, new_opt,
-    {"loss", "lr", "grad_norm"})``; functional, as the reference's."""
+    {"loss", "lr", "grad_norm"})``; functional, as the reference's, or
+    with ``donate`` writing the same values into ``params`` and
+    ``opt_state`` (``adam.adam_update``)."""
     opt_cfg = opt_cfg or adam.AdamConfig()
 
     def train_step(params, opt_state, batch):
@@ -56,7 +62,7 @@ def make_train_step(cfg: ModelConfig,
         grads = tree_unflatten(params, [torch.zeros_like(p) if g is None
                                         else g for p, g in zip(flat, gs)])
         new_params, new_opt, om = adam.adam_update(params, grads, opt_state,
-                                                   opt_cfg)
+                                                   opt_cfg, donate=donate)
         return new_params, new_opt, {"loss": loss.detach(), **om}
 
     return train_step

@@ -9,8 +9,10 @@ Port of ``repro.launch.train``.  Weights are random, drawn from seed 0.
 runs LM steps (next-token loss on random tokens, functional Adam with a
 cosine schedule over ``--steps``) at the full width of the architecture
 in its own dtype; ``--smoke`` takes the reduced config, and ``--device
-cpu --smoke`` runs on the CPU.  Feature-frontend architectures are not
-yet ported (``NotImplementedError``).
+cpu --smoke`` runs on the CPU.  Feature-frontend architectures take
+random features in front of their tokens (``configs.shapes.token_splits``:
+hubert-xlarge's whole sequence is audio frames, pixtral-12b's first half
+image patches, at most 1024).
 
 With ``--rl {grpo,ppo}`` the launcher instead runs the plan-driven RL
 path end-to-end: HetRL scheduler search on the chosen testbed scenario →
@@ -47,8 +49,10 @@ exits non-zero unless the scenario's recovery mechanism engaged;
 Checkpoints go to ``results/elastic_ckpt`` under the working directory,
 as the reference's.  ``--fault slot_failure`` kills two genserve
 decode slots mid-wave (GEN then runs on the engine path) and recovers
-by requeueing their requests.  Argparse rejects ``--spec-k`` /
-``--draft-arch`` (speculative GEN is not yet ported).  ``run_lm`` /
+by requeueing their requests.  ``--spec-k K`` runs GEN through
+draft-model speculative decoding on the genserve engine, with the
+``--draft-arch`` entry as the draft (the default ``''``: a window-free
+copy of the target at a quarter of its depth).  ``run_lm`` /
 ``run_rl(args, cfg=...)`` take a config in place of the one ``--arch``
 / ``--smoke`` name (``chip_smoke.py`` runs depth cuts that way).
 """
@@ -62,6 +66,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs import archs
+from repro_torch.configs.shapes import token_splits
 from repro_torch.device import resolve_device, resolve_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace as obs_trace
@@ -106,6 +111,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="fit cost-model calibration from the measured "
                          "timeline and report the corrected measured-vs-"
                          "predicted ratio (with --rl)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="draft-model speculative decoding in GEN: "
+                         "draft tokens per wave round (0 = off; "
+                         "forces the genserve engine path)")
+    ap.add_argument("--draft-arch", default="",
+                    help="configs.archs entry for the speculative "
+                         "draft ('' = scaled-down copy of --arch)")
     ap.add_argument("--trace", default=None, metavar="FILE",
                     help="write a Chrome-trace JSON of the run")
     ap.add_argument("--device", default="cuda",
@@ -119,19 +131,26 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
                seq: int) -> Dict[str, torch.Tensor]:
-    """Random tokens and labels, drawn one after the other from ``gen``
-    on its device, and an all-ones loss mask in the config's dtype.  (The
-    reference draws both from one JAX key, so its labels equal its
-    tokens; here they are independent.)  Token frontends only: the port
-    has no feature frontend yet."""
+    """The ``token_splits`` of ``seq``: standard-normal features in the
+    config's dtype, then random tokens, then labels over all ``seq``
+    positions, drawn one after the other from ``gen`` on its device, and
+    an all-ones loss mask in the config's dtype.  (The reference draws
+    tokens and labels from one JAX key, so its labels begin with its
+    tokens; here they are independent.)"""
     dev = gen.device
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
-                           device=dev)
-    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
-                           device=dev)
-    mask = torch.ones((batch, seq), dtype=resolve_dtype(cfg.dtype),
-                      device=dev)
-    return {"tokens": tokens, "labels": labels, "loss_mask": mask}
+    dt = resolve_dtype(cfg.dtype)
+    n_feat, n_tok = token_splits(cfg, seq)
+    out = {}
+    if n_feat:
+        out["features"] = torch.randn((batch, n_feat, cfg.feature_dim),
+                                      generator=gen, dtype=dt, device=dev)
+    if n_tok:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (batch, n_tok),
+                                      generator=gen, device=dev)
+    out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                  generator=gen, device=dev)
+    out["loss_mask"] = torch.ones((batch, seq), dtype=dt, device=dev)
+    return out
 
 
 def run_lm(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
@@ -150,7 +169,9 @@ def run_lm(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
     params = T.init_params(cfg, seed=0, device=device)
     opt_cfg = adam.AdamConfig(lr=args.lr, total_steps=args.steps)
     opt_state = adam.init_adam_state(params, opt_cfg)
-    train_step = steps_mod.make_train_step(cfg, opt_cfg)
+    # the loop owns its state: the step overwrites it (one copy of the
+    # moments; the first 8 layers of pixtral-12b need it on one card)
+    train_step = steps_mod.make_train_step(cfg, opt_cfg, donate=True)
     gen = torch.Generator(device=device).manual_seed(0)
     losses, gnorms, secs = [], [], []
     for step in range(args.steps):
@@ -271,7 +292,8 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
 
     rl = RLConfig(algorithm=args.rl, n_rollouts=4,
                   max_new_tokens=task.max_answer_len, lr=args.lr,
-                  asynchronous=args.asynchronous)
+                  asynchronous=args.asynchronous,
+                  spec_k=args.spec_k, draft_arch=args.draft_arch)
     trainer = RLTrainer(cfg, rl, task, seed=0, plan=r.plan, topo=topo,
                         wf=wf, device=device)
 

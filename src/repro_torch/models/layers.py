@@ -102,16 +102,33 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int, dtype=torch.float32,
+                         device=None):
+    """[S, d] sin | cos table of the encoder-only models, computed in fp32
+    (as the JAX version) and cast to ``dtype`` at the end."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    half = d_model // 2
+    freq = torch.exp(-math.log(10_000.0)
+                     * torch.arange(half, dtype=torch.float32, device=device)
+                     / half)[None, :]
+    ang = pos * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
 def init_embeddings(gen, cfg: ModelConfig, dtype):
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: feature frontends are not yet ported")
+    """Token table, the feature projection of the features frontend, and
+    the untied head, drawn in that order.  ``feature_proj`` is drawn only
+    for ``frontend == "features"``, so a tokens model's draws are the
+    same as without it."""
     p = {"tokens": dense_init(gen, (cfg.vocab_size, cfg.d_model),
                               scale=0.02, dtype=dtype)}
+    if cfg.frontend == "features":
+        p["feature_proj"] = dense_init(gen, (cfg.feature_dim, cfg.d_model),
+                                       dtype=dtype)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                   dtype=dtype)
@@ -119,6 +136,8 @@ def init_embeddings(gen, cfg: ModelConfig, dtype):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
+    """Token rows, scaled by √d_model for the tokens frontend only (the
+    features frontend's tokens, pixtral-12b's, are not)."""
     emb = params["tokens"][tokens]
     if cfg.frontend == "tokens":
         # the √d_model factor is rounded to the param dtype first (on the
@@ -126,6 +145,13 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
         emb = emb * float(torch.tensor(math.sqrt(cfg.d_model),
                                        dtype=emb.dtype))
     return emb
+
+
+def embed_features(params, cfg: ModelConfig, features):
+    """[B, S_f, feature_dim] frames / patches -> [B, S_f, d] in the
+    projection's dtype."""
+    proj = params["feature_proj"]
+    return features.to(proj.dtype) @ proj
 
 
 def unembed(params, cfg: ModelConfig, x):

@@ -1,17 +1,20 @@
-"""Model assembly: init, forward (prefill), single-token decode, and the
-chunk steps of chunked prefill and speculative verify.
+"""Model assembly: init, forward (train / prefill), single-token decode,
+and the chunk steps of chunked prefill and speculative verify.
 
 Port of ``repro.models.transformer`` for attention, RWKV6 and Mamba
-mixers with dense FFNs, MoE FFNs and the RWKV channel mix.  Block params
-are stacked over a leading ``[R]`` repeats dim as in the JAX package; its
-``lax.scan`` over the stack becomes a Python loop over ``R``, and each
-layer writes its cache entry in place into the ``[R, ...]`` leaves' slice
-``r``.  ``forward`` returns the summed MoE aux loss as ``aux_loss`` (the
-training loss adds it); decode drops it, as the JAX decode path does.
-``forward(attn_impl=...)`` chooses the attention path per call (the
-trainer's loss passes ``"plain"``: the CUDA kernels have no backward).
-Feature frontends and encoder-only models are not yet ported and raise
-``NotImplementedError``.
+mixers with dense FFNs, MoE FFNs and the RWKV channel mix, over either
+frontend: token ids, or precomputed feature frames / patches projected
+by ``feature_proj`` and prepended to the tokens (hubert-xlarge's audio
+frames, pixtral-12b's image patches).  Encoder-only models (``causal``
+False) add sinusoidal positions and attend without a causal mask; they
+have no decode path.  Block params are stacked over a leading ``[R]``
+repeats dim as in the JAX package; its ``lax.scan`` over the stack
+becomes a Python loop over ``R``, and each layer writes its cache entry
+in place into the ``[R, ...]`` leaves' slice ``r``.  ``forward`` returns
+the summed MoE aux loss as ``aux_loss`` (the training loss adds it);
+decode drops it, as the JAX decode path does.  ``forward(attn_impl=...)``
+chooses the attention path per call (the trainer's loss passes
+``"plain"``: the CUDA kernels have no backward).
 """
 from __future__ import annotations
 
@@ -26,18 +29,19 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import FFN, Mixer, ModelConfig
-from repro_torch.models.layers import (apply_ffn, embed_tokens,
-                                       init_embeddings, init_ffn,
-                                       init_rmsnorm, rmsnorm, token_shift,
+from repro_torch.models.layers import (apply_ffn, embed_features,
+                                       embed_tokens, init_embeddings,
+                                       init_ffn, init_rmsnorm, rmsnorm,
+                                       sinusoidal_positions, token_shift,
                                        unembed)
+from repro_torch.tree import tree_leaves
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the model zoo the port does not run yet."""
-    if cfg.frontend != "tokens" or cfg.is_encoder_only:
-        raise NotImplementedError(
-            f"{cfg.name}: feature frontends / encoder-only models are not "
-            "yet ported")
+def _refuse_encoder_only(cfg: ModelConfig, what: str) -> None:
+    """The JAX package's assert on the decode entry points, as an error
+    that ``python -O`` keeps."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"encoder-only models have no decode {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +83,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     into it as soon as it is drawn, so at most one repeat's layers are
     held beside the stack."""
     cfg.validate()
-    check_supported(cfg)
     dt = resolve_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     embed = init_embeddings(gen, cfg, dt)
@@ -101,6 +104,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "final_norm": init_rmsnorm(cfg.d_model, dt, gen.device)}
 
 
+def count_params(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
 def _tree_index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _tree_index(v, r) for k, v in tree.items()}
@@ -108,7 +115,28 @@ def _tree_index(tree, r: int):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Embedding of mixed inputs
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, Any]):
+    """inputs: {"tokens": [B, S_t]} and / or {"features": [B, S_f,
+    feature_dim]}.  Features are prepended to the token embeddings;
+    encoder-only models add sinusoidal positions (built in fp32, cast to
+    the activations' dtype)."""
+    parts = []
+    if inputs.get("features") is not None:
+        parts.append(embed_features(params["embed"], cfg, inputs["features"]))
+    if inputs.get("tokens") is not None:
+        parts.append(embed_tokens(params["embed"], cfg, inputs["tokens"]))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    if cfg.is_encoder_only:
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
+                                     x.device)[None]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
@@ -159,15 +187,15 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
             long_mode: bool = False, return_cache: bool = False,
             max_cache_len: Optional[int] = None,
             attn_impl: Optional[str] = None) -> Dict[str, Any]:
-    """Full-sequence forward over ``inputs["tokens"]`` [B, S].  Returns
-    {"logits" [B, S, V], "aux_loss" (fp32 scalar), "hidden"} and, with
-    ``return_cache``, a decode cache primed with the sequence
-    (``{"blocks", "pos": S}``).  ``attn_impl`` ("plain" | "kernel" |
-    None for the module default) picks every attention layer's path for
-    this call only, so concurrent callers never share a toggle."""
-    check_supported(cfg)
-    tokens = inputs["tokens"]
-    x = embed_tokens(params["embed"], cfg, tokens)
+    """Full-sequence forward over ``inputs`` (``embed_inputs``: tokens
+    [B, S_t], features [B, S_f, feature_dim] or both, S = S_f + S_t;
+    positions run over the whole sequence).  Returns {"logits" [B, S, V],
+    "aux_loss" (fp32 scalar), "hidden"} and, with ``return_cache``, a
+    decode cache primed with the sequence (``{"blocks", "pos": S}``).
+    ``attn_impl`` ("plain" | "kernel" | None for the module default)
+    picks every attention layer's path for this call only, so concurrent
+    callers never share a toggle."""
+    x = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     max_cache_len = max_cache_len or S
@@ -276,7 +304,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     bool limits the writes (k/v, recurrent state, cm_shift) to its rows:
     the JAX engine merges the other rows back instead
     (``scatter_slots(..., emit)``), which an in-place step cannot."""
-    check_supported(cfg)
+    _refuse_encoder_only(cfg, "step")
     pos = cache["pos"]
     x = embed_tokens(params["embed"], cfg, tokens)
     per_slot = torch.is_tensor(pos) and pos.ndim > 0
@@ -383,7 +411,7 @@ def prefill_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
     is each row's logit at its last valid chunk token — the first-token
     sampling point when a slot's final chunk lands — and the returned
     ``pos`` advances by ``n_valid``."""
-    check_supported(cfg)
+    _refuse_encoder_only(cfg, "path")
     pos = cache["pos"].to(torch.int64)
     B, C = tokens.shape
     n_valid = torch.as_tensor(n_valid, device=tokens.device).to(torch.int64)
@@ -415,7 +443,7 @@ def verify_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
     commits the accepted prefix with ``cache.write_kv(..., valid=<short
     mask>)``.  Requires an attention-only config
     (``cache.supports_speculative_target``)."""
-    check_supported(cfg)
+    _refuse_encoder_only(cfg, "path")
     for spec in cfg.pattern:
         if spec.mixer != Mixer.ATTENTION:
             raise ValueError(

@@ -5,8 +5,12 @@ reference: it returns new parameter and moment tensors and never writes
 the old ones.  The trainer relies on that — the generation replica is a
 zero-copy alias of the actor between weight syncs (``rl.sync``), and an
 in-place step would change it under the asynchronous pipeline's feet.
-Moments can be stored in a reduced dtype (``moment_dtype``) for
-memory-constrained configs; the update itself runs in fp32.
+A caller that owns its state alone (the LM launcher) may pass
+``donate=True`` instead, the counterpart of JAX's donated buffers: the
+same numbers are written into the old parameter and moment tensors, so
+the step never holds two copies of the moments.  Moments can be stored
+in a reduced dtype (``moment_dtype``) for memory-constrained configs;
+the update itself runs in fp32.
 """
 from __future__ import annotations
 
@@ -71,8 +75,10 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
-def adam_update(params, grads, state, cfg: AdamConfig):
-    """Returns (new_params, new_state, metrics)."""
+def adam_update(params, grads, state, cfg: AdamConfig, *,
+                donate: bool = False):
+    """Returns (new_params, new_state, metrics).  With ``donate`` the new
+    parameters and moments are the old tensors, overwritten."""
     step = state["step"] + 1
     if cfg.grad_clip_norm is not None:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
@@ -97,6 +103,8 @@ def adam_update(params, grads, state, cfg: AdamConfig):
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.float()
         new_p = p.float() - lr * delta
+        if donate:
+            return p.copy_(new_p), m.copy_(m32), v.copy_(v32)
         return new_p.to(p.dtype), m32.to(mdt), v32.to(mdt)
 
     outs = [upd(p, g, m, v) for p, g, m, v in zip(

@@ -80,6 +80,13 @@ class RLConfig:
     decode_chunk: int = 1            # genserve decode steps per host round
     prefill_chunk: int = 0           # genserve chunked admission (tokens
     #                                  per mixed round; 0 = one-shot)
+    # draft-model speculative decoding inside the wave step: k tokens
+    # proposed by the draft per round, one batched (k+1)-wide target
+    # verify.  0 = off.  ``draft_arch`` names a configs.archs entry for
+    # the draft ("" = a scaled-down copy of the target); always routes
+    # through the genserve engine.
+    spec_k: int = 0
+    draft_arch: str = ""
 
 
 def default_plan(wf: workflow.RLWorkflow, n_devices: Optional[int] = None):

@@ -40,6 +40,7 @@ def _cuda():
     (2, 300, 4, 2, 64, True, None, None), (1, 100, 4, 1, 80, True, 64, 50.0),
     (2, 256, 16, 8, 128, True, None, None), (1, 77, 4, 4, 48, False, None, None),
     (2, 256, 64, 8, 128, True, None, None),     # jamba's heads: GQA 8
+    (2, 1000, 16, 16, 80, False, None, None),   # hubert: non-causal, H == KV
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_cuda(B, S, H, KV, hd, causal, window, cap, dtype):

@@ -299,6 +299,97 @@ def test_sampled_grpo_trains_on_reference_bundle(grpo):
     _assert_post_adam(P.actor, J.actor, g, LR)
 
 
+def _bridge_draft(J, P):
+    """The JAX trainer's draft (``_draft_model``, seed-7 JAX weights) carried
+    into the port trainer's ``_spec_draft``."""
+    from repro.engine import tasks as jtasks
+    _, jd_params = jtasks._draft_model(J)
+    td_cfg, _ = ttasks._draft_model(P)
+    P._spec_draft = (td_cfg, bridge.from_numpy_params(
+        jax.tree_util.tree_map(np.asarray, jd_params), td_cfg, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def spec_grpo():
+    """One greedy GRPO iteration with speculative GEN (spec_k 2, the
+    default window-free draft) through both engines: 4 prompts x 4
+    rollouts fit one decode wave, and spec_k forces the genserve
+    engine anyway."""
+    from repro.engine import tasks as jtasks
+    J, P = _pair("grpo", 4, greedy=True, spec_k=2)
+    _bridge_draft(J, P)
+    prompts, answers = next(iter(PromptDataset(JTask(max_operand=9),
+                                               batch=4, seed=1)))
+    cj, cp = {}, {}
+    _capture(J, cj)
+    _capture(P, cp)
+    # the engine pops GEN's stats into its timeline: keep a copy
+    stats, mods = {}, {"J": jtasks.genserve, "P": ttasks.genserve}
+    orig = {key: m.generate for key, m in mods.items()}
+
+    def keeper(key):
+        def generate(*a, **k):
+            ro, st = orig[key](*a, **k)
+            stats[key] = dict(st)
+            return ro, st
+        return generate
+    for key, m in mods.items():
+        m.generate = keeper(key)
+    try:
+        mj = J.iteration(prompts, answers, jax.random.PRNGKey(5))
+        mp = P.iteration(prompts, answers, None)
+    finally:
+        for key, m in mods.items():
+            m.generate = orig[key]
+    return dict(J=J, P=P, mj=mj, mp=mp, bj=cj["bb"], bp=cp["bb"],
+                sj=stats["J"], sp=stats["P"])
+
+
+def test_greedy_spec_grpo_iteration_matches_reference(spec_grpo):
+    bj, bp = spec_grpo["bj"], spec_grpo["bp"]
+    roj, rop = bj["bundle"]["rollout"], bp["bundle"]["rollout"]
+    for k in ("sequences", "gen_tokens", "mask"):
+        np.testing.assert_array_equal(_np(rop[k]), np.asarray(roj[k]))
+    _close(rop["logprobs"], roj["logprobs"])
+    sj, sp = spec_grpo["sj"], spec_grpo["sp"]
+    assert sp["engine"] == sj["engine"] and sj["spec_k"] == sp["spec_k"] == 2
+    for k in ("decode_steps", "spec_proposed", "spec_accepted",
+              "spec_tokens"):
+        assert sp[k] == sj[k], k
+    assert sp["spec_proposed"] > 0
+    assert sp["accept_rate"] == pytest.approx(sj["accept_rate"], rel=1e-12)
+    mj, mp = spec_grpo["mj"], spec_grpo["mp"]
+    for k in ("gen_wave", "gen_wave_occupancy", "gen_decode_steps",
+              "reward_mean", "gen_len"):
+        assert mp[k] == mj[k], k
+
+
+@pytest.mark.parametrize("draft_arch", ["", "qwen3-0.6b", "gemma2-27b"])
+def test_draft_model_config_matches_reference(draft_arch):
+    """``_draft_model``'s config, field for field: the target's
+    window-free quarter-depth copy, or a named smoke (the target has at
+    most 4 layers) with the target's vocab and dtype; cached on the
+    trainer."""
+    from repro.engine import tasks as jtasks
+
+    class St:
+        pass
+    js, ts = St(), St()
+    js.cfg, ts.cfg = CFG, TCFG
+    js.rl = JRL(spec_k=2, draft_arch=draft_arch)
+    ts.rl = TRL(spec_k=2, draft_arch=draft_arch)
+    ts.device = torch.device("cpu")
+    jd, _ = jtasks._draft_model(js)
+    td, tparams = ttasks._draft_model(ts)
+    assert dataclasses.asdict(td) == dataclasses.asdict(jd)
+    assert ttasks._draft_model(ts)[1] is tparams
+    if not draft_arch:
+        assert all(s.window is None for s in td.pattern)
+        assert td.n_layers == len(TCFG.pattern) * max(
+            TCFG.n_pattern_repeats // 4, 1)
+    assert td.vocab_size == VOCAB_SIZE and td.dtype == "float32"
+
+
 def test_async_fill_then_one_step_staleness():
     """--async: the fill iteration trains nothing and syncs nothing; the
     next trains the fill's rollouts (generated at version 0, before any
@@ -393,26 +484,37 @@ def test_launcher_ppo_async_smoke(capsys):
     ["--rl", "grpo", "--draft-arch", "qwen3-0.6b"],
     ["--steps", "2"],                                  # the LM mode
 ])
-def test_launcher_refuses_what_is_not_ported(flags, capsys):
-    """The launcher refuses exactly what is not ported: speculative GEN's
-    flags are argparse errors; the elastic, fault and calibration flags
-    and the LM mode parse (``tests/test_torch_faults.py`` and
-    ``tests/test_torch_lm.py`` run them)."""
+def test_launcher_refuses_what_is_not_ported(flags):
+    """Every flag of the reference's launcher parses: the elastic, fault,
+    calibration and speculative-GEN flags and the LM mode
+    (``tests/test_torch_faults.py``, ``tests/test_torch_lm.py`` and
+    ``test_launcher_spec_grpo_smoke`` run them)."""
     argv = ["--arch", "qwen3-0.6b"] + flags
-    if flags[2:3] in (["--spec-k"], ["--draft-arch"]):
-        with pytest.raises(SystemExit) as e:
-            tlaunch.parse_args(argv)
-        assert e.value.code == 2
-        assert "unrecognized arguments: " + flags[2] in \
-            capsys.readouterr().err
-        return
     args = tlaunch.parse_args(argv)
     assert args.rl == ("grpo" if "--rl" in flags else None)
+    assert (args.spec_k, args.draft_arch) == (
+        2 if "--spec-k" in flags else 0,
+        "qwen3-0.6b" if "--draft-arch" in flags else "")
     if len(flags) > 2:
         dest = flags[2].lstrip("-").replace("-", "_")
         assert getattr(args, dest) == {
             "--drift": "drop_tail", "--drift-at": 0, "--require-recover": True,
-            "--fault": "transient_crash", "--calibrate": True}[flags[2]]
+            "--fault": "transient_crash", "--calibrate": True, "--spec-k": 2,
+            "--draft-arch": "qwen3-0.6b"}[flags[2]]
+
+
+def test_launcher_spec_grpo_smoke(capsys):
+    """``--spec-k 2``: GEN on the genserve engine with the default draft
+    (the trainer's ``_spec_draft``)."""
+    out, lines = _launch(["--arch", "qwen3-0.6b", "--rl", "grpo",
+                          "--spec-k", "2", "--steps", "2", "--batch", "4"],
+                         capsys)
+    assert lines[-1] == "done"
+    assert [ln.split()[:2] for ln in lines if ln.startswith("iter")] == \
+        [["iter", "0"], ["iter", "1"]]
+    trainer = out["trainer"]
+    assert trainer.rl.spec_k == 2 and trainer._spec_draft is not None
+    assert trainer._spec_draft[0].name == "qwen3-0.6b-smoke-draft"
 
 
 def test_launcher_runs_on_the_card_by_default():

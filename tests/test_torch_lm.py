@@ -26,8 +26,10 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.optim import adam as jadam  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
+from repro_torch.configs.shapes import token_splits  # noqa: E402
 from repro_torch.data.synthetic import random_lm_batch  # noqa: E402
 from repro_torch.launch import steps as tsteps, train as tlaunch  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim import adam as tadam  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 
@@ -45,7 +47,10 @@ def _one_torch_thread():
 
 
 LR = 1e-3
-ARCHS = ["qwen3-0.6b", "mixtral-8x7b", "gemma2-27b"]
+# hubert-xlarge: audio frames only, non-causal; pixtral-12b: image
+# patches in front of its tokens
+ARCHS = ["qwen3-0.6b", "mixtral-8x7b", "gemma2-27b", "hubert-xlarge",
+         "pixtral-12b"]
 
 
 def _np(x):
@@ -59,14 +64,21 @@ def _setup(arch, B=2, S=12):
     tp = bridge.from_numpy_params(jax.tree_util.tree_map(np.asarray, jp),
                                   tcfg, "cpu")
     rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (B, S),
-                                    dtype=np.int32),
-             "labels": rng.integers(0, jcfg.vocab_size, (B, S),
-                                    dtype=np.int32),
-             "loss_mask": (rng.random((B, S)) < 0.8).astype(np.float32)}
+    n_feat, n_tok = token_splits(tcfg, S)
+    batch = {}
+    if n_feat:
+        batch["features"] = rng.standard_normal(
+            (B, n_feat, jcfg.feature_dim)).astype(np.float32)
+    if n_tok:
+        batch["tokens"] = rng.integers(0, jcfg.vocab_size, (B, n_tok),
+                                       dtype=np.int32)
+    batch["labels"] = rng.integers(0, jcfg.vocab_size, (B, S),
+                                   dtype=np.int32)
+    batch["loss_mask"] = (rng.random((B, S)) < 0.8).astype(np.float32)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
-    tb["tokens"] = tb["tokens"].long()
-    tb["labels"] = tb["labels"].long()
+    for k in ("tokens", "labels"):
+        if k in tb:
+            tb[k] = tb[k].long()
     return jcfg, tcfg, jp, tp, batch, tb
 
 
@@ -80,8 +92,8 @@ def test_lm_loss_matches_reference(arch):
     # no mask: the mean over every position
     nb = {k: v for k, v in batch.items() if k != "loss_mask"}
     with torch.no_grad():
-        got = float(tsteps.lm_loss(tp, tcfg, {"tokens": tb["tokens"],
-                                               "labels": tb["labels"]}))
+        got = float(tsteps.lm_loss(tp, tcfg, {k: v for k, v in tb.items()
+                                               if k != "loss_mask"}))
     assert got == pytest.approx(float(jsteps.lm_loss(jp, jcfg, nb)),
                                 rel=2e-4)
 
@@ -148,3 +160,54 @@ def test_launcher_lm_mode_smoke(capsys):
     V = out["cfg"].vocab_size
     assert abs(out["losses"][0] - math.log(V)) < 0.2
     assert int(out["opt_state"]["step"]) == 3
+
+
+@pytest.mark.parametrize("arch,n_feat,n_tok", [("hubert-xlarge", 16, 0),
+                                               ("pixtral-12b", 8, 8)])
+def test_launcher_lm_mode_feature_frontends(arch, n_feat, n_tok, capsys):
+    """``make_batch`` follows ``token_splits`` (features in the config's
+    dtype, drawn from the generator); the launcher's LM mode trains
+    both feature-frontend architectures."""
+    cfg = tarchs.get(arch, smoke=True)
+    b = tlaunch.make_batch(cfg, torch.Generator().manual_seed(0), 2, 16)
+    assert tuple(b["features"].shape) == (2, n_feat, cfg.feature_dim)
+    assert b["features"].dtype == torch.float32
+    assert ("tokens" in b) == (n_tok > 0)
+    if n_tok:
+        assert tuple(b["tokens"].shape) == (2, n_tok)
+    assert tuple(b["labels"].shape) == tuple(b["loss_mask"].shape) == (2, 16)
+    b2 = tlaunch.make_batch(cfg, torch.Generator().manual_seed(0), 2, 16)
+    assert all(torch.equal(b[k], b2[k]) for k in b)
+    out = tlaunch.main(["--arch", arch, "--smoke", "--steps", "2",
+                        "--batch", "2", "--seq", "16", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"arch={arch}-smoke")
+    assert lines[-1] == "done"
+    assert len(out["losses"]) == 2
+    assert all(math.isfinite(v) for v in out["losses"] + out["grad_norms"])
+    assert int(out["opt_state"]["step"]) == 2
+
+
+def test_donated_train_step_matches_functional():
+    """``make_train_step(donate=True)`` (the launcher's loop) gives bit for
+    bit the functional step's parameters and moments, written into the
+    tensors it was given; two steps in a row (bf16 parameters, fp32
+    moments)."""
+    tcfg = tarchs.get("pixtral-12b", smoke=True)
+    params = TT.init_params(tcfg, seed=0, dtype="bfloat16")
+    opt = tadam.AdamConfig(lr=LR, total_steps=5)
+    gen = torch.Generator().manual_seed(1)
+    batches = [tlaunch.make_batch(tcfg, gen, 2, 16) for _ in range(2)]
+    fp, fo = params, tadam.init_adam_state(params, opt)
+    dp = tree_unflatten(params, [t.clone() for t in tree_leaves(params)])
+    do = tadam.init_adam_state(dp, opt)
+    step_f = tsteps.make_train_step(tcfg, opt)
+    step_d = tsteps.make_train_step(tcfg, opt, donate=True)
+    for b in batches:
+        fp, fo, fm = step_f(fp, fo, b)
+        mine = [id(t) for t in tree_leaves((dp, do["m"], do["v"]))]
+        dp, do, dm = step_d(dp, do, b)
+        assert [id(t) for t in tree_leaves((dp, do["m"], do["v"]))] == mine
+        assert float(dm["loss"]) == float(fm["loss"])
+        for a, c in zip(tree_leaves((dp, do)), tree_leaves((fp, fo))):
+            assert a.dtype == c.dtype and torch.equal(a, c)

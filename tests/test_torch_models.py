@@ -59,7 +59,8 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 JAMBA3 = "jamba-1.5-large-398b-3layer"   # attn/dense, mamba/MoE, mamba/dense
 E2E = "rl-actor-e2e"   # examples/train_rl_e2e.py's actor
 ARCHS = ["qwen3-0.6b", "gemma2-27b", "rwkv6-3b", "jamba-1.5-large-398b",
-         JAMBA3, "mixtral-8x7b", "granite-moe-3b-a800m", E2E]
+         JAMBA3, "mixtral-8x7b", "granite-moe-3b-a800m", "phi3-medium-14b",
+         "nemotron-4-15b", "hubert-xlarge", "pixtral-12b", E2E]
 
 
 def _cfgs(name):
@@ -319,12 +320,27 @@ def test_forward_and_per_row_decode(name, impl):
     """forward(return_cache) logits + every cache leaf, then 6 per-row
     decode steps (ragged positions; gemma2's window-16 ring wraps;
     rwkv6 carries tm_shift / wkv / cm_shift, jamba conv / ssm; MoE
-    prefill drops tokens past capacity, MoE decode is dense)."""
+    prefill drops tokens past capacity, MoE decode is dense; pixtral's
+    decoder on token prompts).  The encoder-only hubert-xlarge has no
+    decode step: its forward over audio frames (non-causal attention,
+    sinusoidal positions) only."""
     cfg, tcfg, jp, tp = _bridged(name, seed=1)
     rng = np.random.default_rng(6)
     B, P, N = 3, 12, 6
     prompts = rng.integers(0, cfg.vocab_size, (B, P))
     jattn.set_attention_impl("jnp")
+    if cfg.is_encoder_only:
+        feats = rng.standard_normal((B, P, cfg.feature_dim)) \
+            .astype(np.float32)
+        ref = JT.forward(jp, cfg, {"features": feats})
+        tattn.set_attention_impl(impl)
+        try:
+            out = TT.forward(tp, tcfg, {"features": _t(feats)})
+        finally:
+            tattn.set_attention_impl("kernel")
+        np.testing.assert_allclose(out["logits"].numpy(),
+                                   np.asarray(ref["logits"]), **TOL)
+        return
     ref = JT.forward(jp, cfg, {"tokens": jnp.asarray(prompts)},
                      return_cache=True, max_cache_len=P + N + 8)
     tattn.set_attention_impl(impl)
@@ -355,12 +371,72 @@ def test_forward_and_per_row_decode(name, impl):
         tattn.set_attention_impl("kernel")
 
 
-def test_unported_mixers_raise():
-    """What stays unported: the features frontends (hubert-xlarge's audio
-    frames, pixtral-12b's image patches) and encoder-only models."""
-    for name in ("hubert-xlarge", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="frontend"):
-            TT.init_params(tarchs.SMOKE[name])
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_pixtral_feature_prefill_then_decode(impl):
+    """pixtral-12b: image patches in front of unscaled token embeddings,
+    RoPE over the whole sequence, prefilled with ``return_cache``; then 4
+    decode steps from the cache, every step's logits and the cache
+    against the JAX package."""
+    cfg, tcfg, jp, tp = _bridged("pixtral-12b", seed=2)
+    rng = np.random.default_rng(9)
+    B, F_, P, N = 2, 6, 5, 4
+    feats = rng.standard_normal((B, F_, cfg.feature_dim)).astype(np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, (B, P))
+    jattn.set_attention_impl("jnp")
+    ref = JT.forward(jp, cfg, {"features": feats,
+                               "tokens": jnp.asarray(prompts)},
+                     return_cache=True, max_cache_len=F_ + P + N)
+    tattn.set_attention_impl(impl)
+    try:
+        out = TT.forward(tp, tcfg, {"features": _t(feats),
+                                    "tokens": _t(prompts)},
+                         return_cache=True, max_cache_len=F_ + P + N)
+        np.testing.assert_allclose(out["logits"].numpy(),
+                                   np.asarray(ref["logits"]), **TOL)
+        jc, tc = ref["cache"], out["cache"]
+        assert int(jc["pos"]) == tc["pos"] == F_ + P
+        _assert_cache_close(tc["blocks"], jc["blocks"])
+        tok = np.asarray(jnp.argmax(ref["logits"][:, -1], -1))[:, None]
+        for _ in range(N):
+            jl, jc = JT.decode_step(jp, cfg, jnp.asarray(tok), jc)
+            tl, tc = TT.decode_step(tp, tcfg, _t(tok), tc)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+            tok = np.asarray(jnp.argmax(jl, -1))[:, None]
+        assert tc["pos"] == int(jc["pos"]) == F_ + P + N
+        _assert_cache_close(tc["blocks"], jc["blocks"])
+    finally:
+        tattn.set_attention_impl("kernel")
+
+
+def test_encoder_only_has_no_decode_path():
+    """hubert-xlarge (encoder-only) refuses ``decode_step`` and both chunk
+    steps with the JAX package's messages; its forward runs."""
+    cfg, tcfg, jp, tp = _bridged("hubert-xlarge")
+    B, C = 2, 3
+    jc = dict(jcache.init_cache(cfg, B, 8), pos=jnp.zeros((B,), jnp.int32))
+    tc = dict(tcache.init_cache(tcfg, B, 8),
+              pos=torch.zeros((B,), dtype=torch.int64))
+    jt = jnp.zeros((B, C), jnp.int32)
+    tt = torch.zeros((B, C), dtype=torch.int64)
+    n_valid = np.array([C, 1])
+    for what, jcall, tcall in (
+            ("step", lambda: JT.decode_step(jp, cfg, jt[:, :1], jc),
+             lambda: TT.decode_step(tp, tcfg, tt[:, :1], tc)),
+            ("path", lambda: JT.prefill_chunk_step(jp, cfg, jt, jc,
+                                                   n_valid=n_valid),
+             lambda: TT.prefill_chunk_step(tp, tcfg, tt, tc,
+                                           n_valid=_t(n_valid))),
+            ("path", lambda: JT.verify_chunk_step(jp, cfg, jt, jc),
+             lambda: TT.verify_chunk_step(tp, tcfg, tt, tc))):
+        msg = f"encoder-only models have no decode {what}"
+        with pytest.raises(AssertionError, match=msg):
+            jcall()
+        with pytest.raises(ValueError, match=msg):
+            tcall()
+    feats = np.random.default_rng(3).standard_normal(
+        (B, 5, cfg.feature_dim)).astype(np.float32)
+    out = TT.forward(tp, tcfg, {"features": _t(feats)})
+    assert tuple(out["logits"].shape) == (B, 5, cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
