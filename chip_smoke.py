@@ -12,8 +12,9 @@ INF / TRAIN -> sync) at qwen3-0.6b's full width, the LM train mode,
 checkpoints, the elastic plan swaps and fault recovery, and the rest of
 genserve (chunked admission, the paged cache with prefix reuse,
 speculative decoding, slot failures and cancels), then the rest of the
-model zoo (hubert-xlarge's encoder and pixtral-12b at full width) and
-speculative GEN in the RL engine, and exits non-zero on any failure.
+model zoo (hubert-xlarge's encoder and pixtral-12b at full width),
+speculative GEN in the RL engine and the plan sharded over ranks that
+share the card, and exits non-zero on any failure.
 Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
@@ -162,6 +163,27 @@ Phases, each printing its result:
              decode_attention in the draft's steps (verify is plain),
              TRAIN nothing; accept rate and GEN ms; then ``launch.train
              --rl grpo --spec-k 4`` for 2 steps.
+ 22. sharded the probe: 2 ranks on cuda:0 over gloo run each collective
+             sharded execution needs (``parallel.dist.probe_collectives``;
+             the phase fails unless every one passes).  Then
+             ``launch.sharded_exec``'s gen | rest plan (GEN and TRAIN at
+             DP 2 / TP 2, async GRPO, 4 prompts x 8 rollouts) on
+             qwen3-0.6b's first 8 layers at full width (fp32, vocab 16):
+             folded onto the card in this process (a collision, no
+             overlap, overlap_honest 0.0), and as 8 ranks sharing the
+             card (spawned, gloo): on each GEN and INF rank the two
+             attention kernels called as the path calls them, on
+             DTensors at its per-rank shapes, against their plain
+             versions on the full tensors (2e-4); greedy and sampled
+             runs held by ``sharded_exec.check`` against the world of
+             one (the GEN weights equal to the actor bit for bit after
+             every sync), the first trained loss and one actor step on a
+             fixed batch within 1e-5 relative, per rank GEN launching
+             both attention kernels, INF flash only, TRAIN none;
+             ms/iter overlapped and with the stage walk
+             serialized, the weight sync's GB and ms, peak memory per
+             rank.  Ranks sharing one card show the mechanism, not a
+             multi-GPU speedup.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -191,6 +213,7 @@ RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
 HUBERT_ARCH = "hubert-xlarge"
 PIXTRAL_ARCH = "pixtral-12b"
+LAYERS22 = 8                       # phase 22's depth cut of qwen3-0.6b
 
 
 def fail(msg: str) -> None:
@@ -1844,6 +1867,159 @@ def rl_spec_phase21(torch, dev, cfg, fa, dec, card, ref):
     free(torch)
 
 
+def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
+    """Sharded plan execution on ranks that share the card.
+
+    First the probe: two ranks on ``cuda:0`` over gloo run each
+    collective DTensor needs (``parallel.dist.probe_collectives``); a
+    failing one fails the phase.  The same plan (``launch.sharded_exec``:
+    GEN on plan devices 0-3, the rest on 4-7, GEN and TRAIN at DP 2 /
+    TP 2, async GRPO) runs folded onto the card in this process (a world
+    of one: collisions, no overlap), and as 8 ranks sharing the card:
+    the attention kernels at the path's per-rank shapes against their
+    plain versions (``sharded_exec.kernels_vs_plain``), greedy and
+    sampled runs held against the world of one (``sharded_exec.check``),
+    one actor step on a fixed batch within 1e-5 relative, launches per
+    rank and task kind, ms per iteration overlapped and with the stage
+    walk serialized, sync GB and ms, peak memory per rank.  Ranks that
+    share one card measure the mechanism, not a multi-GPU speedup."""
+    from repro_torch.configs import archs
+    from repro_torch.data.synthetic import AdditionTask, VOCAB_SIZE
+    from repro_torch.launch import sharded_exec as sx
+    from repro_torch.parallel import dist
+    t0 = time.monotonic()
+    probe = dist.probe_collectives("cuda", 2)
+    print(f"[22 probe] 2 ranks on cuda:0, backend "
+          f"{probe[0].get('backend', dist.backend_for(dev, 2))}", flush=True)
+    for name in dist.COLLECTIVES:
+        print(f"[22 probe] {name}: "
+              f"{' / '.join(str(r[name]) for r in probe)}", flush=True)
+    ok = dist.probe_ok(probe)
+    print(f"[22 probe] every collective sharded execution needs: "
+          f"{'ok' if ok else 'FAILED'} ({time.monotonic() - t0:.1f}s)",
+          flush=True)
+    check(ok, f"ranks sharing the card over gloo: a collective failed: "
+              f"{probe}")
+    cfg = dataclasses.replace(first_layers(archs.get(ARCH), layers),
+                              vocab_size=VOCAB_SIZE, dtype="float32")
+    iters, batch, G, N = 3, 4, 8, 4
+    step = (sx.step_batch(batch * G, 9, 5, VOCAB_SIZE), 5)
+    base = {}
+    for mode in ("sampled", "greedy"):
+        tr = sx.make_trainer(cfg, dev, greedy=mode == "greedy",
+                             n_rollouts=G, max_new_tokens=N)
+        if mode == "sampled":
+            one_step = sx.actor_step(tr, *step)
+        base[mode] = sx._summary(tr, *sx.run(tr, iters, batch))
+        del tr
+        free(torch)
+    w1 = base["sampled"]
+    check(w1["world"] == 1 and w1["folding_collisions"] > 0
+          and w1["overlap_active"] is False and w1["overlap_honest"] == 0.0,
+          f"the world of one: {w1['folding_collisions']} collisions, "
+          f"overlap {w1['overlap_active']}, honest {w1['overlap_honest']}")
+    ms1 = 1e3 * sum(w1["wall_s"][1:]) / (iters - 1)
+    print(f"[22 world-1] {cfg.name} first {layers} layers at full width "
+          f"(fp32, vocab {VOCAB_SIZE}, {cfg.param_count() / 1e9:.3f} B "
+          f"parameters), {batch} prompts x {G} rollouts = {batch * G} rows, "
+          f"async GRPO folded onto the card: {w1['folding_collisions']} "
+          f"collision(s), overlap_active {w1['overlap_active']}, "
+          f"overlap_honest {w1['overlap_honest']}, {ms1:.0f} ms/iter "
+          f"(iterations 1-{iters - 1}), losses {w1['losses']} | card {card}",
+          flush=True)
+    t0 = time.monotonic()
+    res = dist.spawn(sx.rank_main, sx.WORLD, "cuda", cfg, iters, batch,
+                     ("sampled", "greedy", "serialized"), None, True, G, N,
+                     step, True, timeout=600)
+    wall = time.monotonic() - t0
+    r0 = res[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    P = AdditionTask(max_operand=9).prompt_len      # sharded_exec's task
+    shapes = {"gen_prefill": [batch * G // 2, P, H // 2, hd],
+              "gen_decode": [batch * G // 2, H // 2, hd],
+              "inf": [batch * G // 4, P + N, H, hd]}
+    errs = {}
+    for r in res:
+        labels = ("gen_prefill", "gen_decode") \
+            if r["rank"] in r0["sampled"]["gen_ranks"] else ("inf",)
+        check(set(r["kernels"]) == set(labels),
+              f"rank {r['rank']} checked the kernels {sorted(r['kernels'])}")
+        for label in labels:
+            err, local = r["kernels"][label]
+            check(local == shapes[label],
+                  f"rank {r['rank']} {label}: local q {local}, the path's "
+                  f"{shapes[label]}")
+            check(err <= tol(torch.float32, torch),
+                  f"rank {r['rank']} {label}: kernel vs plain {err:.3g} "
+                  f"(tol 2e-4)")
+            errs[label] = max(errs.get(label, 0.0), err)
+    print(f"[22 sharded] kernels on DTensors at the path's per-rank shapes "
+          f"(local q), as the sharded path calls them, vs the plain "
+          f"versions on the full tensors, fp32: GEN prefill "
+          f"flash_attention {shapes['gen_prefill']} max err "
+          f"{errs['gen_prefill']:.3g}, GEN decode_attention "
+          f"{shapes['gen_decode']} over a {P + N}-slot cache "
+          f"{errs['gen_decode']:.3g}, INF flash_attention {shapes['inf']} "
+          f"{errs['inf']:.3g} (tol 2e-4; 4 GEN ranks on the 2x2 mesh, 4 "
+          f"INF ranks on the 4x1 one)", flush=True)
+    for mode in ("sampled", "greedy"):
+        sx.check(r0[mode], base[mode], greedy=mode == "greedy")
+    s, ser = r0["sampled"], r0["serialized"]
+    check(ser["overlap_active"] is False,
+          "the serialized run took the overlapped walk")
+    steps = [r["step"] for r in res if r["step"] is not None]
+    check(len(steps) == 4, f"{len(steps)} ranks ran the actor step")
+    rel = {k: abs(steps[0][k] - one_step[k]) / abs(one_step[k])
+           for k in ("loss", "grad_norm")}
+    check(all(v <= 1e-5 for v in rel.values()),
+          f"sharded actor step vs the world of one: relative {rel}")
+    agree = [float((a == b).mean()) for a, b in
+             zip(s["tokens"], base["sampled"]["tokens"])]
+    l1, b1 = s["losses"][1], base["sampled"]["losses"][1]
+    check(abs(l1 - b1) <= 1e-5 * abs(b1),
+          f"first trained loss {l1} vs the world of one's {b1}")
+    print(f"[22 sharded] {sx.WORLD} ranks sharing cuda:0 over gloo: GEN on "
+          f"ranks {s['gen_ranks']} (mesh {s['gen_mesh']}), TRAIN on "
+          f"{s['train_ranks']} (mesh {s['train_mesh']}), collisions "
+          f"{s['folding_collisions']}, overlap_active {s['overlap_active']}, "
+          f"overlap_honest {s['overlap_honest']}, staleness "
+          f"{s['staleness']}; greedy tokens identical to the world of one "
+          f"in all {iters} iterations; sampled tokens agree {agree} "
+          f"(weight versions {s['gen_versions']}); GEN weights equal to "
+          f"the actor bit for bit after each iteration {s['sync_identical']} "
+          f"(greedy {r0['greedy']['sync_identical']}); first trained loss "
+          f"{l1:.6g} vs {b1:.6g} (relative {abs(l1 - b1) / abs(b1):.2g}, "
+          f"tol 1e-5); actor step on a fixed {batch * G}-row batch: loss and "
+          f"grad norm relative {rel['loss']:.2g} / {rel['grad_norm']:.2g} "
+          f"(tol 1e-5)", flush=True)
+    ms = {m: 1e3 * sum(r0[m]["wall_s"][1:]) / (iters - 1)
+          for m in ("sampled", "serialized")}
+    sync_ms = 1e3 * sum(s["sync_s"]) / max(len(s["sync_s"]), 1)
+    print(f"[22 sharded] ms/iter (iterations 1-{iters - 1}, rank 0's wall): "
+          f"overlapped {ms['sampled']:.0f}, serialized stage walk "
+          f"{ms['serialized']:.0f}, world of one {ms1:.0f}; weight sync "
+          f"{s['sync_gb'][1]:.3f} GB in {sync_ms:.0f} ms (train lead -> 4 "
+          f"GEN ranks, gloo through host memory); peak GiB per rank "
+          f"{[round(r['peak_gib'], 2) for r in res]}; {wall:.0f}s with the "
+          f"ranks' start | card {card} (ranks share one card: the "
+          f"mechanism, not a multi-GPU speedup)", flush=True)
+    launches = {r["rank"]: r["launches"] for r in res}
+    print(f"[22 sharded] launches per rank and task kind (flash, decode), "
+          f"3 runs: {launches}", flush=True)
+    for r, c in launches.items():
+        if r in s["gen_ranks"]:
+            check(c.get("GEN", {}).get("decode", 0) > 0
+                  and c.get("GEN", {}).get("flash", 0) > 0,
+                  f"GEN rank {r} launched {c.get('GEN')}")
+        else:
+            check(c.get("INF", {}).get("flash", 0) > 0,
+                  f"INF rank {r} launched {c.get('INF')}")
+            check(c.get("INF", {}).get("decode", 0) == 0,
+                  f"INF rank {r} launched decode_attention")
+        check(not any(c.get("TRAIN", {}).values()),
+              f"TRAIN on rank {r} launched {c.get('TRAIN')}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2552,6 +2728,10 @@ def main() -> None:
 
     # ---- 21. RL GEN with speculative decoding --------------------------------
     rl_spec_phase21(torch, dev, cfg, fa, dec, card, rl_ref)
+    free(torch)
+
+    # ---- 22. sharded plan execution on ranks sharing the card --------------
+    sharded_phase22(torch, dev, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,7 +6,10 @@ stage by stage, colocated tasks serialized, disjoint GPU groups run
 concurrently, async one-step off-policy double-buffering, and a measured
 ``Event`` timeline that shares dataclasses with ``core.simulator`` so
 measured-vs-predicted comparison is one function call.  On one card
-every plan group folds onto that card.  ``Engine.apply_plan`` swaps plans
+every plan group folds onto that card; in a world of ranks
+(``parallel.dist``, one process per device) the plan folds onto the
+ranks and each task runs sharded on its own (``placement``: a DeviceMesh
+and DTensors per task).  ``Engine.apply_plan`` swaps plans
 at an iteration boundary (a new plan epoch; trainer state untouched), and
 ``engine.elastic.ElasticController`` builds the §6 loop on top: watch a
 topology feed, ``reschedule`` with a warm-start budget, checkpoint

@@ -35,15 +35,26 @@ Port of ``repro.engine.executor``.  A task's measured duration ends at a
 CUDA event recorded on the current stream after the task and waited on
 (``device.wait_for``), and the weight sync ends at a device synchronize,
 so the ``Event`` timeline times the card's work, not the launch queue
-(both are no-ops on the CPU).  Lanes of disjoint plan groups still run
-in threads; on one card they share its stream, so a lane's wait also
-covers the other lane's earlier work — the folding's collision flags
-(every group collides on one card) mark those events.  A stage waits
-for every lane before it raises, so a fault in one lane is never lost
-behind another's.
+(both are no-ops on the CPU).  In a world of one rank, lanes of disjoint
+plan groups run in threads; on one card they share its stream, so a
+lane's wait also covers the other lane's earlier work — the folding's
+collision flags (every group collides on one card) mark those events.
+A stage waits for every lane before it raises, so a fault in one lane
+is never lost behind another's.
 
-Not yet ported (ROADMAP.md §1 item 9): the gen/train wall-clock overlap,
-which needs GEN on devices of its own.
+Sharded execution (a ``parallel.dist`` world: one process per device,
+every rank running this engine, SPMD): the plan folds onto the world's
+ranks, each rank runs the tasks whose placement holds it and skips the
+others, and after each stage the lead rank of each task's group
+broadcasts what the task wrote to ``bb`` (rollouts, log-probs, values,
+scores, metrics) as host arrays (``_exchange``); the measured durations
+are all-gathered before the replay, so every rank replays the same
+``Event`` timeline.  ``overlap_active`` (asynchronous, and the GEN
+ranks disjoint from every other task's) switches to the SPMD form of the
+reference's overlapped walk: the GEN ranks decode iteration t+1 while
+the other ranks train on t's bundle — the two lanes are different
+processes, so the overlap is real — and the bundle, the metrics and the
+weights cross at the iteration boundary.
 """
 from __future__ import annotations
 
@@ -68,6 +79,7 @@ from repro_torch.engine.pipeline import AsyncPipeline, sync_actor_weights
 from repro_torch.engine.placement import build_placement, fold_plan
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel import dist
 
 # pseudo task id for the weight-migration event a plan swap replays onto
 # the timeline (real workflow tasks are 0..n_tasks-1)
@@ -119,14 +131,23 @@ class PlanContext:
     dev_free: Dict[int, float]            # plan-device availability (replay)
     start_iter: int = 0                   # first engine iteration in epoch
     folding: Any = None                   # placement.DeviceFolding
+    # process groups of a multi-rank world: the ranks of the non-GEN
+    # tasks (the overlapped walk's exchanges) and the weight sync's
+    # (the training lead and the GEN ranks)
+    rest_group: Any = None
+    sync_group: Any = None
 
 
 class Engine:
     def __init__(self, wf: RLWorkflow, plan: Plan, state,
                  *, topo: Optional[Topology] = None,
                  asynchronous: Optional[bool] = None,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None,
+                 overlap: Optional[bool] = None):
         self.wf = wf
+        # gen/train wall-clock overlap: None = auto (on when async and
+        # the GEN ranks are disjoint from the rest), False = never
+        self._overlap_opt = overlap
         self.state = state
         self._devices = list(devices) if devices is not None else None
         if asynchronous is None:
@@ -207,9 +228,19 @@ class Engine:
                 float(pl.n_devices))
             obs_metrics.gauge(f"placement.tp_realized.{name}").set(
                 float(pl.tp_eff))
+        rest_group = sync_group = None
+        if dist.multi():
+            # collective: every rank creates the groups, in this order
+            rest = sorted({r for t, pl in placements.items()
+                           if t != gen_task for r in pl.ranks})
+            rest_group = dist.new_group(rest)
+            sync_group = dist.new_group(
+                {placements[actor_train].lead}
+                | set(placements[gen_task].ranks))
         return PlanContext(epoch, plan, topo, placements, gen_task,
                            actor_train, dev_free, start_iter,
-                           folding=folding)
+                           folding=folding, rest_group=rest_group,
+                           sync_group=sync_group)
 
     # back-compat accessors: the live context is authoritative
     @property
@@ -338,7 +369,13 @@ class Engine:
 
     def _run_stage(self, stage: Sequence[int], bb: Dict[str, Any],
                    durations: Dict[int, float],
-                   meta: Dict[int, tuple]) -> None:
+                   meta: Dict[int, tuple], group=None,
+                   exchange: bool = True) -> Dict[int, dict]:
+        """Run a stage's tasks.  In a multi-rank world this rank runs the
+        tasks of its placements, in lane order, and then (``exchange``)
+        every rank of ``group`` (the world when None) takes part in the
+        exchange of what each task wrote; returns what this rank's tasks
+        wrote."""
         inj = self.fault_injector
 
         def attempt_task(t, fn, attempt):
@@ -396,9 +433,19 @@ class Engine:
                     sp.set("deadline_exceeded", True)
 
         lanes = self._lanes(stage)
+        if dist.multi():
+            payloads = {}
+            for t in (t for lane in lanes for t in lane):
+                if self.placements[t].here:
+                    before = (set(bb), dict(bb["metrics"]))
+                    run_lane([t])
+                    payloads[t] = _written(bb, before)
+            if exchange:
+                self._exchange(bb, stage, payloads, group)
+            return payloads
         if len(lanes) == 1:
             run_lane(lanes[0])
-            return
+            return {}
         with ThreadPoolExecutor(max_workers=len(lanes)) as pool:
             futs = [pool.submit(run_lane, lane) for lane in lanes]
             wait(futs)
@@ -410,6 +457,36 @@ class Engine:
                 errors[0].add_note(f"another lane of this stage also "
                                    f"failed: {other!r}")
             raise errors[0]
+        return {}
+
+    def _exchange(self, bb: Dict[str, Any], tasks: Sequence[int],
+                  payloads: Dict[int, dict], group=None) -> None:
+        """What each task wrote to ``bb``, from its group's lead rank to
+        every rank of ``group`` (the world when None), as host arrays:
+        the counterpart of the reference's ``multidev`` host pulls."""
+        me = dist.rank()
+        for t in sorted(tasks):
+            lead = self.placements[t].lead
+            got = dist.broadcast_object(
+                dist.to_host(payloads[t]) if me == lead else None,
+                lead, group)
+            if me != lead:
+                bb.update(dist.to_device(got["bb"], self.state.device))
+                bb["metrics"].update(got["metrics"])
+
+    def _gather_timing(self, durations: Dict[int, float],
+                       meta: Dict[int, tuple], sync_dur: float):
+        """Every rank's measured durations -> each task's from its lead
+        rank (the same on every rank); the sync's is the slowest rank's."""
+        recs = dist.all_gather_object((dict(durations), dict(meta),
+                                       sync_dur))
+        out_d, out_m = {}, {}
+        for t, pl in self.placements.items():
+            d, m, _ = recs[pl.lead]
+            if t in d:
+                out_d[t] = d[t]
+                out_m[t] = meta.get(t, m.get(t))
+        return out_d, out_m, max(r[2] for r in recs)
 
     # -- measured-timeline replay --------------------------------------
     def _replay_iteration(self, durations: Dict[int, float],
@@ -420,7 +497,11 @@ class Engine:
         rules on the plan's device ids (same event ordering semantics).
         ``meta`` carries each task's host wall-clock start (relative to
         engine construction) and obs.trace span id, stamped onto the
-        replayed events for calibration/trace correlation."""
+        replayed events for calibration/trace correlation.  In a
+        multi-rank world every rank replays the gathered durations."""
+        if dist.multi():
+            durations, meta, sync_dur = self._gather_timing(
+                durations, meta or {}, sync_dur)
         it = self._iter
         epoch = self.ctx.epoch
         events: List[Event] = []
@@ -533,6 +614,22 @@ class Engine:
         self._observe_divergence(result)
         return result
 
+    def overlap_active(self) -> bool:
+        """Whether this epoch runs generation wall-clock concurrent with
+        the inference/training stages: asynchronous pipeline and the GEN
+        ranks disjoint from every other task's (which a collision-free
+        group-aware folding guarantees for disjoint plan groups).  Only
+        a multi-rank world has disjoint ranks: in a world of one every
+        task folds onto its one device and the stage walk serializes,
+        which is the honest execution there."""
+        if self._overlap_opt is False or not self.pipeline.asynchronous:
+            return False
+        ctx = self.ctx
+        gen = set(ctx.placements[ctx.gen_task].local_devices)
+        rest = {d for t, pl in ctx.placements.items()
+                if t != ctx.gen_task for d in pl.local_devices}
+        return bool(rest) and not (gen & rest)
+
     def _run_iteration(self, prompts, answers, rng) -> EngineResult:
         bb: Dict[str, Any] = {"lock": threading.Lock(), "metrics": {}}
         if self.fault_injector is not None:
@@ -542,36 +639,48 @@ class Engine:
         durations: Dict[int, float] = {}
         meta: Dict[int, tuple] = {}
         before_stage = getattr(self.state, "before_stage", None)
-        for stage in self.wf.stages():
-            has_gen = any(self.wf.task(t).kind == TaskKind.GEN
-                          for t in stage)
-            if before_stage is not None:
-                # shared cross-task prep (e.g. advantages) runs outside
-                # the per-task timers so lane measurements stay honest
-                before_stage([self.wf.task(t) for t in stage], bb)
-            with obs_trace.span("engine.stage", tasks=len(stage)):
-                self._run_stage(stage, bb, durations, meta)
-            if has_gen:
-                self._record_gen_stats(bb)
-                bundle = self.pipeline.push(bb.pop("fresh"))
-                if bundle is None:
-                    # pipeline fill: nothing to train on yet, no sync
-                    events = self._replay_iteration(durations, 0.0,
-                                                    trained=False,
-                                                    meta=meta)
-                    return EngineResult(self.state.fill_metrics(),
-                                        events, self._iter - 1,
-                                        self.ctx.epoch)
-                bb["bundle"] = bundle
-                self.pipeline.record(self._iter, bundle,
-                                     self.state.weight_version)
+        if self.overlap_active():
+            bundle = self._run_stages_overlapped(bb, durations, meta,
+                                                 before_stage)
+            if bundle is None:
+                events = self._replay_iteration(durations, 0.0,
+                                                trained=False, meta=meta)
+                return EngineResult(self.state.fill_metrics(), events,
+                                    self._iter - 1, self.ctx.epoch)
+        else:
+            for stage in self.wf.stages():
+                has_gen = any(self.wf.task(t).kind == TaskKind.GEN
+                              for t in stage)
+                if before_stage is not None:
+                    # shared cross-task prep (e.g. advantages) runs
+                    # outside the per-task timers so lane measurements
+                    # stay honest
+                    before_stage([self.wf.task(t) for t in stage], bb)
+                with obs_trace.span("engine.stage", tasks=len(stage)):
+                    self._run_stage(stage, bb, durations, meta)
+                if has_gen:
+                    self._record_gen_stats(bb)
+                    bundle = self.pipeline.push(bb.pop("fresh"))
+                    if bundle is None:
+                        # pipeline fill: nothing to train on yet, no sync
+                        events = self._replay_iteration(durations, 0.0,
+                                                        trained=False,
+                                                        meta=meta)
+                        return EngineResult(self.state.fill_metrics(),
+                                            events, self._iter - 1,
+                                            self.ctx.epoch)
+                    bb["bundle"] = bundle
+                    self.pipeline.record(self._iter, bundle,
+                                         self.state.weight_version)
 
         t0 = time.monotonic()
         with obs_trace.span("engine.sync", iteration=self._iter):
             nbytes = sync_actor_weights(
                 self.state, self.placements[self._gen_task],
-                self.placements[self._actor_train])
-            synchronize(self.placements[self._gen_task].local_devices[0])
+                self.placements[self._actor_train],
+                group=self.ctx.sync_group)
+            synchronize(self.state.device if dist.multi() else
+                        self.placements[self._gen_task].local_devices[0])
         sync_dur = time.monotonic() - t0
         self.sync_durations.append(sync_dur)
         obs_metrics.histogram("engine.sync_s").observe(sync_dur)
@@ -580,6 +689,63 @@ class Engine:
         events = self._replay_iteration(durations, sync_dur, trained=True,
                                         meta=meta)
         return EngineResult(metrics, events, self._iter - 1, self.ctx.epoch)
+
+    def _run_stages_overlapped(self, bb: Dict[str, Any],
+                               durations: Dict[int, float],
+                               meta: Dict[int, tuple],
+                               before_stage) -> Optional[Dict[str, Any]]:
+        """Disjoint-group execution, SPMD: the GEN ranks decode iteration
+        t+1's rollouts while the other ranks run the INF/TRAIN stages on
+        iteration t's bundle (their exchanges stay within the rest
+        group) — the async pipeline's one-step staleness realized as
+        wall-clock overlap of different processes.  At the boundary the
+        GEN lead broadcasts the fresh bundle and the training lead the
+        iteration's metrics to every rank.  Returns the bundle trained
+        on (None on the pipeline-fill iteration).
+
+        Safe because overlap_active() guarantees disjoint rank sets and
+        the weight sync at the end of the previous iteration gave the
+        GEN ranks their own copy of the weights."""
+        stages = self.wf.stages()
+        gen_tasks = [t for stage in stages for t in stage
+                     if self.wf.task(t).kind == TaskKind.GEN]
+        rest_stages = [[t for t in stage
+                        if self.wf.task(t).kind != TaskKind.GEN]
+                       for stage in stages]
+        # take the pending bundle *before* generation pushes a new one
+        bundle = self.pipeline.drain()
+        if bundle is not None:
+            bb["bundle"] = bundle
+            self.pipeline.record(self._iter, bundle,
+                                 self.state.weight_version)
+        gen_pl = self.placements[self._gen_task]
+        payloads: Dict[int, dict] = {}
+        if gen_pl.here:
+            with obs_trace.span("engine.stage", tasks=len(gen_tasks),
+                                overlapped=True):
+                payloads = self._run_stage(gen_tasks, bb, durations, meta,
+                                           exchange=False)
+        elif bundle is not None:
+            for stage in rest_stages:
+                if not stage:
+                    continue
+                if before_stage is not None:
+                    before_stage([self.wf.task(t) for t in stage], bb)
+                with obs_trace.span("engine.stage", tasks=len(stage),
+                                    overlapped=True):
+                    self._run_stage(stage, bb, durations, meta,
+                                    group=self.ctx.rest_group)
+        # the iteration boundary: the fresh bundle to every rank, then the
+        # metrics of the trained bundle
+        self._exchange(bb, [self._gen_task], payloads)
+        if bundle is not None:
+            lead = self.placements[self._actor_train].lead
+            got = dist.broadcast_object(
+                dict(bb["metrics"]) if dist.rank() == lead else None, lead)
+            bb["metrics"].update(got)
+        self._record_gen_stats(bb)
+        self.pipeline.push(bb.pop("fresh"))
+        return bundle
 
     # -- reactive drift hook ---------------------------------------------
     def attach_divergence_monitor(self, monitor,
@@ -829,3 +995,13 @@ class Engine:
                          if predicted and np.isfinite(predicted)
                          else float("nan")})
         return rows
+
+
+def _written(bb: Dict[str, Any], before) -> dict:
+    """What a task wrote to ``bb`` since ``before`` = (keys, metrics):
+    its new keys and its new or changed metrics."""
+    keys, metrics = before
+    return {"bb": {k: v for k, v in bb.items()
+                   if k not in keys and k != "lock"},
+            "metrics": {k: v for k, v in bb["metrics"].items()
+                        if k not in metrics or metrics[k] != v}}

@@ -17,8 +17,12 @@ predicted reshard/sync seconds from the cost model.
 
 Port of ``repro.engine.pipeline``.  On one device the generation and
 training placements fold onto the same device and the handoff is
-zero-copy; a cross-device reshard raises ``NotImplementedError`` from
-the placement (sharded execution is not yet ported).
+zero-copy.  In a multi-rank world the weights move over
+torch.distributed (``rl.sync.transfer``): redistributed when the GEN
+placement has the training ranks' mesh, else assembled on the training
+group, broadcast from its lead rank to the GEN ranks and distributed
+onto their mesh.  Every rank calls ``sync_actor_weights`` at the same
+point, so the weight version stays in step everywhere.
 """
 from __future__ import annotations
 
@@ -68,8 +72,8 @@ class AsyncPipeline:
         return self.asynchronous and self._pending is None
 
 
-def sync_actor_weights(st, gen_placement,
-                       train_placement=None) -> float:
+def sync_actor_weights(st, gen_placement, train_placement=None,
+                       group=None) -> float:
     """Trained actor -> generation replica through the plan's reshard path.
 
     Weight publication is an explicit ``device_put`` onto the generation
@@ -83,12 +87,14 @@ def sync_actor_weights(st, gen_placement,
     target = None
     if gen_placement is not None:
         same_devices = train_placement is not None and \
-            tuple(id(d) for d in gen_placement.local_devices) == \
-            tuple(id(d) for d in train_placement.local_devices)
+            tuple(gen_placement.local_devices) == \
+            tuple(train_placement.local_devices)
         if len(gen_placement.local_devices) > 1 or \
                 (train_placement is not None and not same_devices):
-            target = gen_placement.param_shardings(st.actor)
-    st.gen_params, nbytes = sync_weights(st.actor, target)
+            target = gen_placement.param_shardings(st.meta["actor"])
+    st.gen_params, nbytes = sync_weights(
+        st.actor, target, source=train_placement,
+        template=getattr(st, "meta", {}).get("actor"), group=group)
     st.sync_bytes += nbytes
     st.weight_version += 1
     return nbytes

@@ -19,30 +19,39 @@ the same group-aware, deterministic folding:
      giving ``n`` distinct real devices; the task's mesh shape is
      ``(data=n/tp', model=tp')`` with ``tp' = gcd(tp, n)``.
 
-``TaskPlacement`` keeps the mesh shape, ``tp_eff``, ``dp_eff``,
-``rep_plan_devices`` and the collision flag.  Its ``mesh`` is a no-op
-context (``with placement.mesh:`` in the task executors) that holds the
-folded devices in mesh shape.  Sharded execution over several devices
-(parameter and batch shardings) is not yet ported: those calls raise
-``NotImplementedError``.
+``TaskPlacement`` carries what the execution path needs to shard for
+real.  The folded devices are the world's ranks (``parallel.dist``:
+one process per device, a ``RankDevice`` each): a placement over more
+than one rank owns a torch ``DeviceMesh`` over them, shaped ``("data",
+"model")``, so the reference's ``parallel.sharding`` rules apply
+unchanged; ``param_shardings`` / ``batch_shardings`` give the DTensor
+placements, ``distribute_params`` / ``shard_batch`` make the DTensors,
+and ``here`` says whether this rank runs the task.  Every rank builds
+every placement's mesh, in task order: sub-groups are collective.  A
+placement of one device (every placement in a world of one) keeps a
+no-op ``LocalMesh`` and plain tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.plan import Plan
+from repro_torch.parallel import dist
+from repro_torch.parallel import sharding as sh
 
-NOT_PORTED = ("sharded execution over several devices is not yet ported "
-              "(ROADMAP.md §1 item 9)")
+ONE_RANK = ("a placement over several devices runs one process per device "
+            "(parallel.dist: torchrun or dist.spawn); this world has one "
+            "rank, so its devices cannot be sharded over")
 
 
-class DeviceMesh:
-    """Folded devices in ``("data", "model")`` mesh shape.  Entering it
-    does nothing: on one device there is nothing to shard over."""
+class LocalMesh:
+    """Folded devices in ``("data", "model")`` mesh shape, for a
+    placement that needs no process group (one device, or devices of a
+    world of one).  Entering it does nothing."""
 
     def __init__(self, devices: np.ndarray):
         self.devices = devices
@@ -52,6 +61,39 @@ class DeviceMesh:
 
     def __exit__(self, *exc):
         return False
+
+
+# (device type, rank grid) -> DeviceMesh: placements with the same ranks
+# in the same shape share one mesh (and its process groups)
+_MESHES: Dict[tuple, Any] = {}
+
+
+def _device_mesh(grid: np.ndarray):
+    """The DeviceMesh over the grid's ranks, laid out in ascending rank
+    order: a process group numbers its members in that order, and DTensor
+    reads a mesh dimension's group in coordinate order, so an unsorted
+    grid (an oversubscribed fold gives one) would mix up the shards.  Any
+    assignment of ranks to coordinates is as good; the grid's shape
+    stays."""
+    from torch.distributed.device_mesh import DeviceMesh
+    import torch
+    ranks = np.sort(np.vectorize(lambda d: d.rank, otypes=[int])(grid),
+                    axis=None).reshape(grid.shape)
+    dtype = grid.flat[0].device.type
+    key = (dtype, ranks.shape, tuple(ranks.reshape(-1)))
+    mesh = _MESHES.get(key)
+    if mesh is None:
+        mesh = _MESHES[key] = DeviceMesh(
+            dtype, torch.as_tensor(ranks), mesh_dim_names=sh.AXES)
+    return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamShardings:
+    """Where a parameter tree goes: the placement and each leaf's
+    partition spec (a tree like the parameters)."""
+    placement: "TaskPlacement"
+    specs: Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,14 +122,15 @@ class TaskPlacement:
     pp: int
     tp: int
     plan_devices: Tuple[int, ...]   # plan device ids, tasklet order
-    local_devices: Tuple            # distinct folded torch devices
-    mesh: DeviceMesh                # ("data", "model") over local_devices
+    local_devices: Tuple            # distinct folded devices / rank handles
+    mesh: Any                       # DeviceMesh over the ranks, or LocalMesh
     rep_plan_devices: Tuple[int, ...] = ()  # plan id per distinct device
     collision: bool = False       # group shares a real device with another
+    grid: Any = None              # local_devices in ("data", "model") shape
 
     @property
     def mesh_shape(self) -> Tuple[int, int]:
-        return tuple(self.mesh.devices.shape)
+        return tuple(self.grid.shape)
 
     @property
     def n_devices(self) -> int:
@@ -96,32 +139,116 @@ class TaskPlacement:
     @property
     def tp_eff(self) -> int:
         """Realized tensor parallelism after folding (mesh model dim)."""
-        return self.mesh.devices.shape[1]
+        return self.grid.shape[1]
 
     @property
     def dp_eff(self) -> int:
         """Realized data parallelism after folding (mesh data dim)."""
-        return self.mesh.devices.shape[0]
+        return self.grid.shape[0]
 
     @property
     def sharded(self) -> bool:
         """True when this task actually spans several real devices."""
         return len(self.local_devices) > 1
 
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The world ranks of the folded devices (``(0,)`` for plain
+        devices: a world of one)."""
+        if isinstance(self.local_devices[0], dist.RankDevice):
+            return tuple(d.rank for d in self.local_devices)
+        return (0,)
+
+    @property
+    def lead(self) -> int:
+        """The rank that speaks for the task's group (its first)."""
+        return self.ranks[0]
+
+    @property
+    def here(self) -> bool:
+        """Whether this rank runs the task."""
+        return dist.rank() in self.ranks
+
+    def _mesh(self):
+        if isinstance(self.mesh, LocalMesh):
+            raise RuntimeError(ONE_RANK)
+        return self.mesh
+
     def activation_rules(self):
-        raise NotImplementedError(NOT_PORTED)
+        """Activation-sharding rules for this placement's (dp, tp).
 
-    def param_shardings(self, params):
-        raise NotImplementedError(NOT_PORTED)
+        Sequence sharding stays off: RL batches are short and ragged, and
+        the decode path keeps B on ``data`` only."""
+        return sh.default_activation_rules(seq_shard=False)
 
-    def replicated_sharding(self):
-        raise NotImplementedError(NOT_PORTED)
+    def param_shardings(self, params) -> ParamShardings:
+        """The parameter tree's partition specs on this placement, each
+        sanitized so non-dividing axes drop to replication (a tuple of
+        trees takes each tree's own specs); no specs on one device (the
+        tree lies whole there)."""
+        if not self.sharded:
+            return ParamShardings(self, None)
+        mesh = self._mesh()
+        if isinstance(params, tuple):
+            return ParamShardings(self, tuple(
+                self.param_shardings(p).specs for p in params))
+        specs = sh.param_tree_specs(params)
+        return ParamShardings(self, sh.map_with_path(
+            lambda path, x: sh.sanitize_spec(_at(specs, path),
+                                             tuple(x.shape), mesh), params))
+
+    def replicated_sharding(self) -> Tuple:
+        """DTensor placements of a replicated value on this mesh."""
+        from torch.distributed.tensor import Replicate
+        return (Replicate(),) * self._mesh().ndim
 
     def batch_shardings(self, tree):
-        raise NotImplementedError(NOT_PORTED)
+        """Leading-dim ``data`` placements for a batch tree (replicated
+        when the batch dim does not divide the data axis)."""
+        mesh = self._mesh()
+        from repro_torch.tree import tree_map
+        return tree_map(lambda x: sh.tensor_placements(
+            sh.P(sh.DATA), tuple(np.shape(x)), mesh), tree)
 
     def shard_batch(self, tree):
-        raise NotImplementedError(NOT_PORTED)
+        """A batch tree (the same full tensors on every rank of the mesh)
+        as DTensors split over ``data``; other leaves pass through (and
+        the whole tree on one device)."""
+        if not self.sharded:
+            return tree
+        mesh = self._mesh()
+        import torch
+        from repro_torch.tree import tree_map
+        return tree_map(lambda x: sh.distribute(x, mesh, sh.P(sh.DATA))
+                        if torch.is_tensor(x) else x, tree)
+
+    def distribute_params(self, params, shardings: ParamShardings = None):
+        """A parameter tree (full on every rank of the mesh) as DTensors
+        laid out by its specs (a tuple of trees: each by its own)."""
+        mesh = self._mesh()
+        shardings = shardings or self.param_shardings(params)
+        from repro_torch.tree import tree_leaves, tree_unflatten
+        leaves = [sh.distribute(x, mesh, s) for x, s in zip(
+            tree_leaves(params), spec_leaves(shardings.specs))]
+        return tree_unflatten(params, leaves)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def spec_leaves(specs) -> List:
+    """The partition specs of a spec tree, in ``tree_leaves`` order (a
+    spec is itself a tuple, so the tree helpers would walk into it)."""
+    if isinstance(specs, sh.P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, (tuple, list)):
+        return [s for x in specs for s in spec_leaves(x)]
+    return []
 
 
 def fold_plan(plan: Plan, local_devices) -> DeviceFolding:
@@ -192,12 +319,15 @@ def build_placement(plan: Plan, t: int, devices: Sequence,
     tp_eff = math.gcd(tp, n)
     grid = np.empty((n,), dtype=object)
     grid[:] = distinct
-    mesh = DeviceMesh(grid.reshape(n // tp_eff, tp_eff))
+    grid = grid.reshape(n // tp_eff, tp_eff)
+    ranked = isinstance(distinct[0], dist.RankDevice) and dist.multi()
+    mesh = _device_mesh(grid) if ranked and n > 1 else LocalMesh(grid)
     group = plan.group_of(t)
     gi = plan.groups.index(group) if group in plan.groups else -1
     return TaskPlacement(t, dp, pp, tp, plan_devs, tuple(distinct), mesh,
                          rep_plan_devices=tuple(reps),
-                         collision=gi in folding.colliding_groups)
+                         collision=gi in folding.colliding_groups,
+                         grid=grid)
 
 
 def build_placements(plan: Plan, tasks: Sequence[int], devices: Sequence

@@ -17,8 +17,20 @@ GEN takes ``RLConfig.gen_engine``, ``decode_chunk`` and ``prefill_chunk``
 as the reference's does; injected decode-slot failures (the fault
 injector's ``gen_slot_failures()``) and speculative decoding
 (``RLConfig.spec_k``, with the draft of ``_draft_model``) force the
-genserve engine.  Sharded placements are not yet ported
-(``NotImplementedError``).
+genserve engine.
+
+A sharded placement (several ranks of a ``parallel.dist`` world) runs
+its task on its ranks only: the input batch is sharded over ``data``
+(``shard_batch``) and the trainer's ``sharded_*`` step runs on the
+placement's mesh, as the reference's sharded dispatch
+(``repro/engine/tasks.py:100-290``).  A step returns full tensors, so
+what an executor writes to ``bb`` is the same on every rank of its
+group; the engine sends it on to the other groups (``Engine._exchange``,
+the counterpart of the reference's ``multidev`` host pulls).  A sharded
+GEN that needs the genserve engine raises (``genserve.generate(mesh=)``:
+ROADMAP.md §1 item 9b); one that fits a decode wave takes the
+single-wave path on the mesh.  Sharded GEN and INF run under
+``torch.no_grad()`` (DTensor views refuse inference tensors).
 
 Registration is by (TaskKind, task name), with a (TaskKind, None) fallback
 so custom workflows can reuse the generic executor of a kind.
@@ -32,7 +44,6 @@ import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.workflow import Task, TaskKind
-from repro_torch.engine.placement import NOT_PORTED
 from repro_torch.genserve import adapter as genserve
 from repro_torch.rl import gae, losses
 
@@ -53,11 +64,6 @@ def executor_for(task: Task) -> Callable:
         raise KeyError(f"no executor registered for task "
                        f"{task.name!r} ({task.kind})")
     return fn
-
-
-def _unsharded(placement) -> None:
-    if placement.sharded:
-        raise NotImplementedError(NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +101,12 @@ def _draft_model(st):
     return st._spec_draft
 
 
+def _mode(placement):
+    """Inference context of GEN / INF: ``inference_mode`` on one device,
+    ``no_grad`` on a mesh (DTensor views refuse inference tensors)."""
+    return torch.no_grad() if placement.sharded else torch.inference_mode()
+
+
 @register(TaskKind.GEN)
 def run_generation(st, bb, placement):
     """Actor generation on the generation replica (pre-sync weights).
@@ -111,7 +123,6 @@ def run_generation(st, bb, placement):
     prompts = bb["prompts_rep"]
     B = int(prompts.shape[0])
     wave = plan_mod.decode_wave(B)
-    _unsharded(placement)
     mode = st.rl.gen_engine
     injector = bb.get("fault")
     slot_failures = injector.gen_slot_failures() \
@@ -122,7 +133,7 @@ def run_generation(st, bb, placement):
         draft_cfg, draft_params = _draft_model(st)
     use_engine = mode == "genserve" or (mode == "auto" and B > wave) \
         or slot_failures is not None or spec_k > 0
-    with placement.mesh, torch.inference_mode():
+    with placement.mesh, _mode(placement):
         if use_engine:
             ro, stats = genserve.generate(
                 st.gen_params, st.cfg, prompts, bb["rng"], st.sampler,
@@ -130,7 +141,15 @@ def run_generation(st, bb, placement):
                 prefill_chunk=st.rl.prefill_chunk, fast_path=False,
                 slot_failures=slot_failures, spec_k=spec_k,
                 draft_params=draft_params, draft_cfg=draft_cfg,
-                device=st.device)
+                device=st.device,
+                mesh=placement.mesh if placement.sharded else None)
+        elif placement.sharded:
+            # single-wave decode on the gen mesh: prompts split over
+            # data, params TP-sharded, hints active
+            prompts_d = placement.shard_batch(prompts)
+            ro = st.sharded_generate(placement, prompts_d)(
+                st.gen_params, prompts_d, bb["rng"])
+            stats = genserve.wave_stats_from_mask(ro["mask"])
         else:
             ro = st._generate(st.gen_params, prompts=prompts,
                               rng=bb["rng"])
@@ -162,9 +181,13 @@ def run_reward(st, bb, placement):
 def run_reference(st, bb, placement):
     b = bb["bundle"]
     seqs = b["rollout"]["sequences"]
-    _unsharded(placement)
-    with placement.mesh, torch.inference_mode():
-        lp_ref = st._ref_logp(st.ref, seqs, gen_start=b["gen_start"])
+    with placement.mesh, _mode(placement):
+        if placement.sharded:
+            seqs = placement.shard_batch(seqs)
+            lp_ref = st.sharded_ref_logp(placement, seqs)(
+                st.ref, seqs, int(b["gen_start"]))
+        else:
+            lp_ref = st._ref_logp(st.ref, seqs, gen_start=b["gen_start"])
     with bb["lock"]:
         bb["lp_ref"] = lp_ref
     return lp_ref
@@ -174,10 +197,14 @@ def run_reference(st, bb, placement):
 def run_critic_inference(st, bb, placement):
     b = bb["bundle"]
     seqs = b["rollout"]["sequences"]
-    _unsharded(placement)
-    with placement.mesh, torch.inference_mode():
-        values = st._critic_vals(st.critic, st.value_head, seqs,
-                                 gen_start=b["gen_start"])
+    with placement.mesh, _mode(placement):
+        if placement.sharded:
+            seqs = placement.shard_batch(seqs)
+            values = st.sharded_critic_vals(placement, seqs)(
+                st.critic, st.value_head, seqs, int(b["gen_start"]))
+        else:
+            values = st._critic_vals(st.critic, st.value_head, seqs,
+                                     gen_start=b["gen_start"])
     with bb["lock"]:
         bb["values"] = values
     return values
@@ -233,10 +260,16 @@ def ensure_train_batch(st, bb):
 def run_actor_training(st, bb, placement):
     ensure_train_batch(st, bb)
     b = bb["bundle"]
-    _unsharded(placement)
     with placement.mesh:
-        st.actor, st.actor_opt, am = st._actor_step(
-            st.actor, st.actor_opt, bb["batch"], gen_start=b["gen_start"])
+        if placement.sharded:
+            batch = placement.shard_batch(bb["batch"])
+            st.actor, st.actor_opt, am = st.sharded_actor_step(
+                placement, batch)(st.actor, st.actor_opt, batch,
+                                  int(b["gen_start"]))
+        else:
+            st.actor, st.actor_opt, am = st._actor_step(
+                st.actor, st.actor_opt, bb["batch"],
+                gen_start=b["gen_start"])
     with bb["lock"]:
         bb["metrics"].update({k: float(v) for k, v in am.items()})
     return st.actor
@@ -249,11 +282,17 @@ def run_critic_training(st, bb, placement):
     mask = bb["batch"]["mask"]
     cbatch = dict(bb["batch"], values_old=bb["values"].clone() * mask,
                   returns=bb["returns"])
-    _unsharded(placement)
     with placement.mesh:
-        (st.critic, st.value_head), st.critic_opt, closs = \
-            st._critic_step((st.critic, st.value_head), st.critic_opt,
-                            cbatch, gen_start=b["gen_start"])
+        if placement.sharded:
+            cbatch = placement.shard_batch(cbatch)
+            (st.critic, st.value_head), st.critic_opt, closs = \
+                st.sharded_critic_step(placement, cbatch)(
+                    (st.critic, st.value_head), st.critic_opt, cbatch,
+                    int(b["gen_start"]))
+        else:
+            (st.critic, st.value_head), st.critic_opt, closs = \
+                st._critic_step((st.critic, st.value_head), st.critic_opt,
+                                cbatch, gen_start=b["gen_start"])
     with bb["lock"]:
         bb["metrics"]["critic_loss"] = float(closs)
     return closs

@@ -10,7 +10,9 @@ from the validity mask.
 ``generate`` runs on ``device`` (``cuda`` by default; it raises when no
 card is present unless the caller passes ``device="cpu"``), where the
 params must already live.  ``mesh=`` (serving sharded over a device
-mesh) is not yet ported: ``ROADMAP.md`` §1 item 9.
+mesh: the chunked, paged and speculative engine on DTensors) is
+``ROADMAP.md`` §1 item 9b; a sharded GEN that fits one decode wave runs
+the single-wave path on the mesh instead (``engine.tasks``).
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from repro_torch.genserve.decoder import GenServeConfig, serve
 from repro_torch.models.config import ModelConfig
 from repro_torch.rl import rollout
 
-MESH_NOT_PORTED = ("generate(mesh=...): sharded serving is not yet ported "
-                   "(ROADMAP.md §1 item 9)")
+MESH_NOT_PORTED = ("generate(mesh=...): serving sharded over a device mesh "
+                   "is not yet ported (ROADMAP.md §1 item 9b: the genserve "
+                   "engine on DTensors)")
 
 
 def ttft_quantiles(stats) -> Tuple[float, float]:

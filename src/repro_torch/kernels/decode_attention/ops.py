@@ -30,6 +30,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.guard import refuse_grad
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -145,8 +146,18 @@ def _check(q, k, v, bias):
 
 
 def decode_attention(q, k, v, bias, *, cap: Optional[float] = None):
-    """q: [B, H, hd]; k/v: [B, L, KV, hd]; bias: [B, L] -> [B, H, hd]."""
+    """q: [B, H, hd]; k/v: [B, L, KV, hd]; bias: [B, L] -> [B, H, hd].
+    On DTensors each rank runs on its local rows and heads
+    (``local_map``: batch over ``data``, heads over ``model``)."""
     global launches
+    if sh.is_dtensor(q):
+        b, m = sh.kernel_specs(q.device_mesh, q.shape[0],
+                               math.gcd(q.shape[1], k.shape[2]))
+        return sh.local_call(
+            decode_attention, (q, k, v, bias),
+            (sh.P(b, m, None), sh.P(b, None, m, None),
+             sh.P(b, None, m, None), sh.P(b, None)),
+            sh.P(b, m, None), cap=cap)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, cap=cap)
     if q.device.type != "cuda":

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.guard import refuse_grad
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
@@ -117,8 +118,17 @@ def _check(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     cap: Optional[float] = None):
-    """q: [B, S, H, hd], k/v: [B, S, KV, hd] -> [B, S, H, hd]."""
+    """q: [B, S, H, hd], k/v: [B, S, KV, hd] -> [B, S, H, hd].  On
+    DTensors each rank runs on its local rows and heads (``local_map``:
+    batch over ``data``, heads over ``model``; attention is independent
+    per head)."""
     global launches, launches_tc, launches_noncausal
+    if sh.is_dtensor(q):
+        b, m = sh.kernel_specs(q.device_mesh, q.shape[0],
+                               math.gcd(q.shape[2], k.shape[2]))
+        spec = sh.P(b, None, m, None)
+        return sh.local_call(flash_attention, (q, k, v), (spec,) * 3, spec,
+                             causal=causal, window=window, cap=cap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      cap=cap)

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.guard import refuse_grad
+from repro_torch.parallel import sharding as sh
 
 STATE_DIMS = (8, 16)               # instantiated in the CUDA source
 
@@ -83,8 +84,17 @@ def _check(dt, x, Bm, Cm, A):
 
 def mamba_scan(dt, x, Bm, Cm, A):
     """dt/x: [B, S, di]; Bm/Cm: [B, S, ds]; A: [di, ds] -> (y [B,S,di],
-    h_end [B,di,ds]), both fp32, from a zero state."""
+    h_end [B,di,ds]), both fp32, from a zero state.  On DTensors each
+    rank runs on its local rows and channels (``local_map``: batch over
+    ``data``, channels over ``model``; the recurrence is elementwise in
+    di)."""
     global launches
+    if sh.is_dtensor(x):
+        b, m = sh.kernel_specs(x.device_mesh, x.shape[0], x.shape[2])
+        chan, st = sh.P(b, None, m), sh.P(b, None, None)
+        return sh.local_call(mamba_scan, (dt, x, Bm, Cm, A),
+                             (chan, chan, st, st, sh.P(m, None)),
+                             (chan, sh.P(b, m, None)))
     if x.device.type == "cpu":
         return mamba_scan_plain(dt, x, Bm, Cm, A)
     if x.device.type != "cuda":

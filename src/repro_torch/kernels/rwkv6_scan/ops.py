@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.guard import refuse_grad
+from repro_torch.parallel import sharding as sh
 
 HEAD_DIMS = (32, 64, 128)          # instantiated in the CUDA source
 CHUNKS = (16, 32, 64)
@@ -86,8 +87,16 @@ def _check(r, k, v, logw, u):
 
 def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
     """r/k/v/logw: [B, S, H, N]; u: [H, N] -> (y [B,S,H,N], state
-    [B,H,N,N]), both fp32, from a zero state."""
+    [B,H,N,N]), both fp32, from a zero state.  On DTensors each rank
+    runs on its local rows and heads (``local_map``: batch over
+    ``data``, heads over ``model``)."""
     global launches
+    if sh.is_dtensor(r):
+        b, m = sh.kernel_specs(r.device_mesh, r.shape[0], r.shape[2])
+        heads = sh.P(b, None, m, None)
+        return sh.local_call(rwkv6_scan, (r, k, v, logw, u),
+                             (heads,) * 4 + (sh.P(m, None),),
+                             (heads, sh.P(b, m, None, None)), chunk=chunk)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, logw, u)
     if r.device.type != "cuda":

@@ -6,9 +6,10 @@ The gradient is ``torch.autograd.grad`` over the flat parameter leaves
 gradients), through the plain attention (``attn_impl="plain"``): the
 CUDA kernels compute forward values only, and the reference trains on
 its jnp attention too.  No activation recomputation: the reference's
-``remat`` changes memory, not the numbers.  The mesh and sharding trees
-of the reference's module wait for sharded execution (ROADMAP.md §1
-item 9).
+``remat`` changes memory, not the numbers.  The LM mode runs on one
+device: sharded execution (``parallel``) serves the RL engine's plan
+placements, and the reference module's host-mesh sharding trees are
+not taken over.
 """
 from __future__ import annotations
 

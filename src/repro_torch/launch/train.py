@@ -55,6 +55,18 @@ draft-model speculative decoding on the genserve engine, with the
 copy of the target at a quarter of its depth).  ``run_lm`` /
 ``run_rl(args, cfg=...)`` take a config in place of the one ``--arch``
 / ``--smoke`` name (``chip_smoke.py`` runs depth cuts that way).
+
+``--rl`` runs sharded under ``torchrun``: one process per device, the
+world from the environment (no flag), every task on the ranks its plan
+placement folds onto, rank 0 printing (the plan, one ``placement ...:
+mesh={...} ranks=[...]`` line per task, the iterations, the report):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 8 \\
+        -m repro_torch.launch.train --arch qwen3-0.6b --smoke --rl grpo \\
+        --async --steps 3 --batch 4 --device cpu
+
+(``--device cuda`` on one card: the ranks share it over gloo.)
+``--drift`` and ``--fault`` stay with a world of one rank.
 """
 from __future__ import annotations
 
@@ -268,7 +280,15 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
     from repro_torch.engine.executor import TaskExecutionError
     from repro_torch.rl.trainer import RLConfig, RLTrainer
 
-    device = resolve_device(args.device)
+    from repro_torch.parallel import dist
+    device = dist.init_world(resolve_device(args.device))
+    if dist.multi() and (args.drift or args.fault):
+        raise ValueError(
+            "--drift / --fault in a world of several ranks: the elastic "
+            "controller's checkpoints and the fault injector run on one "
+            "device only (ROADMAP.md §1 item 9b)")
+    # SPMD: every rank runs this launcher; rank 0 alone speaks
+    say = print if dist.rank() == 0 else (lambda *a, **k: None)
     cfg = cfg or archs.get(args.arch, smoke=args.smoke)
     # RL on the verifiable addition task needs its small vocab; fp32 keeps
     # the tiny-model smoke run numerically stable
@@ -284,10 +304,14 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
                                 seq_out=task.max_answer_len)
     sched = HybridScheduler(topo, wf, max_groupings=8,
                             max_sizes_per_grouping=4)
-    r = sched.search(budget=args.search_budget)
+    r = sched.search(budget=args.search_budget) if dist.rank() == 0 \
+        else None
+    if dist.multi():
+        # one plan for the whole world: rank 0's search
+        r = dist.broadcast_object(r, 0)
     ok, msg = check_constraints(topo, wf, r.plan)
     assert ok, msg
-    print(f"plan: grouping={r.grouping} sizes={r.sizes} "
+    say(f"plan: grouping={r.grouping} sizes={r.sizes} "
           f"predicted {r.cost * 1e3:.3f}ms/iter ({r.evals} evals)")
 
     rl = RLConfig(algorithm=args.rl, n_rollouts=4,
@@ -296,6 +320,11 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
                   spec_k=args.spec_k, draft_arch=args.draft_arch)
     trainer = RLTrainer(cfg, rl, task, seed=0, plan=r.plan, topo=topo,
                         wf=wf, device=device)
+    if dist.multi():
+        for t, pl in sorted(trainer.engine.placements.items()):
+            dp, tp = pl.mesh_shape
+            say(f"placement {wf.task(t).name}: "
+                f"mesh={{'data': {dp}, 'model': {tp}}} ranks={list(pl.ranks)}")
 
     # fault injection (undeclared degradations + crash scenarios)
     injector = None
@@ -315,7 +344,7 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
         fplan = fault_scenario(args.fault, at=fault_at, topo=topo,
                                gen_task=gen_task, train_task=train_task,
                                n_tasks=wf.n_tasks)
-        print(f"faults: {fplan.describe()}")
+        say(f"faults: {fplan.describe()}")
         injector = FaultInjector(fplan)
         trainer.engine.attach_fault_injector(injector)
         trainer.engine.set_task_retry(
@@ -348,14 +377,14 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
         except TaskExecutionError as e:
             if controller is None:
                 raise
-            print(f"iter {step:4d} TASK FAILURE: {e}")
+            say(f"iter {step:4d} TASK FAILURE: {e}")
             rec = controller.handle_failure(step, e)
-            print(f"  escalated: dropped dead devices, forced replan -> "
+            say(f"  escalated: dropped dead devices, forced replan -> "
                   f"epoch={rec.epoch} "
                   f"new={rec.decision.new_cost * 1e3:.3f}ms/iter")
             m = trainer.iteration(prompts, answers, rng)
         history.append(m)
-        print(f"iter {step:4d} reward={m['reward_mean']:.3f} "
+        say(f"iter {step:4d} reward={m['reward_mean']:.3f} "
               f"kl={m['kl']:.3f} sync={m['sync_gb'] * 1e3:.1f}MB "
               f"({time.time() - t0:.2f}s)")
         if args.fault and step + 1 == warmup:
@@ -368,7 +397,7 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
             trainer.engine.attach_divergence_monitor(monitor, cal)
             trainer.engine.set_task_deadlines(cal, slack=5.0)
             controller.monitor = monitor
-            print(f"  calibrated ({cal.n_samples} samples); divergence "
+            say(f"  calibrated ({cal.n_samples} samples); divergence "
                   f"monitor + deadlines armed")
         if args.fault and args.fault.startswith("ckpt"):
             controller.checkpoint_now(step)
@@ -376,7 +405,7 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
             rec = controller.poll(step)
             if rec is not None:
                 d = rec.decision
-                print(f"  drift{' (reactive)' if rec.reactive else ''}: "
+                say(f"  drift{' (reactive)' if rec.reactive else ''}: "
                       f"reschedule in {rec.reschedule_s:.1f}s -> "
                       f"switch={d.switch} old={d.old_cost * 1e3:.3f}ms "
                       f"new={d.new_cost * 1e3:.3f}ms "
@@ -385,7 +414,7 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
                       f"ckpt={rec.ckpt_bytes / 1e6:.1f}MB")
     if injector is not None:
         fired = [r for r in injector.log if r["what"] != "activate"]
-        print(f"faults fired: {len(injector.log)} events "
+        say(f"faults fired: {len(injector.log)} events "
               f"({len(fired)} raises/corruptions)")
     recovered = None
     if args.fault and args.require_recover:
@@ -393,11 +422,11 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
                                       injector)
     if controller is not None:
         for row in trainer.engine.epoch_report():
-            print(f"epoch {row['epoch']}: {row['iterations']} iters, "
+            say(f"epoch {row['epoch']}: {row['iterations']} iters, "
                   f"measured {row['measured_iter_s'] * 1e3:.1f}ms/iter vs "
                   f"predicted {row['predicted_iter_s'] * 1e3:.3f}ms/iter")
     cmp = trainer.engine.compare_with_simulator()
-    print(f"measured {cmp['measured_iter_s'] * 1e3:.1f}ms/iter vs "
+    say(f"measured {cmp['measured_iter_s'] * 1e3:.1f}ms/iter vs "
           f"cost-model {cmp['predicted_iter_s'] * 1e3:.3f}ms/iter "
           f"(ratio {cmp['ratio']:.2f})")
     if args.calibrate:
@@ -405,9 +434,9 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
         c = obs_cal.fit_from_engine(trainer.engine)
         ccmp = trainer.engine.compare_with_simulator(
             cost_model=c.cost_model(trainer.engine.topo, trainer.wf))
-        print(f"calibrated ({c.n_samples} samples, global scale "
+        say(f"calibrated ({c.n_samples} samples, global scale "
               f"{c.global_scale:.3g}): ratio {ccmp['ratio']:.2f}")
-    print("done")
+    say("done")
     return {"trainer": trainer, "search": r, "metrics": history,
             "compare": cmp, "cfg": cfg, "controller": controller,
             "recovered": recovered}

@@ -24,6 +24,11 @@ Positions are shared 1-D tensors ([Sq] / [Sk]) or per-row 2-D tensors
 ([B, Sq] / [B, Sk]) — the latter is what the batched wave decode uses.
 Masked scores use the finite ``NEG_INF`` everywhere, so a fully masked
 row gives a uniform average, never NaN.
+
+On DTensors (a sharded step) every path runs on each rank's local rows
+and heads (``local_map``: batch over ``data``, heads over ``model``;
+attention is independent per row and per head), so the kernels launch
+on local shards and the plain paths' reshapes never meet a sharded dim.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, softcap
+from repro_torch.parallel import sharding as sh
 
 _IMPL = "kernel"  # "plain" | "kernel"
 _CHUNK_THRESHOLD = 2048
@@ -230,6 +236,10 @@ def multihead_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     ``decode_bias`` [B, Sk] for the Sq == 1 kernel path (``decode_step``
     builds one per step and shares it across layers); the other paths
     build their masks from the positions."""
+    if sh.is_dtensor(q):
+        return _local_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                window=window, cap=cap, k_valid=k_valid,
+                                bias=bias, force_impl=force_impl)
     impl = force_impl or _IMPL
     Sq, Sk = q.shape[1], k.shape[1]
     if impl == "kernel" and Sq == 1:
@@ -250,3 +260,24 @@ def multihead_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
                                window=window, cap=cap, k_valid=k_valid)
     return chunked_attention(q, k, v, q_pos, k_pos, causal=causal,
                              window=window, cap=cap, k_valid=k_valid)
+
+
+def _local_attention(q, k, v, q_pos, k_pos, *, k_valid, bias, **kw):
+    """``multihead_attention`` on DTensor q/k/v, each rank on its local
+    rows and heads.  Per-row operands ([B, ...] positions, validity,
+    the decode bias) follow the rows; shared ones pass through."""
+    b, m = sh.kernel_specs(q.device_mesh, q.shape[0],
+                           math.gcd(q.shape[2], k.shape[2]))
+    heads = sh.P(b, None, m, None)
+
+    def rows(x):
+        return None if x is None or x.ndim < 2 else sh.P(b, None)
+
+    def local(q, k, v, q_pos, k_pos, k_valid, bias):
+        return multihead_attention(q, k, v, q_pos, k_pos, k_valid=k_valid,
+                                   bias=bias, **kw)
+    args = (q, k, v, q_pos, k_pos, k_valid, bias)
+    return sh.local_call(local, args,
+                         (heads, heads, heads) + tuple(map(rows, args[3:])),
+                         heads)
+

@@ -93,6 +93,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     return {"blocks": blocks, "pos": 0}
 
 
+def distribute_cache(blocks, mesh):
+    """A fresh cache's leaves as DTensors on ``mesh`` (every rank holds
+    the same zeros, so no communication): attention k/v ``[R, B, L, KV,
+    hd]`` under the ``kv_cache`` rule (slots over ``data``, kv heads over
+    ``model``), recurrent state and ``cm_shift`` with slots over
+    ``data``.  The in-place writers then write each rank's shard."""
+    from repro_torch.parallel import sharding as sh
+    kv = sh.P(None, *sh.default_activation_rules(seq_shard=False)["kv_cache"])
+    return {name: {n: sh.distribute(t, mesh, kv if n in ("k", "v")
+                                    else sh.P(None, sh.DATA))
+                   for n, t in leaves.items()}
+            for name, leaves in blocks.items()}
+
+
 def gather_slots(blocks, idx):
     """Per-slot cache rows: leaves [R, B, ...] -> [R, len(idx), ...]."""
     return tree_map(lambda l: l.index_select(1, idx), blocks)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import FFN, ModelConfig
+from repro_torch.parallel.sharding import is_dtensor, vocab_parallel_embedding
 
 
 # fp32 elements drawn at a time for a leaf of another dtype (512 MB)
@@ -137,8 +138,12 @@ def init_embeddings(gen, cfg: ModelConfig, dtype):
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
     """Token rows, scaled by √d_model for the tokens frontend only (the
-    features frontend's tokens, pixtral-12b's, are not)."""
-    emb = params["tokens"][tokens]
+    features frontend's tokens, pixtral-12b's, are not).  A DTensor table
+    (vocab over ``model``) takes the vocab-parallel lookup
+    (``sharding.vocab_parallel_embedding``): the same rows."""
+    table = params["tokens"]
+    emb = vocab_parallel_embedding(table, tokens) if is_dtensor(table) \
+        else table[tokens]
     if cfg.frontend == "tokens":
         # the √d_model factor is rounded to the param dtype first (on the
         # host: a device scalar would cost a blocking copy every step)

@@ -16,8 +16,10 @@ Switch-style aux loss is returned beside y.  A single-token step
 The experts' products run as ``[E, T, d] @ [E, d, f]`` batched matmuls
 over the stored ``[E, d, f]`` leaves, so no weight is ever copied.  The
 top-k keeps ``jax.lax.top_k``'s order on ties (lower expert first)
-through a stable sort.  The JAX package's sharding hints have no
-meaning on one device and are left out.
+through a stable sort.  The JAX package's sharding hints sit at its
+points (``parallel.sharding.hint``: the identity on plain tensors); the
+expert-major buffers take the reference's group-major rules through a
+transposed view.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import FFN, ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import hint, is_dtensor
 
 _GROUP = 512
 
@@ -46,9 +49,24 @@ def _capacity(group_tokens: int, cfg: ModelConfig) -> int:
     return max(cap, cfg.top_k)
 
 
-def _expert_ffn(experts, kind: FFN, h):
-    """h: [E, T, d] -> [E, T, d], one batched product per expert."""
-    up = h @ experts["w_up"]
+def _hint_ez(t, name: str, groups=None):
+    """``hint`` of an expert-major ``[E, Gn, ...]`` tensor (``[E, Gn*C,
+    ...]`` with ``groups = (Gn, C)``) under the reference's group-major
+    ``[Gn, E, C, ...]`` rule of the same name."""
+    if not is_dtensor(t):
+        return t
+    shape = t.shape
+    if groups is not None:
+        t = t.reshape(shape[0], *groups, *shape[2:])
+    t = hint(t.transpose(0, 1), name).transpose(0, 1)
+    return t.reshape(shape)
+
+
+def _expert_ffn(experts, kind: FFN, h, groups=None, sfx: str = ""):
+    """h: [E, T, d] -> [E, T, d], one batched product per expert.
+    ``groups`` = (Gn, C) when T is Gn capacity buffers of C tokens (the
+    hidden activations then take the ``moe_hidden`` hint)."""
+    up = _hint_ez(h @ experts["w_up"], "moe_hidden" + sfx, groups)
     if kind in (FFN.SWIGLU, FFN.GEGLU):
         gate = h @ experts["w_gate"]
         act = F.silu(gate) if kind == FFN.SWIGLU else \
@@ -58,6 +76,7 @@ def _expert_ffn(experts, kind: FFN, h):
         mid = torch.square(F.relu(up))
     else:
         mid = F.gelu(up, approximate="tanh")
+    mid = _hint_ez(mid, "moe_hidden" + sfx, groups)
     return mid @ experts["w_down"]
 
 
@@ -118,8 +137,18 @@ def apply_moe(params, cfg: ModelConfig, kind: FFN, x):
         combine += top_w[..., k, None, None] * sel
         counts += oh.sum(dim=1)
 
+    # expert-parallel when E can cover the model axis; TP-on-ffn otherwise
+    sfx = "_ep" if E >= 16 else ""
+    experts = {n: hint(w, ("moe_w_out" if n in ("w_down", "w_value")
+                           else "moe_w_in") + sfx)
+               for n, w in params["experts"].items()}
+    if sfx:
+        dispatch = hint(dispatch, "moe_onehot_ep")
+        combine = hint(combine, "moe_onehot_ep")
     buf = torch.einsum("zgec,zgd->ezcd", dispatch, xg)       # [E,Gn,C,d]
-    out = _expert_ffn(params["experts"], kind, buf.reshape(E, Gn * C, d))
+    buf = _hint_ez(buf, "moe_buffer" + sfx)
+    out = _expert_ffn(experts, kind, buf.reshape(E, Gn * C, d), (Gn, C),
+                      sfx)
     y = torch.einsum("zgec,ezcd->zgd", combine.to(x.dtype),
                      out.reshape(E, Gn, C, d))
 

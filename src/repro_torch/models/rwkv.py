@@ -32,6 +32,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, token_shift
+from repro_torch.parallel.sharding import hint
 
 _CHUNK = 64
 _DECAY_LORA = 64
@@ -147,6 +148,9 @@ def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
         vm = valid[:, :, None, None]
         k = k * vm                       # no state / attention contribution
         logw = torch.where(vm, logw, 0.0)   # decay 1: state passes through
+    r = hint(r, "rwkv_heads")
+    k = hint(k, "rwkv_heads")
+    v = hint(v, "rwkv_heads")
     u = params["bonus_u"].float()
     if wkv0 is None and attn_mod.get_attention_impl() == "kernel":
         y, wkv_end = kernel_ops.rwkv6_scan(r.float(), k.float(), v.float(),

@@ -17,6 +17,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import is_dtensor
+
 
 def sample_tokens(gen: Optional[torch.Generator], logits, *,
                   temperature: float = 1.0, greedy: bool = False):
@@ -38,7 +41,19 @@ def token_logprobs(logits, tokens):
 def sample_with_logprobs(gen, logits, *, temperature: float = 1.0,
                          greedy: bool = False):
     """Sample tokens and score them: (tokens, logprobs).  Logprobs are
-    the *untempered* model logprobs of the chosen token."""
+    the *untempered* model logprobs of the chosen token.
+
+    On DTensor logits (a sharded decode) every rank gathers the whole
+    batch's logits and draws for the whole batch from its generator
+    (every rank's is seeded alike), then keeps its own rows (``data``):
+    the draws are those of the unsharded run, whatever the mesh."""
+    if is_dtensor(logits):
+        full = logits.full_tensor()
+        tokens, lp = sample_with_logprobs(gen, full, temperature=temperature,
+                                          greedy=greedy)
+        mesh = logits.device_mesh
+        return (sh.distribute(tokens, mesh, sh.P(sh.DATA)),
+                sh.distribute(lp, mesh, sh.P(sh.DATA)))
     tokens = sample_tokens(gen, logits, temperature=temperature,
                            greedy=greedy)
     return tokens, token_logprobs(logits, tokens)

@@ -14,7 +14,11 @@ in place into the ``[R, ...]`` leaves' slice ``r``.  ``forward`` returns
 the summed MoE aux loss as ``aux_loss`` (the training loss adds it);
 decode drops it, as the JAX decode path does.  ``forward(attn_impl=...)``
 chooses the attention path per call (the trainer's loss passes
-``"plain"``: the CUDA kernels have no backward).
+``"plain"``: the CUDA kernels have no backward).  The JAX package's
+sharding hints sit at its points (``parallel.sharding.hint``: the
+identity on plain tensors, a redistribution of a DTensor under
+``use_hints``); a fresh decode cache of a sharded forward is laid out
+on the activations' mesh (``cache.distribute_cache``).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.models.layers import (apply_ffn, embed_features,
                                        init_ffn, init_rmsnorm, rmsnorm,
                                        sinusoidal_positions, token_shift,
                                        unembed)
+from repro_torch.parallel.sharding import hint, is_dtensor
 from repro_torch.tree import tree_leaves
 
 
@@ -151,31 +156,33 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
     if spec.mixer == Mixer.ATTENTION:
         window = cache_mod.effective_window(cfg, spec, long_mode)
         q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
+        q = hint(q, "attn_q")
+        k = hint(k, "attn_kv")
         y = attn_mod.multihead_attention(
             q, k, v, positions, positions, causal=cfg.causal, window=window,
             cap=cfg.attn_softcap, force_impl=attn_impl)
         B, S = h.shape[:2]
-        x = x + y.reshape(B, S, -1) @ p["attn"]["wo"]
+        x = hint(x + y.reshape(B, S, -1) @ p["attn"]["wo"], "residual")
         if cache_entry is not None:
             cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k, v,
                                  window)
     else:
         key, _, apply = _MIXERS[spec.mixer]
         y, st = apply(p[key], cfg, h, return_state=True)
-        x = x + y
+        x = hint(x + y, "residual")
         if cache_entry is not None:
             for name, t in st.items():
                 cache_entry[name].copy_(t)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.moe:
         y, aux = moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)
-        return x + y, aux
+        return hint(x + y, "residual"), aux
     if spec.ffn == FFN.RWKV_CHANNEL:
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
         if cache_entry is not None:
             cache_entry["cm_shift"].copy_(h[:, -1, :])
-        return x + y, 0.0
-    return x + apply_ffn(p["ffn"], cfg, spec.ffn, h), 0.0
+        return hint(x + y, "residual"), 0.0
+    return hint(x + apply_ffn(p["ffn"], cfg, spec.ffn, h), "residual"), 0.0
 
 
 def _entry(leaf: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
@@ -195,7 +202,7 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
     ``attn_impl`` ("plain" | "kernel" | None for the module default)
     picks every attention layer's path for this call only, so concurrent
     callers never share a toggle."""
-    x = embed_inputs(params, cfg, inputs)
+    x = hint(embed_inputs(params, cfg, inputs), "residual")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     max_cache_len = max_cache_len or S
@@ -205,6 +212,9 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
                                      long_mode=long_mode,
                                      dtype=params["final_norm"]["scale"].dtype,
                                      device=x.device)
+        if is_dtensor(x):
+            cache["blocks"] = cache_mod.distribute_cache(cache["blocks"],
+                                                         x.device_mesh)
     aux = None                  # summed only over MoE layers: no kernel else
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
@@ -219,8 +229,8 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    out = {"logits": unembed(params["embed"], cfg, x), "aux_loss": aux,
-           "hidden": x}
+    out = {"logits": hint(unembed(params["embed"], cfg, x), "logits"),
+           "aux_loss": aux, "hidden": x}
     if cache is not None:
         cache["pos"] = S
         out["cache"] = cache
@@ -306,7 +316,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     (``scatter_slots(..., emit)``), which an in-place step cannot."""
     _refuse_encoder_only(cfg, "step")
     pos = cache["pos"]
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = hint(embed_tokens(params["embed"], cfg, tokens), "decode_residual")
     per_slot = torch.is_tensor(pos) and pos.ndim > 0
     q_pos = (pos[:, None] if per_slot
              else torch.full((1,), int(pos), dtype=torch.int64,
@@ -416,7 +426,7 @@ def prefill_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
     B, C = tokens.shape
     n_valid = torch.as_tensor(n_valid, device=tokens.device).to(torch.int64)
     valid = torch.arange(C, device=tokens.device)[None, :] < n_valid[:, None]
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = hint(embed_tokens(params["embed"], cfg, tokens), "decode_residual")
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
@@ -457,7 +467,7 @@ def verify_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
     B, C = tokens.shape
     q_pos = pos[:, None] + torch.arange(C, device=tokens.device)
     chunk_valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = hint(embed_tokens(params["embed"], cfg, tokens), "decode_residual")
     deltas = {f"layer{j}": {"k": [], "v": []}
               for j in range(len(cfg.pattern))}
     for r in range(cfg.n_pattern_repeats):

@@ -1,30 +1,109 @@
 """Weight resharding / synchronization between training and generation
 replicas (the C_reshard / C_sync terms of the cost model).
 
-Port of ``repro.rl.sync``.  When the generation replica lives on the
-training replica's device the handoff is zero-copy: the generation
-params *are* the trained params (the optimizer is functional, so the
-next step makes new tensors and never writes the replica in place).  A
-target placement on other devices (a sharded or cross-group reshard) is
-not yet ported.  Transfer volume is returned so the caller can account
-the synchronization cost."""
+Port of ``repro.rl.sync``.  Without a target the handoff is zero-copy:
+the generation params *are* the trained params (the optimizer is
+functional, so the next step makes new tensors and never writes the
+replica in place).  With a target placement (``ParamShardings``) the
+weights move as the reference's ``device_put`` moves them, over
+torch.distributed (``transfer``): onto the same ranks they are
+redistributed in place of the copy; onto another rank set the source
+group assembles each leaf, its lead rank broadcasts it, and the target
+ranks distribute it onto their mesh.  Transfer volume is returned so the
+caller can account the synchronization cost."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
-from repro_torch.tree import tree_leaves
+import torch
 
-NOT_PORTED = ("multi-device weight sync is not yet ported (ROADMAP.md "
-              "§1 item 9: sharded execution)")
+from repro_torch.parallel import dist
+from repro_torch.parallel import sharding as sh
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
-def sync_weights(train_params, target_shardings=None) -> Tuple[object, int]:
-    """Returns (generation_params, bytes_transferred)."""
-    nbytes = tree_bytes(train_params)
-    if target_shardings is not None:
-        raise NotImplementedError(NOT_PORTED)
-    return train_params, nbytes   # same device: zero-copy handoff
+def meta_tree(tree):
+    """Shapes and dtypes of a tree as meta tensors (what a rank that
+    holds none of the tree allocates a received leaf from)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
+                                          device="meta"), tree)
+
+
+def transfer(tree, source, target, *, template, group=None):
+    """``tree`` laid out on placement ``source`` -> the same values on
+    ``target``'s shardings (a ``ParamShardings``).
+
+    Every rank of the world calls it; ``tree`` is the source ranks' state
+    (None elsewhere), ``template`` the tree's meta tensors, ``group`` a
+    process group holding the source's lead rank and every target rank
+    (the world when None).  Returns the target ranks' tree (DTensors when
+    the target is sharded) and None on the other ranks.  Leaf by leaf, so
+    at most one full leaf is held beside the trees."""
+    dst = target.placement
+    members = set(range(dist.world_size())) if group is None \
+        else set(torch.distributed.get_process_group_ranks(group))
+    same = set(source.ranks) == set(dst.ranks)
+    src_leaves = tree_leaves(tree) if source.here else None
+    metas = tree_leaves(template)
+    specs = [None] * len(metas) if target.specs is None \
+        else _spec_leaves(target.specs)
+    out = []
+    for i, (meta, spec) in enumerate(zip(metas, specs)):
+        if same and dst.sharded and source.mesh is dst.mesh:
+            # one mesh: a redistribution, no full leaf anywhere
+            x = src_leaves[i]
+            out.append(x.redistribute(dst.mesh, sh.tensor_placements(
+                spec, tuple(x.shape), dst.mesh)))
+            continue
+        full = sh.full(src_leaves[i]) if source.here else None
+        if not same and dist.rank() in members:
+            full = dist.broadcast_tensor(full, source.lead, meta.shape,
+                                         meta.dtype, _device(dst), group)
+        if dst.here:
+            out.append(sh.distribute(full, dst.mesh, spec) if dst.sharded
+                       else full)
+    return tree_unflatten(template, out) if dst.here else None
+
+
+def _device(placement) -> torch.device:
+    me = dist.rank()
+    for d in placement.local_devices:
+        if isinstance(d, dist.RankDevice) and d.rank == me:
+            return d.device
+    first = placement.local_devices[0]
+    return first.device if isinstance(first, dist.RankDevice) else first
+
+
+def _spec_leaves(specs):
+    from repro_torch.engine.placement import spec_leaves
+    return spec_leaves(specs)
+
+
+def sync_weights(train_params, target_shardings=None, *, source=None,
+                 template=None, group=None) -> Tuple[object, int]:
+    """Returns (generation_params, bytes_transferred).
+
+    ``target_shardings`` (a ``ParamShardings``) names the generation
+    placement; ``source`` is the training placement, ``template`` the
+    actor's meta tree (needed on ranks that hold no actor) and ``group``
+    the process group of ``transfer``.  Identity when there is no
+    target, or when source and target are the same single rank."""
+    nbytes = tree_bytes(template if template is not None else train_params)
+    if target_shardings is None:
+        return train_params, nbytes   # same device: zero-copy handoff
+    dst = target_shardings.placement
+    if source is not None and not dst.sharded and not source.sharded \
+            and source.ranks == dst.ranks:
+        return train_params, nbytes
+    if source is None:
+        raise ValueError("a sync onto a placement needs its source "
+                         "placement")
+    gen = transfer(train_params, source, target_shardings,
+                   template=template if template is not None
+                   else meta_tree(train_params), group=group)
+    return gen, nbytes

@@ -25,9 +25,21 @@ Differences from the reference, all forced by the framework:
     gradients) and run the plain attention (``attn_impl="plain"``,
     since the CUDA kernels have no backward); generation and inference
     keep the default attention (the kernels on the card);
-  * sharded execution over several devices is not yet ported: the
-    ``sharded_*`` step factories and a multi-device ``install_placements``
-    raise ``NotImplementedError``.
+  * sharded execution is SPMD over torch.distributed (one process per
+    device, ``parallel.dist``): every rank builds the same trainer from
+    the seed, ``install_placements`` keeps each task's state on the ranks
+    of its owning placement only, as DTensors laid out by the
+    reference's partition rules, and the ``sharded_*`` steps run the raw
+    bodies on them under ``use_hints`` and DTensor's implicit replication
+    of plain tensors (masks, positions, Adam's scalars).  A step gathers
+    the FSDP-stored weights over ``data`` once at its start
+    (``sharding.for_use``; the backward reduce-scatters the gradients to
+    storage), shards the batch over ``data``, and returns full (plain)
+    outputs, which cross to other groups as host arrays.  Sharded GEN and
+    INF run under ``torch.no_grad()``: DTensor views refuse inference
+    tensors.  A sampled sharded GEN draws the whole batch's random
+    numbers on every gen rank (``sampling.sample_with_logprobs``), so
+    its tokens are those of the unsharded run.
 """
 from __future__ import annotations
 
@@ -41,13 +53,15 @@ from repro_torch.core import enumerate as enum_mod, topology, workflow
 from repro_torch.data.synthetic import AdditionTask, EOS
 from repro_torch.device import resolve_device
 from repro_torch.engine.executor import Engine
-from repro_torch.engine.placement import NOT_PORTED
 from repro_torch.kernels.guard import TRAIN_ATTN
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adam
+from repro_torch.parallel import dist
+from repro_torch.parallel import sharding as sh
 from repro_torch.rl import losses, rewards as rewards_mod, rollout
+from repro_torch.rl.sync import meta_tree, transfer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -114,11 +128,14 @@ class RLTrainer:
     def __init__(self, model_cfg: ModelConfig, rl_cfg: RLConfig,
                  task: AdditionTask, seed: int = 0, plan=None, topo=None,
                  wf=None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 overlap: Optional[bool] = None):
         self.cfg = model_cfg
         self.rl = rl_cfg
         self.task = task
         self.device = resolve_device(device)
+        if dist.multi():
+            self.device = dist.rank_devices(self.device)[dist.rank()].device
         self.actor = T.init_params(model_cfg, seed=seed, device=self.device)
         self.ref = tree_map(torch.clone, self.actor)
         self.actor_opt = adam.init_adam_state(
@@ -163,10 +180,17 @@ class RLTrainer:
         if plan is None:
             host_topo, plan = default_plan(self.wf)
             topo = topo if topo is not None else host_topo
-        # the engine folds every plan group onto this trainer's device
+        # the state's shapes, for ranks that come to hold none of it
+        self.meta = {k: meta_tree(v) for k, v in self._owned().items()}
+        self._owners: Dict[str, object] = {}   # state key -> placement
+        self._shard_cache: Dict[tuple, object] = {}
+        # the engine folds the plan onto the world's ranks (one process
+        # per device), or every plan group onto this trainer's device
+        devices = dist.rank_devices(self.device) if dist.multi() \
+            else [self.device]
         self.engine = Engine(self.wf, plan, self, topo=topo,
                              asynchronous=rl_cfg.asynchronous,
-                             devices=[self.device])
+                             devices=devices, overlap=overlap)
 
     @property
     def plan(self):
@@ -202,6 +226,10 @@ class RLTrainer:
             self.critic = tree["critic"]
             self.value_head = tree["value_head"]
             self.critic_opt = tree["critic_opt"]
+        if dist.multi():
+            # a whole state on every rank, as at construction: re-own it
+            self._owners.clear()
+            self.install_placements(self.engine.placements, self.wf)
 
     # -- step functions ---------------------------------------------------
     def _generate(self, params, prompts, rng):
@@ -230,7 +258,7 @@ class RLTrainer:
         """(loss, policy-loss metrics, gradient tree like ``params``)."""
         with torch.enable_grad():
             tp, flat = _with_grad_leaves(params)
-            loss, pl = self._actor_loss(tp, batch, gen_start)
+            loss, pl = self._actor_loss(sh.for_use(tp), batch, gen_start)
             grads = tree_unflatten(params, _grads(loss, flat))
         return loss.detach(), {k: v.detach() for k, v in pl.items()}, grads
 
@@ -257,7 +285,7 @@ class RLTrainer:
         """(loss, gradient tree like ``cp = (critic, value_head)``)."""
         with torch.enable_grad():
             tcp, flat = _with_grad_leaves(cp)
-            loss = self._critic_loss(tcp, batch, gen_start)
+            loss = self._critic_loss(sh.for_use(tcp), batch, gen_start)
             grads = tree_unflatten(cp, _grads(loss, flat))
         return loss.detach(), grads
 
@@ -267,31 +295,169 @@ class RLTrainer:
             cp, grads, opt_state, adam.AdamConfig(lr=self.rl.lr))
         return new_cp, new_opt, loss
 
-    # -- sharded execution (not yet ported) -------------------------------
+    # -- sharded execution (plan -> meshes -> DTensors) -----------------
+    #
+    # Every rank runs this trainer.  ``install_placements`` leaves each
+    # task's state on the ranks of its owning placement (DTensors on its
+    # mesh when it spans several ranks, plain tensors on its one rank)
+    # and None elsewhere; the ``sharded_*`` steps are cached per
+    # (name, mesh) and take DTensors in, full tensors out.
+
+    # state key -> owning task (the reference's ownership)
+    _OWNERS = (("actor", "actor_training"), ("actor_opt", "actor_training"),
+               ("ref", "reference_inference"),
+               ("gen_params", "actor_generation"),
+               ("critic", "critic_training"),
+               ("value_head", "critic_training"),
+               ("critic_opt", "critic_training"))
+
+    def _owned(self) -> Dict[str, object]:
+        return {k: getattr(self, k) for k, _ in self._OWNERS
+                if hasattr(self, k)}
+
+    def _layout(self, key: str, placement):
+        """``ParamShardings`` of state ``key`` on ``placement``: the
+        parameters' specs, an optimizer state's moments like its
+        parameters and its step replicated."""
+        from repro_torch.engine.placement import ParamShardings
+        params_of = {"actor_opt": "actor", "critic_opt": ("critic",
+                                                          "value_head")}
+        meta = self.meta
+        if key not in params_of:
+            return placement.param_shardings(meta[key])
+        src = params_of[key]
+        ptree = tuple(meta[k] for k in src) if isinstance(src, tuple) \
+            else meta[src]
+        ps = placement.param_shardings(ptree).specs
+        if ps is None:
+            return ParamShardings(placement, None)
+        return ParamShardings(placement, {"step": sh.P(), "m": ps, "v": ps})
+
+    def _sharded(self, name: str, placement, build):
+        key = (name, id(placement.mesh))
+        fn = self._shard_cache.get(key)
+        if fn is None:
+            fn = self._shard_cache[key] = build()
+        return fn
+
     def install_placements(self, placements, wf) -> None:
-        """Commit each task's state onto its owning placement: nothing to
-        do when every placement folds onto this trainer's one device;
-        several devices need sharded execution, which is not yet
-        ported."""
-        devs = {id(d) for pl in placements.values()
-                for d in pl.local_devices}
-        if len(devs) > 1 or any(pl.sharded for pl in placements.values()):
-            raise NotImplementedError(NOT_PORTED)
+        """Commit each task's state onto its owning placement.
+
+        Called by the engine whenever placements (re)build — initial
+        construction and every elastic plan swap.  Ownership: actor +
+        optimizer -> actor_training; reference -> reference_inference;
+        generation replica -> actor_generation; critic state ->
+        critic_training (critic_inference without one).  In a world of
+        one rank every placement folds onto this trainer's device and
+        nothing moves.  Otherwise every rank takes part: the state moves
+        from its previous owner (at construction every rank holds it
+        whole) to the new owner's ranks (``rl.sync.transfer``)."""
+        self._shard_cache.clear()
+        if not dist.multi():
+            devs = {d for pl in placements.values() for d in pl.local_devices}
+            if len(devs) > 1:
+                from repro_torch.engine.placement import ONE_RANK
+                raise RuntimeError(ONE_RANK)
+            return
+        by_name = {wf.tasks[t].name: pl for t, pl in placements.items()}
+        for key, owner in self._OWNERS:
+            if key not in self.meta:
+                continue
+            pl = by_name.get(owner)
+            if pl is None and key.startswith(("critic", "value_head")):
+                pl = by_name.get("critic_inference")
+            if pl is None:
+                continue
+            setattr(self, key, self._move(key, pl))
+
+    def _move(self, key: str, pl):
+        """State ``key`` onto placement ``pl`` (every rank calls it)."""
+        target = self._layout(key, pl)
+        old = self._owners.get(key)
+        self._owners[key] = pl
+        tree = getattr(self, key)
+        if old is None:
+            # construction: every rank holds the whole state
+            if not pl.here:
+                return None
+            return pl.distribute_params(tree, target) if pl.sharded \
+                else tree
+        return transfer(tree, old, target, template=self.meta[key])
+
+    def _step_in(self, placement):
+        """Context of a sharded step: the placement's hints, and plain
+        tensors taken as replicated DTensors."""
+        from contextlib import ExitStack
+        from torch.distributed.tensor.experimental import implicit_replication
+        stack = ExitStack()
+        stack.enter_context(sh.use_hints(placement.activation_rules()))
+        stack.enter_context(implicit_replication())
+        return stack
+
+    def _train_step(self, placement, grads_fn, params, opt_state, batch,
+                    gen_start):
+        """grads -> Adam on DTensor leaves; (params, opt, metrics) with
+        the metrics full."""
+        with self._step_in(placement):
+            out = grads_fn(params, batch, gen_start)
+            grads = tree_map(sh.redistribute_like, out[-1], params)
+            new_p, new_opt, om = adam.adam_update(
+                params, grads, opt_state, adam.AdamConfig(lr=self.rl.lr))
+        return new_p, new_opt, out[:-1], sh.full_tree(om)
 
     def sharded_actor_step(self, placement, batch):
-        raise NotImplementedError(NOT_PORTED)
+        """(params, opt, batch, gen_start) -> (params, opt, metrics) on
+        the placement's mesh: the batch sharded over ``data``, the
+        parameters and moments DTensors laid out by their specs."""
+        def build():
+            def step(params, opt_state, batch, gen_start):
+                new_p, new_opt, (loss, pl), om = self._train_step(
+                    placement, self.actor_grads, params, opt_state, batch,
+                    gen_start)
+                metrics = sh.full_tree({**pl, "loss": loss})
+                return new_p, new_opt, {**metrics, **om}
+            return step
+        return self._sharded("actor_step", placement, build)
 
     def sharded_ref_logp(self, placement, sequences):
-        raise NotImplementedError(NOT_PORTED)
+        def build():
+            def step(params, sequences, gen_start):
+                with torch.no_grad(), self._step_in(placement):
+                    return sh.full(self._ref_logp(sh.for_use(params),
+                                                  sequences, gen_start))
+            return step
+        return self._sharded("ref_logp", placement, build)
 
     def sharded_generate(self, placement, prompts):
-        raise NotImplementedError(NOT_PORTED)
+        """(params, prompts, rng) single-wave decode on the gen mesh;
+        the rollout comes back full on every gen rank."""
+        def build():
+            def step(params, prompts, rng):
+                with torch.no_grad(), self._step_in(placement):
+                    return sh.full_tree(self._generate(
+                        sh.for_use(params), prompts=prompts, rng=rng))
+            return step
+        return self._sharded("generate", placement, build)
 
     def sharded_critic_vals(self, placement, sequences):
-        raise NotImplementedError(NOT_PORTED)
+        def build():
+            def step(critic, head, sequences, gen_start):
+                with torch.no_grad(), self._step_in(placement):
+                    return sh.full(self._critic_vals(
+                        sh.for_use(critic), sh.for_use(head), sequences,
+                        gen_start))
+            return step
+        return self._sharded("critic_vals", placement, build)
 
     def sharded_critic_step(self, placement, batch):
-        raise NotImplementedError(NOT_PORTED)
+        def build():
+            def step(cp, opt_state, batch, gen_start):
+                new_cp, new_opt, (loss,), _ = self._train_step(
+                    placement, self.critic_grads, cp, opt_state, batch,
+                    gen_start)
+                return new_cp, new_opt, sh.full(loss)
+            return step
+        return self._sharded("critic_step", placement, build)
 
     # -- engine hooks ---------------------------------------------------
     def prepare_inputs(self, prompts: np.ndarray, answers: np.ndarray,

@@ -547,3 +547,35 @@ def test_drift_swap_on_the_card_launches_the_kernels():
     assert [e for e, _, _ in per_iter] == [0, 0, 1]
     assert all(f > 0 and d > 0 for _, f, d in per_iter), per_iter
     assert [r["epoch"] for r in tr.engine.epoch_report()] == [0, 1]
+
+
+@pytest.mark.cuda
+def test_ranks_share_the_card_over_gloo():
+    """Two ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card) run every collective sharded execution needs
+    (``parallel.dist.probe_collectives``; DTensor's all-gathers go
+    through the plain collective there, ``dist.use_sync_all_gather``)."""
+    _cuda()
+    from repro_torch.parallel import dist
+    res = dist.probe_collectives("cuda", 2)
+    assert dist.probe_ok(res), res
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_on_dtensors_cuda():
+    """The four kernels on DTensors over 4 ranks sharing the card, each
+    rank launching on its local rows and heads or channels, against the
+    plain versions on the full inputs (tolerances as above)."""
+    _cuda()
+    import torch_sharded_ranks as ranks
+    from repro_torch.kernels import build
+    from repro_torch.parallel import dist
+    build.build()
+    res = dist.spawn(ranks.kernels_rank, 4, "cuda", timeout=300)
+    tols = {"flash_attention": 2e-4, "decode_attention": 2e-4,
+            "rwkv6_scan": 2e-3, "mamba_scan": 1e-3}
+    for r in res:
+        for name, (err, placements) in r.items():
+            assert err <= tols[name], (name, err)
+            assert placements.startswith("(Shard(dim=0), Shard(dim=")
+

@@ -432,20 +432,24 @@ def test_colocated_plan_serializes_every_task():
 
 
 def test_multi_device_execution_is_refused():
+    """Several plain devices in a world of one rank: sharded execution
+    runs one process per device (``parallel.dist``), so the trainer
+    refuses such placements and a wide placement shards nothing.  The
+    sharded steps on gloo ranks: ``tests/test_torch_sharded.py``."""
     P = TTrainer(TCFG, TRL(algorithm="grpo", n_rollouts=4,
                            max_new_tokens=ANSWER), TTask(max_operand=9),
                  seed=0, device="cpu")
-    for fn in (P.sharded_actor_step, P.sharded_ref_logp,
-               P.sharded_generate, P.sharded_critic_vals,
-               P.sharded_critic_step):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(None, None)
     from repro_torch.engine.placement import build_placements
     (_, _, _), (tt, tw, tp) = _searched("grpo", 2)
     pl = build_placements(tp, range(tw.n_tasks),
                           [torch.device("cpu", 0), torch.device("cpu", 1)])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(RuntimeError, match="one process per device"):
         P.install_placements(pl, tw)
+    wide = next(p for p in pl.values() if p.sharded)
+    for fn in (wide.param_shardings, wide.shard_batch,
+               wide.batch_shardings):
+        with pytest.raises(RuntimeError, match="one process per device"):
+            fn({})
 
 
 def _launch(argv, capsys):

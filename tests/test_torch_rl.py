@@ -240,8 +240,17 @@ def test_tree_bytes_and_sync_weights(weights):
     assert tsync.tree_bytes(tp) == jsync.tree_bytes(jp)
     gen, n = tsync.sync_weights(tp)
     assert gen is tp and n == jsync.tree_bytes(jp)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsync.sync_weights(tp, target_shardings=object())
+    # a target placement on the training placement's single device: the
+    # reference's identity handoff (the moves over ranks:
+    # tests/test_torch_sharded.py)
+    from repro_torch.engine import placement as tplace
+    grid = np.empty((1, 1), dtype=object)
+    grid[0, 0] = torch.device("cpu")
+    pl = tplace.TaskPlacement(0, 1, 1, 1, (0,), (torch.device("cpu"),),
+                              tplace.LocalMesh(grid), grid=grid)
+    gen, n = tsync.sync_weights(tp, tplace.ParamShardings(pl, None),
+                                source=pl)
+    assert gen is tp and n == jsync.tree_bytes(jp)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,250 @@
+"""Rank functions of the sharded CPU tests (``test_torch_sharded.py``,
+``test_torch_sharded_exec.py``) and the subprocess that spawns them.
+
+The tests run ``python tests/torch_sharded_ranks.py IN OUT`` with a
+timeout of their own: ``IN`` is a pickle of the job (its kind and
+inputs, numpy only), ``OUT`` receives rank 0's results.  The ranks are
+gloo processes on the CPU (``parallel.dist.spawn``: one intra-op thread
+each, FileStore rendezvous), so parallel test workers never share a
+port.  Imports the port only: no JAX.
+"""
+import dataclasses
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import bridge
+from repro_torch.core import enumerate as enum_mod, topology, workflow
+from repro_torch.data.synthetic import AdditionTask
+from repro_torch.engine import tasks as tasks_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import dist
+from repro_torch.parallel import sharding as sh
+from repro_torch.rl.trainer import RLConfig, RLTrainer
+from repro_torch.tree import tree_map
+
+
+def _np(tree):
+    return tree_map(lambda x: x.detach().cpu().numpy()
+                    if torch.is_tensor(x) else x, tree)
+
+
+def mesh_plan(wf, n: int = 4, dp: int = 2, tp: int = 2):
+    """Every task on all ``n`` plan devices at (dp, 1, tp): one mesh."""
+    topo = topology.build_testbed("single_region", counts={"A100": n})
+    grouping = (tuple(range(wf.n_tasks)),)
+    plan = enum_mod.build_plan(topo, wf, grouping, [n], list(range(n)),
+                               parallel={t: (dp, 1, tp)
+                                         for t in range(wf.n_tasks)})
+    return topo, plan
+
+
+def steps_trainer(cfg: ModelConfig, rl: RLConfig, state, device, plan_fn):
+    task = AdditionTask(max_operand=9)
+    wf = workflow.make_workflow(
+        rl.algorithm, workflow.LLMSpec.from_model_config(cfg),
+        synchronous=True, n_rollouts=rl.n_rollouts, seq_in=task.prompt_len,
+        seq_out=rl.max_new_tokens, global_batch=1)
+    topo, plan = plan_fn(wf)
+    tr = RLTrainer(cfg, rl, task, seed=0, plan=plan, topo=topo, wf=wf,
+                   device=device)
+    tr.load_state_tree(bridge.from_numpy_state_tree(state, cfg, device))
+    return tr
+
+
+def _placement(tr, name):
+    return next(pl for t, pl in tr.engine.placements.items()
+                if tr.wf.task(t).name == name)
+
+
+def steps_rank(device, job):
+    """The trainer's five sharded steps on one 2x2 mesh, from the job's
+    state and batch; the results full (collectives on every rank)."""
+    cfg, G = job["cfg"], job["gen_start"]
+    tr = steps_trainer(cfg, job["rl"], job["state"], device, mesh_plan)
+    out = {"mesh": {}}
+    batch = {k: torch.as_tensor(v) for k, v in job["batch"].items()}
+    batch["sequences"] = batch["sequences"].long()
+
+    pl = _placement(tr, "actor_training")
+    out["mesh"]["actor_training"] = (pl.mesh_shape, pl.ranks)
+    ab = pl.shard_batch({k: batch[k] for k in
+                         ("sequences", "logp_old", "advantages", "mask")})
+    p, opt, m = tr.sharded_actor_step(pl, ab)(tr.actor, tr.actor_opt, ab, G)
+    out["actor"] = _np(sh.full_tree(p))
+    out["actor_opt"] = _np(sh.full_tree(opt))
+    out["actor_metrics"] = {k: float(v) for k, v in m.items()}
+    out["actor_placements"] = str(tr.actor["blocks"]["layer0"]["attn"]
+                                  ["wq"].placements)
+    out["step_replicated"] = tuple(opt["step"].placements) == \
+        pl.replicated_sharding()
+    out["batch_placements"] = str(pl.batch_shardings(ab)["mask"])
+
+    cpl = _placement(tr, "critic_training")
+    cb = cpl.shard_batch(batch)
+    (c, h), copt, closs = tr.sharded_critic_step(cpl, cb)(
+        (tr.critic, tr.value_head), tr.critic_opt, cb, G)
+    out["critic"] = _np(sh.full_tree(c))
+    out["value_head"] = _np(sh.full_tree(h))
+    out["critic_loss"] = float(closs)
+
+    seqs = batch["sequences"]
+    rpl = _placement(tr, "reference_inference")
+    sd = rpl.shard_batch(seqs)
+    out["ref_logp"] = _np(tr.sharded_ref_logp(rpl, sd)(tr.ref, sd, G))
+    ipl = _placement(tr, "critic_inference")
+    sd = ipl.shard_batch(seqs)
+    out["values"] = _np(tr.sharded_critic_vals(ipl, sd)(
+        tr.critic, tr.value_head, sd, G))
+
+    gpl = _placement(tr, "actor_generation")
+    prompts = torch.as_tensor(job["prompts"]).long()
+    pd = gpl.shard_batch(prompts)
+    out["rollout"] = _np(tr.sharded_generate(gpl, pd)(tr.gen_params, pd,
+                                                      None))
+    out["kernels"] = kernels_on_dtensors(gpl.mesh)
+    # a sharded GEN that needs the genserve engine is refused (item 9b)
+    tr.rl = dataclasses.replace(tr.rl, gen_engine="genserve")
+    bb = {"prompts_rep": prompts, "rng": None, "gen_start": G,
+          "answers_rep": np.zeros(len(prompts))}
+    try:
+        tasks_mod.run_generation(tr, bb, gpl)
+        out["genserve_refusal"] = None
+    except NotImplementedError as e:
+        out["genserve_refusal"] = str(e)
+    return out
+
+
+def kernels_on_dtensors(mesh, device=torch.device("cpu")):
+    """The four kernel wrappers on DTensor inputs (each rank on its
+    local rows and heads or channels; on the CPU their plain versions)
+    against the plain versions on the full inputs: max abs error and the
+    output placements, per kernel."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as mb
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    g = torch.Generator().manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g).to(device)
+    P = sh.P
+    out = {}
+    q, k, v = rn(4, 6, 4, 32), rn(4, 6, 2, 32), rn(4, 6, 2, 32)
+    heads = P("data", None, "model", None)
+    got = fa.flash_attention(*(sh.distribute(t, mesh, heads)
+                               for t in (q, k, v)), window=4, cap=30.0)
+    want = fa.flash_attention_plain(q, k, v, window=4, cap=30.0)
+    out["flash_attention"] = (float((got.full_tensor() - want).abs().max()),
+                              str(got.placements))
+    q1, kc, vc = rn(4, 4, 32), rn(4, 10, 2, 32), rn(4, 10, 2, 32)
+    bias = torch.where(torch.arange(10, device=device) < 7, 0.0,
+                       -1e30).expand(4, 10)
+    got = dec.decode_attention(sh.distribute(q1, mesh, P("data", "model")),
+                               sh.distribute(kc, mesh, heads),
+                               sh.distribute(vc, mesh, heads), bias)
+    want = dec.decode_attention_plain(q1, kc, vc, bias)
+    out["decode_attention"] = (float((got.full_tensor() - want).abs().max()),
+                               str(got.placements))
+    # head and state sizes the CUDA kernels are instantiated for
+    r, kk, vv = rn(4, 5, 4, 32), rn(4, 5, 4, 32), rn(4, 5, 4, 32)
+    logw, u = -rand(4, 5, 4, 32), rn(4, 32)
+    got = rw.rwkv6_scan(*(sh.distribute(t, mesh, heads)
+                          for t in (r, kk, vv, logw)), u)
+    want = rw.rwkv6_scan_plain(r, kk, vv, logw, u)
+    out["rwkv6_scan"] = (max(float((a.full_tensor() - b).abs().max())
+                             for a, b in zip(got, want)),
+                         str(got[0].placements))
+    dt, x = rand(4, 5, 8), rn(4, 5, 8)
+    Bm, Cm, A = rn(4, 5, 8), rn(4, 5, 8), -rand(8, 8)
+    chan = P("data", None, "model")
+    got = mb.mamba_scan(sh.distribute(dt, mesh, chan),
+                        sh.distribute(x, mesh, chan), Bm, Cm, A)
+    want = mb.mamba_scan_plain(dt, x, Bm, Cm, A)
+    out["mamba_scan"] = (max(float((a.full_tensor() - b).abs().max())
+                             for a, b in zip(got, want)),
+                         str(got[0].placements))
+    return out
+
+
+def kernels_rank(device):
+    """``kernels_on_dtensors`` on a 2x2 mesh of this world's ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh(device.type, torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=sh.AXES)
+    return kernels_on_dtensors(mesh, device)
+
+
+def exec_rank(device, job):
+    from repro_torch.launch import sharded_exec
+    return sharded_exec.rank_main(device, job["cfg"], job["iters"],
+                                  job["batch"], modes=job["modes"],
+                                  state=job["state"], kernels=True)
+
+
+def exec_world1(job):
+    """The same runs folded onto one device (this process, no world)."""
+    from repro_torch.launch import sharded_exec
+    out = {}
+    for mode in job["modes"]:
+        tr = sharded_exec.make_trainer(job["cfg"], torch.device("cpu"),
+                                       greedy=mode == "greedy")
+        tr.load_state_tree(bridge.from_numpy_state_tree(
+            job["state"], job["cfg"], tr.device))
+        out[mode] = sharded_exec._summary(
+            tr, *sharded_exec.run(tr, job["iters"], job["batch"]))
+    return out
+
+
+def swap_run(device, job):
+    """Two iterations on the gen | rest plan, a swap to every task on all
+    8 plan devices at (4, 1, 2), two more: losses, the placements after
+    the swap, the overlap switch and the epoch."""
+    from repro_torch.launch import sharded_exec
+    tr = sharded_exec.make_trainer(job["cfg"], device)
+    m1, g1, _ = sharded_exec.run(tr, 2, job["batch"])
+    before = {tr.wf.task(t).name: list(pl.ranks)
+              for t, pl in tr.engine.placements.items()}
+    topo, plan = mesh_plan(tr.wf, n=8, dp=4, tp=2)
+    info = tr.engine.apply_plan(plan, topo=topo)
+    m2, g2, _ = sharded_exec.run(tr, 2, job["batch"], seed=1)
+    return {"losses": [m["loss"] for m in m1 + m2],
+            "before": before,
+            "after": {tr.wf.task(t).name: (list(pl.mesh_shape),
+                                           list(pl.ranks))
+                      for t, pl in tr.engine.placements.items()},
+            "overlap": tr.engine.overlap_active(), "epoch": info["epoch"],
+            "sync_identical": g1[2] + g2[2],
+            "staleness": [r.weight_version - r.gen_version
+                          for r in tr.engine.pipeline.records]}
+
+
+def main(inp: str, out: str) -> None:
+    import torch_sharded_ranks as me    # by name: the ranks import it
+    torch.set_num_threads(1)
+    with open(inp, "rb") as f:
+        job = pickle.load(f)
+    if job["kind"] == "steps":
+        res = {"ranks": dist.spawn(me.steps_rank, job["world"], "cpu", job,
+                                   timeout=job["timeout"])}
+    elif job["kind"] == "swap":
+        res = {"ranks": dist.spawn(me.swap_run, job["world"], "cpu", job,
+                                   timeout=job["timeout"]),
+               "world1": me.swap_run(torch.device("cpu"), job)}
+    else:
+        res = {"ranks": dist.spawn(me.exec_rank, job["world"], "cpu", job,
+                                   timeout=job["timeout"]),
+               "world1": me.exec_world1(job)}
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    main(sys.argv[1], sys.argv[2])
