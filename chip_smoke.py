@@ -182,8 +182,28 @@ Phases, each printing its result:
              both attention kernels, INF flash only, TRAIN none;
              ms/iter overlapped and with the stage walk
              serialized, the weight sync's GB and ms, peak memory per
-             rank.  Ranks sharing one card show the mechanism, not a
-             multi-GPU speedup.
+             rank; every sharded GEN replayed in a world of one on the
+             GEN ranks' own weights and generator state
+             (``sharded_exec._gen_replay``: tokens identical).  Ranks
+             sharing one card show the mechanism, not a multi-GPU
+             speedup.
+ 23. sharded genserve: (a) phase 22's plan with 8 prompts x 8 rollouts =
+             64 GEN rows, two decode waves of 32, so GEN serves on
+             genserve on the DP 2 / TP 2 GEN mesh, greedy, one-shot and
+             ``prefill_chunk`` 16, held against the plan folded onto the
+             card (tokens and masks identical), the kernels at the
+             engine's per-rank shapes vs plain (2e-4), launches per rank
+             and task kind; (b) ``genserve.generate(mesh=)`` on 4 ranks
+             sharing the card: qwen3-0.6b's first 8 layers at full width
+             with its own vocab (fp32), 24 requests, wave 8, prompt 64
+             with 32 shared, 16 new, paged with prefix reuse,
+             speculative (k 4, a 2-layer draft), slot failures with
+             cancels, each token for token against the world of one on
+             the card with zero leaked pages, both kernels per rank at
+             the engine's shapes vs plain (2e-4), per-rank launches and
+             peak memory, wall time, hit and accept rates; then both
+             kernels timed at those per-rank shapes (kernel, plain,
+             sdpa, bound).
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -1537,7 +1557,7 @@ def rl_phase19(torch, dev, cfg, fa, dec, card, ref):
 
 
 def attn_row(torch, F, fa, flush, B, S, H, KV, hd, dtype, causal, card,
-             label):
+             label, tag="[20 zoo]"):
     """One flash_attention row of the kernels line, timed as phase 3
     times its rows: error against the plain version, kernel (event and
     device time), plain and sdpa times, and the bound recounted from
@@ -1566,7 +1586,7 @@ def attn_row(torch, F, fa, flush, B, S, H, KV, hd, dtype, causal, card,
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
     name = str(dtype).replace("torch.", "")
-    print(f"[20 zoo] flash_attention ({label}) q{tuple(q.shape)} "
+    print(f"{tag} flash_attention ({label}) q{tuple(q.shape)} "
           f"k{tuple(k.shape)} {name} causal={causal}: err {err:.3g} (tol "
           f"{tol(dtype, torch):g}) | kernel {spread(ms)}, device "
           f"{spread(dev_ms)}, plain {spread(plain)}, sdpa {spread(lib)}, "
@@ -1928,9 +1948,11 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
           f"(iterations 1-{iters - 1}), losses {w1['losses']} | card {card}",
           flush=True)
     t0 = time.monotonic()
+    # (the last three: no variants, no evaluate, GEN replayed on its own
+    # weights in a world of one: ``sharded_exec._gen_replay``)
     res = dist.spawn(sx.rank_main, sx.WORLD, "cuda", cfg, iters, batch,
                      ("sampled", "greedy", "serialized"), None, True, G, N,
-                     step, True, timeout=600)
+                     step, True, None, False, True, timeout=600)
     wall = time.monotonic() - t0
     r0 = res[0]
     H, hd = cfg.n_heads, cfg.head_dim
@@ -1975,6 +1997,11 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
           f"sharded actor step vs the world of one: relative {rel}")
     agree = [float((a == b).mean()) for a, b in
              zip(s["tokens"], base["sampled"]["tokens"])]
+    replayed = {m: r0[m]["replay_agreement"]
+                for m in ("sampled", "greedy", "serialized")}
+    check(all(len(v) == iters and min(v) >= sx.REPLAY_AGREEMENT
+              for v in replayed.values()),
+          f"GEN vs its world-of-one replay on the same weights: {replayed}")
     l1, b1 = s["losses"][1], base["sampled"]["losses"][1]
     check(abs(l1 - b1) <= 1e-5 * abs(b1),
           f"first trained loss {l1} vs the world of one's {b1}")
@@ -1985,7 +2012,9 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
           f"overlap_honest {s['overlap_honest']}, staleness "
           f"{s['staleness']}; greedy tokens identical to the world of one "
           f"in all {iters} iterations; sampled tokens agree {agree} "
-          f"(weight versions {s['gen_versions']}); GEN weights equal to "
+          f"(weight versions {s['gen_versions']}); against a world-of-one "
+          f"GEN replayed on the GEN ranks' own weights and generator state "
+          f"{replayed} (bound {sx.REPLAY_AGREEMENT}); GEN weights equal to "
           f"the actor bit for bit after each iteration {s['sync_identical']} "
           f"(greedy {r0['greedy']['sync_identical']}); first trained loss "
           f"{l1:.6g} vs {b1:.6g} (relative {abs(l1 - b1) / abs(b1):.2g}, "
@@ -2018,6 +2047,303 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
                   f"INF rank {r} launched decode_attention")
         check(not any(c.get("TRAIN", {}).values()),
               f"TRAIN on rank {r} launched {c.get('TRAIN')}")
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the genserve engine on a mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+LAYERS23 = 8                       # phase 23's depth cut of qwen3-0.6b
+# (b)'s traffic: 24 requests, wave 8, prompt 64 with 32 shared, 16 new
+SERVE23 = dict(requests=24, wave=8, prompt=64, shared=32, new=16)
+SERVE23_MODES = {
+    "paged+prefix": dict(prefill_chunk=16, page_size=16, prefix_cache=True),
+    "spec k=4": dict(spec_k=4),
+    "slot failures+cancels": dict(slot_failures={3: [1, 6], 9: [2]},
+                                  cancels={2: [20], 6: [4]}),
+}
+
+
+def serve23_setup(torch, device):
+    """Phase 23 (b)'s model (qwen3-0.6b's first 8 layers at full width,
+    its own vocab, fp32), its 2-layer draft, seeded weights, and the
+    traffic: every rank and the world of one build the same."""
+    import numpy as np
+    from repro_torch.configs import archs
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(first_layers(archs.get(ARCH), LAYERS23),
+                              dtype="float32")
+    dcfg = dataclasses.replace(first_layers(cfg, 2), name=f"{ARCH}-draft")
+    t = SERVE23
+    rng = np.random.default_rng(23)
+    prompts = rng.integers(0, cfg.vocab_size, (t["requests"], t["prompt"]))
+    prompts[:, :t["shared"]] = prompts[0, :t["shared"]]
+    return (cfg, T.init_params(cfg, seed=0, device=device),
+            dcfg, T.init_params(dcfg, seed=7, device=device),
+            torch.as_tensor(prompts, device=device))
+
+
+def serve23_modes(torch, device, mesh=None):
+    """Each of ``SERVE23_MODES`` through ``genserve.generate`` (on
+    ``mesh`` when given), greedy: rollout, wall seconds, the two attention
+    kernels' launches inside the call, hit and accept rates, requeues,
+    cancels and leaked pages."""
+    from repro_torch.genserve import adapter
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.rl.rollout import SamplerConfig
+    cfg, params, dcfg, dparams, prompts = serve23_setup(torch, device)
+    out = {}
+    for name, kw in SERVE23_MODES.items():
+        kw = dict(kw)
+        if kw.get("spec_k"):
+            kw.update(draft_params=dparams, draft_cfg=dcfg)
+        _zero_counts(fa, dec)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ro, st = adapter.generate(
+            params, cfg, prompts, None,
+            SamplerConfig(max_new_tokens=SERVE23["new"], greedy=True),
+            wave=SERVE23["wave"], fast_path=False, device=device, mesh=mesh,
+            **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        leaked = st["_pagepool"].leak_check(
+            expected_refs=st["_radix"].page_refs()) \
+            if "_pagepool" in st else []
+        out[name] = dict(
+            rollout={k: ro[k].cpu() for k in ("gen_tokens", "mask",
+                                              "logprobs")},
+            wall=wall, flash=fa.launches, decode=dec.launches,
+            hit=st["prefix_hit_rate"], accept=st["accept_rate"],
+            requeued=st["requeued"], cancelled=st["cancelled"],
+            leaked=len(leaked))
+    return out
+
+
+def serve23_rank(device):
+    """One of 4 GEN ranks on a 2x2 ("data", "model") mesh over the card:
+    ``serve23_modes`` sharded, then both attention kernels as the engine
+    calls them at its per-rank shapes against their plain versions;
+    peak memory of the rank."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch import sharded_exec as sx
+    from repro_torch.parallel import dist
+    from repro_torch.parallel import sharding as sh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = DeviceMesh(device.type, torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=sh.AXES)
+    out = {"rank": dist.rank(), "modes": serve23_modes(torch, device, mesh)}
+    from repro_torch.configs import archs
+    c = archs.get(ARCH)
+    out["kernels"] = sx.mesh_attention(
+        mesh, device, "float32", c.n_heads, c.n_kv_heads, c.head_dim,
+        SERVE23["wave"], SERVE23["prompt"],
+        SERVE23["prompt"] + SERVE23["new"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def decode_row(torch, F, dec, flush, B, L, H, KV, hd, card, label, tag):
+    """One fp32 decode_attention call at [B, H, hd] over an L-slot cache
+    whose last slot is not yet valid (a decode step's bias), timed as
+    phase 3 times its rows: error against the plain version, kernel,
+    plain and sdpa times, and the bound recounted from these inputs
+    (the valid K/V rows only)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((B, H, hd), generator=g, device="cuda")
+    k, v = (torch.randn((B, L, KV, hd), generator=g, device="cuda")
+            for _ in range(2))
+    bias = torch.where(torch.arange(L, device="cuda") < L - 1, 0.0,
+                       -1e30).expand(B, L).contiguous()
+    run = lambda: dec.decode_attention(q, k, v, bias)  # noqa: E731
+    out = run()
+    err = max_err(out, dec.decode_attention_plain(q, k, v, bias))
+    check(bool(torch.isfinite(out).all()) and err <= tol(torch.float32,
+                                                          torch),
+          f"decode_attention {label}: max abs err {err}")
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), \
+        v.transpose(1, 2).contiguous()
+    ms = time_ms(run, torch, flush)
+    plain = time_ms(lambda: dec.decode_attention_plain(q, k, v, bias),
+                    torch, flush)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=bias[:, None, None, :], enable_gqa=True),
+        torch, flush)
+    n_valid = int((bias == 0).sum())
+    nbytes = 4 * (q.numel() + out.numel() + bias.numel()
+                  + 2 * n_valid * KV * hd)
+    flops = 4.0 * H * hd * n_valid
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FLOPS["torch.float32"] * 1e3
+    print(f"{tag} decode_attention ({label}) q{tuple(q.shape)} "
+          f"k{tuple(k.shape)} fp32, {n_valid} valid rows: err {err:.3g} "
+          f"(tol 2e-4) | kernel {spread(ms)}, plain {spread(plain)}, sdpa "
+          f"{spread(lib)}, kernel/sdpa {ms[0] / lib[0]:.2f}, bound "
+          f"{max(b_bytes, b_ops):.5f} ms ({nbytes / 1e6:.3f} MB) | card "
+          f"{card}", flush=True)
+
+
+def sharded_genserve_phase23(torch, dev, card, layers: int = LAYERS23):
+    """The genserve engine on a mesh of ranks that share the card.
+
+    (a) phase 22's gen | rest plan on 8 ranks with 8 prompts x 8
+    rollouts = 64 GEN rows, two decode waves of 32, so GEN serves on
+    genserve on the DP 2 / TP 2 GEN mesh; greedy, one-shot admission and
+    ``prefill_chunk`` 16; tokens and masks held against the plan folded
+    onto the card in this process (``sharded_exec.check``), the kernels
+    at the engine's per-rank shapes against their plain versions, GEN
+    launches per rank.  (b) ``genserve.generate(mesh=)`` itself on 4
+    ranks: qwen3-0.6b's first 8 layers at full width with its own vocab
+    (fp32), 24 requests, wave 8, prompt 64 with 32 shared, 16 new, paged
+    with prefix reuse, speculative (k 4, a 2-layer draft) and with slot
+    failures and cancels, each token for token against the world of one
+    on the card, zero leaked pages, both kernels per rank at the engine's
+    per-rank shapes (2e-4); the kernels' times at those shapes in this
+    process.  Ranks sharing one card measure the mechanism, not a
+    multi-GPU speedup."""
+    import torch.nn.functional as F
+    from repro_torch.configs import archs
+    from repro_torch.data.synthetic import AdditionTask, VOCAB_SIZE
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import sharded_exec as sx
+    from repro_torch.parallel import dist
+    t_phase = time.monotonic()
+    # -- (a) the RL engine: sharded GEN beyond one decode wave -----------
+    cfg = dataclasses.replace(first_layers(archs.get(ARCH), layers),
+                              vocab_size=VOCAB_SIZE, dtype="float32")
+    iters, batch, G, N = 2, 8, 8, 4
+    variants = {"one-shot": {"greedy": True},
+                "chunked 16": {"greedy": True, "prefill_chunk": 16}}
+    base = {}
+    for label, kw in variants.items():
+        tr = sx.make_trainer(cfg, dev, n_rollouts=G, max_new_tokens=N, **kw)
+        base[label] = sx._summary(tr, *sx.run(tr, iters, batch))
+        del tr
+        free(torch)
+    t0 = time.monotonic()
+    res = dist.spawn(sx.rank_main, sx.WORLD, "cuda", cfg, iters, batch, (),
+                     None, True, G, N, None, True, variants, timeout=600)
+    wall_a = time.monotonic() - t0
+    r0 = res[0]
+    P = AdditionTask(max_operand=9).prompt_len
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    W = 32                                          # decode_wave(64)
+    for label in variants:
+        s = r0[label]
+        sx.check(s, base[label], greedy=True)
+        check(s["gen_wave"][1:] == [float(W)] * (iters - 1),
+              f"{label}: GEN waves {s['gen_wave']}, not genserve's {W}")
+        ms = 1e3 * sum(s["wall_s"][1:]) / (iters - 1)
+        ms1 = 1e3 * sum(base[label]["wall_s"][1:]) / (iters - 1)
+        print(f"[23 rl] {label}: {batch} prompts x {G} rollouts = "
+              f"{batch * G} GEN rows in waves of {W} on genserve on the "
+              f"GEN mesh {s['gen_mesh']} (ranks {s['gen_ranks']}); greedy "
+              f"tokens and masks identical to the world of one in all "
+              f"{iters} iterations; GEN decode steps {s['gen_decode_steps']}"
+              f", prefill rounds {s['gen_prefill_rounds']}; {ms:.0f} "
+              f"ms/iter (iteration 1, rank 0's wall) against the world of "
+              f"one's {ms1:.0f} | card {card}", flush=True)
+    shapes = {"gen_prefill": [W // 2, P, H // 2, hd],
+              "gen_decode": [W // 2, H // 2, hd],
+              "inf": [batch * G // 4, P + N, H, hd]}
+    for r in res:
+        for label, (err, local) in r["kernels"].items():
+            check(local == shapes[label],
+                  f"rank {r['rank']} {label}: local q {local}, the "
+                  f"engine's {shapes[label]}")
+            check(err <= tol(torch.float32, torch),
+                  f"rank {r['rank']} {label}: kernel vs plain {err:.3g}")
+        c = r["launches"]
+        if r["rank"] in r0["one-shot"]["gen_ranks"]:
+            check(c["GEN"]["decode"] > 0 and c["GEN"]["flash"] > 0,
+                  f"GEN rank {r['rank']} launched {c['GEN']}")
+        check(not any(c.get("TRAIN", {}).values()),
+              f"TRAIN on rank {r['rank']} launched {c.get('TRAIN')}")
+    errs = {lb: max(r["kernels"][lb][0] for r in res if lb in r["kernels"])
+            for lb in shapes}
+    print(f"[23 rl] kernels on DTensors at the engine's per-rank shapes "
+          f"(local q) vs plain, fp32: GEN prefill {shapes['gen_prefill']} "
+          f"{errs['gen_prefill']:.3g}, GEN decode {shapes['gen_decode']} "
+          f"over a {P + N}-slot cache {errs['gen_decode']:.3g}, INF "
+          f"{shapes['inf']} {errs['inf']:.3g} (tol 2e-4); launches per rank "
+          f"and task kind (flash, decode), both runs: "
+          f"{ {r['rank']: r['launches'] for r in res} }; peak GiB per rank "
+          f"{[round(r['peak_gib'], 2) for r in res]}; {wall_a:.0f}s with "
+          f"the ranks' start", flush=True)
+    # -- (b) genserve.generate(mesh=) on 4 ranks --------------------------
+    one = serve23_modes(torch, dev)
+    free(torch)
+    t0 = time.monotonic()
+    res = dist.spawn(serve23_rank, 4, "cuda", timeout=600)
+    wall_b = time.monotonic() - t0
+    c = archs.get(ARCH)
+    t = SERVE23
+    for name in SERVE23_MODES:
+        w1 = one[name]
+        lp = 0.0
+        for r in res:
+            m = r["modes"][name]
+            same, d = _same_rollout(m["rollout"], w1["rollout"])
+            lp = max(lp, d)
+            check(same, f"{name}: rank {r['rank']}'s tokens differ from "
+                        f"the world of one's")
+            check(d <= 1e-3, f"{name}: rank {r['rank']} log-probs "
+                             f"{d:.3g} from the world of one's")
+            check(m["leaked"] == 0 and w1["leaked"] == 0,
+                  f"{name}: leaked pages {m['leaked']} / {w1['leaked']}")
+            check(m["decode"] > 0, f"{name}: rank {r['rank']} launched no "
+                                   f"decode_attention")
+            if "prefill_chunk" not in SERVE23_MODES[name]:
+                check(m["flash"] > 0, f"{name}: rank {r['rank']} launched "
+                                      f"no flash_attention")
+        m = res[0]["modes"][name]
+        print(f"[23 serve] {name}: {t['requests']} requests, wave "
+              f"{t['wave']}, prompt {t['prompt']} ({t['shared']} shared), "
+              f"{t['new']} new, {c.name} first {LAYERS23} layers at full "
+              f"width (vocab {c.vocab_size}, fp32) on a 2x2 mesh of 4 ranks "
+              f"sharing cuda:0: tokens and masks identical to the world of "
+              f"one on every rank, log-prob diff {lp:.3g}; hit rate "
+              f"{m['hit']:.4f}, accept rate {m['accept']:.4f}, requeued "
+              f"{m['requeued']}, cancelled {m['cancelled']}, leaked pages "
+              f"{m['leaked']}; launches per rank (flash, decode) "
+              f"{[(r['modes'][name]['flash'], r['modes'][name]['decode']) for r in res]}"
+              f"; {m['wall']:.2f} s on the mesh (rank 0) against "
+              f"{w1['wall']:.2f} s for the world of one | card {card}",
+              flush=True)
+    wl, hl, kl = t["wave"] // 2, c.n_heads // 2, c.n_kv_heads // 2
+    want = {"prefill": [wl, t["prompt"], hl, c.head_dim],
+            "decode": [wl, hl, c.head_dim]}
+    for r in res:
+        for label, (err, local) in r["kernels"].items():
+            check(local == want[label] and err <= tol(torch.float32, torch),
+                  f"rank {r['rank']} {label}: local q {local} (the "
+                  f"engine's {want[label]}), kernel vs plain {err:.3g}")
+    print(f"[23 serve] kernels on DTensors at the engine's per-rank shapes "
+          f"vs plain, fp32: prefill {want['prefill']} "
+          f"{max(r['kernels']['prefill'][0] for r in res):.3g}, decode "
+          f"{want['decode']} over a {t['prompt'] + t['new']}-slot cache "
+          f"{max(r['kernels']['decode'][0] for r in res):.3g} (tol 2e-4); "
+          f"peak GiB per rank {[round(r['peak_gib'], 2) for r in res]}; "
+          f"{wall_b:.0f}s with the ranks' start", flush=True)
+    # -- the kernels' times at the per-rank shapes, in this process ------
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    tag = "[23 kernels]"
+    attn_row(torch, F, fa, flush, wl, t["prompt"], hl, kl, c.head_dim,
+             torch.float32, True, card, "serve mesh prefill, per rank", tag)
+    decode_row(torch, F, dec, flush, wl, t["prompt"] + t["new"], hl, kl,
+               c.head_dim, card, "serve mesh decode, per rank", tag)
+    attn_row(torch, F, fa, flush, W // 2, P, H // 2, KV // 2, hd,
+             torch.float32, True, card, "RL GEN mesh prefill, per rank",
+             tag)
+    decode_row(torch, F, dec, flush, W // 2, P + N, H // 2, KV // 2, hd,
+               card, "RL GEN mesh decode, per rank", tag)
+    del flush
+    free(torch)
+    print(f"[23 sharded genserve] {time.monotonic() - t_phase:.1f}s | card "
+          f"{card}", flush=True)
 
 
 def main() -> None:
@@ -2732,6 +3058,9 @@ def main() -> None:
 
     # ---- 22. sharded plan execution on ranks sharing the card --------------
     sharded_phase22(torch, dev, card)
+
+    # ---- 23. the genserve engine on a mesh of ranks ------------------------
+    sharded_genserve_phase23(torch, dev, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -27,10 +27,14 @@ placement's mesh, as the reference's sharded dispatch
 what an executor writes to ``bb`` is the same on every rank of its
 group; the engine sends it on to the other groups (``Engine._exchange``,
 the counterpart of the reference's ``multidev`` host pulls).  A sharded
-GEN that needs the genserve engine raises (``genserve.generate(mesh=)``:
-ROADMAP.md §1 item 9b); one that fits a decode wave takes the
-single-wave path on the mesh.  Sharded GEN and INF run under
-``torch.no_grad()`` (DTensor views refuse inference tensors).
+GEN that needs the genserve engine (a batch beyond one decode wave,
+chunked admission, speculative decoding, slot failures) serves on the
+placement's mesh (``genserve.generate(mesh=)``, the reference's
+``mesh=placement.mesh``) with the DTensor ``gen_params`` and the draft
+built alike on every GEN rank; its rollout comes back full on every GEN
+rank.  One that fits a decode wave takes the single-wave path on the
+mesh.  Sharded GEN and INF run under ``torch.no_grad()`` (DTensor views
+refuse inference tensors).
 
 Registration is by (TaskKind, task name), with a (TaskKind, None) fallback
 so custom workflows can reuse the generic executor of a kind.
@@ -77,8 +81,10 @@ def _draft_model(st):
     the target has at most 4 layers; vocab and dtype the target's, so
     the logits align), ``""`` a window-free copy of the target with
     ``len(pattern) * max(R // 4, 1)`` layers.  Weights are drawn from
-    seed 7 on the trainer's device: a deployment would load a trained
-    draft; acceptance rate, not weight quality, is what varies here."""
+    seed 7 on the trainer's device (on every GEN rank alike; a sharded
+    GEN commits them to its mesh as the target's): a deployment would
+    load a trained draft; acceptance rate, not weight quality, is what
+    varies here."""
     cached = getattr(st, "_spec_draft", None)
     if cached is not None:
         return cached

@@ -9,10 +9,10 @@ from the validity mask.
 
 ``generate`` runs on ``device`` (``cuda`` by default; it raises when no
 card is present unless the caller passes ``device="cpu"``), where the
-params must already live.  ``mesh=`` (serving sharded over a device
-mesh: the chunked, paged and speculative engine on DTensors) is
-``ROADMAP.md`` §1 item 9b; a sharded GEN that fits one decode wave runs
-the single-wave path on the mesh instead (``engine.tasks``).
+params must already live.  ``mesh=`` runs the engine sharded over a
+device mesh of ranks (``decoder.serve(mesh=)``) and, as the reference,
+never takes the single-wave fast path: a caller that wants the
+single-wave path on a mesh shards it itself (``engine.tasks``).
 """
 from __future__ import annotations
 
@@ -26,10 +26,6 @@ from repro_torch.device import resolve_device
 from repro_torch.genserve.decoder import GenServeConfig, serve
 from repro_torch.models.config import ModelConfig
 from repro_torch.rl import rollout
-
-MESH_NOT_PORTED = ("generate(mesh=...): serving sharded over a device mesh "
-                   "is not yet ported (ROADMAP.md §1 item 9b: the genserve "
-                   "engine on DTensors)")
 
 
 def ttft_quantiles(stats) -> Tuple[float, float]:
@@ -99,9 +95,8 @@ def generate(params, cfg: ModelConfig, prompts,
     prefix reuse; ``slot_failures`` / ``cancels`` (round -> slot ids /
     request ids) inject slot deaths and cancels; ``spec_k > 0`` turns on
     draft-model speculative decoding (needs ``draft_params`` and
-    ``draft_cfg``)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    ``draft_cfg``).  ``mesh`` (every rank of it calls ``generate`` alike)
+    serves sharded over it; the rollout comes back full on every rank."""
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"params live on {_params_device(params)}, "
@@ -109,9 +104,9 @@ def generate(params, cfg: ModelConfig, prompts,
     prompts = torch.as_tensor(prompts, device=_params_device(params))
     B = int(prompts.shape[0])
     W = int(wave) if wave else plan_mod.decode_wave(B)
-    if fast_path and gen_lens is None and prefill_chunk == 0 \
-            and page_size == 0 and B <= W and spec_k == 0 \
-            and not slot_failures and not cancels:
+    if fast_path and mesh is None and gen_lens is None \
+            and prefill_chunk == 0 and page_size == 0 and B <= W \
+            and spec_k == 0 and not slot_failures and not cancels:
         ro = rollout.generate(params, cfg, prompts, gen, sampler)
         return ro, wave_stats_from_mask(ro["mask"], wave=min(W, B))
     gcfg = GenServeConfig(wave=min(W, B),
@@ -127,4 +122,4 @@ def generate(params, cfg: ModelConfig, prompts,
     return serve(params, cfg, prompts, gen, gcfg, gen_lens=gen_lens,
                  prompt_lens=prompt_lens, slot_failures=slot_failures,
                  cancels=cancels, draft_params=draft_params,
-                 draft_cfg=draft_cfg)
+                 draft_cfg=draft_cfg, mesh=mesh)

@@ -87,7 +87,12 @@ What differs from the JAX engine, and why:
     host's prefill mirror says a slot lands there, and skips its decode
     half while no slot can emit; the JAX programs run both masked.
   * ``decode_path="vmapped"`` is a per-slot loop of B=1 ``decode_step``
-    calls over slot views (the torch counterpart of the W-way vmap).
+    calls over slot views (the torch counterpart of the W-way vmap); on
+    a mesh whose ``data`` axis splits the slots, step i decodes every
+    shard's i-th slot at once, one row per rank.
+  * On a mesh (``serve(mesh=)``) the programs run on DTensors: the
+    caches are written in place shard by shard (``models.cache``), and
+    every sampling point gathers the logits first.
 
 The host loop owns membership: it reads back ``occupied`` after every
 round, retires finished requests through ``scheduler.SlotTable``,
@@ -116,7 +121,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.tree import tree_map
+from repro_torch.parallel import sharding as sh
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +182,7 @@ class _Programs:
 
     def __init__(self, cfg: ModelConfig, gcfg: GenServeConfig,
                  prompt_len: int, n_reqs: int,
-                 draft_cfg: Optional[ModelConfig] = None):
+                 draft_cfg: Optional[ModelConfig] = None, mesh=None):
         self.cfg, self.gcfg, self.dcfg = cfg, gcfg, draft_cfg
         self.P, self.N = prompt_len, gcfg.max_new_tokens
         self.max_seq = prompt_len + gcfg.max_new_tokens
@@ -188,8 +194,9 @@ class _Programs:
         self.C = max(gcfg.prefill_chunk, 1)
         # without prefix sharing the block table is the identity forever,
         # so the pool view is a view: the steps write the pool in place
+        # (on a mesh the view is each rank's own slots' copy)
         self.identity = (self.paged and not gcfg.prefix_cache
-                         and gcfg.pool_pages == 0)
+                         and gcfg.pool_pages == 0 and mesh is None)
 
     # -- shared pieces -----------------------------------------------------
     def view_of(self, st):
@@ -205,14 +212,17 @@ class _Programs:
         """The view is a copy whose writes must be scattered back."""
         return self.paged and not self.identity
 
+    # logits of a sharded step are gathered first: every rank draws and
+    # decides on the full batch, so the slot table stays the same
+    # (plain, replicated) on every rank
     def sample(self, gen, logits):
-        return sampling.sample_tokens(gen, logits,
+        return sampling.sample_tokens(gen, sh.full(logits),
                                       temperature=self.gcfg.temperature,
                                       greedy=self.gcfg.greedy)
 
     def sample_lp(self, gen, logits):
         return sampling.sample_with_logprobs(
-            gen, logits, temperature=self.gcfg.temperature,
+            gen, sh.full(logits), temperature=self.gcfg.temperature,
             greedy=self.gcfg.greedy)
 
     def wave_decode(self, params, tok, pos, blocks, write_mask):
@@ -222,6 +232,11 @@ class _Programs:
                                       {"blocks": blocks, "pos": pos},
                                       write_mask=write_mask)
             return logits
+        leaf = tree_leaves(blocks)[0]
+        n = sh.row_shards(leaf, 1) if sh.is_dtensor(leaf) else 1
+        if n > 1:
+            return self._local_slot_loop(params, tok, pos, blocks,
+                                         write_mask, n)
         rows = []
         for w in range(tok.shape[0]):
             sl = slice(w, w + 1)
@@ -230,8 +245,32 @@ class _Programs:
                 {"blocks": tree_map(lambda l: l[:, sl], blocks),
                  "pos": pos[sl]},
                 write_mask=None if write_mask is None else write_mask[sl])
-            rows.append(logits)
+            rows.append(sh.full(logits))
         return torch.cat(rows)
+
+    def _local_slot_loop(self, params, tok, pos, blocks, write_mask,
+                         n: int):
+        """The per-slot loop on a cache whose slots lie over ``n`` data
+        shards: step i decodes every shard's i-th slot at once (one row
+        per rank, a view of its shard), so each slot still decodes
+        alone."""
+        W = tok.shape[0]
+        per = W // n
+        order, out = [], []
+        for i in range(per):
+            rows = torch.arange(n, device=tok.device) * per + i
+            logits, _ = T.decode_step(
+                params, self.cfg, tok[rows, None],
+                {"blocks": tree_map(lambda l: sh.local_rows(l, 1, i),
+                                    blocks),
+                 "pos": pos[rows]},
+                write_mask=None if write_mask is None else write_mask[rows])
+            order.append(rows)
+            out.append(sh.full(logits))
+        logits = torch.cat(out)
+        res = torch.empty_like(logits)
+        res[torch.cat(order)] = logits
+        return res
 
     # -- one-shot admission ------------------------------------------------
     def admit(self, params, dparams, st, prompts, admit_mask, admit_cpu,
@@ -330,6 +369,7 @@ class _Programs:
                                       write_mask=emit)
             if j == k:
                 break       # this step only writes d_k's draft k/v
+            logits = sh.full(logits)
             tok_c = self.sample(gen, logits)
             drafts.append(tok_c)
             dlogits.append(logits)
@@ -341,6 +381,7 @@ class _Programs:
         cand_in = torch.cat([st["tok"][:, None], drafts], dim=1)
         vlogits, deltas = T.verify_chunk_step(
             params, self.cfg, cand_in, {"blocks": view, "pos": pos})
+        vlogits = sh.full(vlogits)
         a, cand = sampling.speculative_accept(
             gen, vlogits, drafts, dlogits, temperature=self.gcfg.temperature,
             greedy=self.gcfg.greedy)
@@ -525,8 +566,12 @@ def _pool_pages(cfg: ModelConfig, gcfg: GenServeConfig,
 def _init_state(cfg: ModelConfig, gcfg: GenServeConfig, prompt_len: int,
                 n_reqs: int, dtype: torch.dtype, device: torch.device,
                 draft_cfg: Optional[ModelConfig] = None,
-                draft_dtype: Optional[torch.dtype] = None
+                draft_dtype: Optional[torch.dtype] = None, mesh=None
                 ) -> Dict[str, object]:
+    """The engine's device state.  On a mesh only the caches are
+    DTensors (``cache.distribute_cache`` / ``distribute_paged_cache``);
+    the slot table and the output buffers are plain tensors, the same on
+    every rank, so the host loop reads the same values everywhere."""
     W, N = gcfg.wave, gcfg.max_new_tokens
     i64 = dict(dtype=torch.int64, device=device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -544,6 +589,11 @@ def _init_state(cfg: ModelConfig, gcfg: GenServeConfig, prompt_len: int,
     else:
         cache = cache_mod.init_cache(cfg, W, prompt_len + N, dtype=dtype,
                                      device=device)
+    if mesh is not None:
+        cache["blocks"] = (
+            cache_mod.distribute_paged_cache(cfg, cache["blocks"], mesh)
+            if gcfg.page_size > 0
+            else cache_mod.distribute_cache(cache["blocks"], mesh))
     st = {
         "tok": torch.zeros((W,), **i64),
         "pos": torch.zeros((W,), **i64),
@@ -572,6 +622,8 @@ def _init_state(cfg: ModelConfig, gcfg: GenServeConfig, prompt_len: int,
         st["dcache"] = cache_mod.init_cache(
             draft_cfg, W, prompt_len + N, dtype=draft_dtype,
             device=device)["blocks"]
+        if mesh is not None:
+            st["dcache"] = cache_mod.distribute_cache(st["dcache"], mesh)
         if gcfg.prefill_chunk > 0:
             st["dcur"] = torch.zeros((W,), **i64)
             st["pdelay"] = torch.zeros((W,), **i64)
@@ -604,8 +656,8 @@ def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
           prompt_lens: Optional[Sequence[int]] = None,
           slot_failures: Optional[Dict[int, Sequence[int]]] = None,
           cancels: Optional[Dict[int, Sequence[int]]] = None,
-          draft_params=None, draft_cfg: Optional[ModelConfig] = None
-          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
+          draft_params=None, draft_cfg: Optional[ModelConfig] = None,
+          mesh=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
     """Generate for all `prompts` [B, P] with continuous batching.
 
     Runs on the device the params live on.  Returns (rollout dict — the
@@ -628,7 +680,50 @@ def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
       again like any other request.
     * ``cancels``: round -> request ids to retire without EOS or budget:
       dequeued if pending, evicted and zeroed if in flight; their output
-      rows are all zero with an all-zero mask."""
+      rows are all zero with an all-zero mask.
+
+    ``mesh`` (a ``("data", "model")`` DeviceMesh over ranks that all call
+    ``serve`` with the same arguments) runs the engine sharded over it,
+    as the reference's ``serve(mesh=)``: the params and draft params are
+    committed to the mesh by ``param_tree_specs`` (DTensor leaves come
+    as they are) and gathered to their use layout once, the caches are
+    DTensors (slots over ``data``, kv heads over ``model``; page pools
+    whole over ``data``), and every program runs under
+    ``default_activation_rules(seq_shard=False)`` with plain tensors
+    taken as replicated.  The slot table, the host loop and the outputs
+    are every rank's same full values: sampling gathers the logits and
+    draws for the whole wave (``gen`` seeded alike on every rank), so
+    the ranks admit, retire and page alike.  A mesh of one device serves
+    as ``mesh=None``."""
+    if mesh is not None and sh.mesh_size(mesh) <= 1:
+        mesh = None
+    args = (cfg, prompts, gen, gcfg, gen_lens, prompt_lens, slot_failures,
+            cancels, draft_cfg)
+    if mesh is None:
+        return _serve(params, *args, draft_params=draft_params)
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise ValueError("serve(mesh=...) shards over a torch DeviceMesh "
+                         "of ranks (parallel.dist); a mesh of several "
+                         "devices in a world of one cannot be sharded over")
+    from torch.distributed.tensor.experimental import implicit_replication
+    commit = lambda p: None if p is None else sh.for_use(
+        sh.distribute_params(p, mesh))
+    # DTensor views refuse inference tensors: no_grad, never inference
+    with torch.inference_mode(False), torch.no_grad(), \
+            sh.use_hints(sh.default_activation_rules(seq_shard=False)), \
+            implicit_replication():
+        return _serve(commit(params), *args,
+                      draft_params=commit(draft_params), mesh=mesh)
+
+
+def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
+           gcfg: GenServeConfig, gen_lens: Optional[Sequence[int]] = None,
+           prompt_lens: Optional[Sequence[int]] = None,
+           slot_failures: Optional[Dict[int, Sequence[int]]] = None,
+           cancels: Optional[Dict[int, Sequence[int]]] = None,
+           draft_cfg: Optional[ModelConfig] = None, draft_params=None,
+           mesh=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
+    """The engine loop of ``serve``, on ``mesh`` when one is given."""
     gcfg.validate()
     spec = gcfg.spec_k > 0
     if spec:
@@ -669,11 +764,11 @@ def serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
         radix = RadixCache(pool)
         slot_pages: List[List[int]] = [[] for _ in range(W)]
         slot_tokens: Dict[int, List[int]] = {}
-    progs = _Programs(cfg, gcfg, P, B, draft_cfg if spec else None)
+    progs = _Programs(cfg, gcfg, P, B, draft_cfg if spec else None, mesh)
     state = _init_state(cfg, gcfg, P, B, dtype, device,
                         draft_cfg if spec else None,
                         draft_params["final_norm"]["scale"].dtype
-                        if spec else None)
+                        if spec else None, mesh)
     as_dev = lambda a: torch.as_tensor(a, device=device)
     spec_tokens = spec_proposed = spec_accepted = 0
 

@@ -9,7 +9,9 @@ per device) with GEN and TRAIN on disjoint rank sets, so the engine's
 overlapped walk decodes iteration t+1 on ranks 0-3 while ranks 4-7 train
 on t's bundle, and onto a world of one rank (every group folded onto
 one device, collisions reported, the stage walk serialized) as the
-unsharded baseline.
+unsharded baseline.  With more rollout rows than one decode wave (or
+``prefill_chunk`` / ``spec_k``) GEN runs on genserve on the GEN mesh
+(``make_trainer``; ``rank_main``'s ``variants``).
 
 ``rank_main`` is what each rank runs (``dist.spawn`` or a launcher's
 world); ``run`` drives a trainer over a prompt stream that every world
@@ -26,7 +28,10 @@ in this process and holds the example's assertions:
   by its magnitude, so the fp32 reduction-order noise of the TP/DP
   partial sums in a near-zero gradient moves its parameter by up to
   2*lr, and a sample that falls at a boundary of the categorical may
-  land on the next token;
+  land on the next token; greedy masks identical too;
+- with ``replay`` (``rank_main``), each sharded GEN against a
+  world-of-one GEN replayed on the GEN ranks' own weights and generator
+  state: at least ``REPLAY_AGREEMENT`` of the tokens;
 - GRPO losses within ``--loss-rtol`` / ``--loss-atol`` of the world-1
   run, with a loss that is not zero;
 - weight-sync bytes equal to ``tree_bytes(actor)``, and after every
@@ -56,6 +61,8 @@ from repro_torch.rl.trainer import RLConfig, RLTrainer
 
 WORLD = 8
 AGREEMENT = 0.95   # sampled tokens identical after the first sync
+REPLAY_AGREEMENT = 1.0   # ... and against a world-of-one GEN replayed on
+#                          the sharded GEN's own weights (``_gen_replay``)
 
 
 def tiny_cfg() -> ModelConfig:
@@ -93,15 +100,19 @@ def build_plan_8dev(wf):
 
 def make_trainer(cfg: ModelConfig, device, *, greedy: bool = False,
                  n_rollouts: int = 4, max_new_tokens: int = 4,
-                 overlap: Optional[bool] = None):
+                 overlap: Optional[bool] = None, prefill_chunk: int = 0,
+                 spec_k: int = 0):
     """The example's trainer: asynchronous GRPO, whitening off (it
     normalizes by the in-group advantage std, which amplifies TP
     reduction-order noise to O(1) when a group's rewards are nearly
-    uniform)."""
+    uniform).  GEN runs on genserve when the rollout rows exceed one
+    decode wave, with ``prefill_chunk`` (chunked admission) or with
+    ``spec_k`` (speculative decoding)."""
     task = AdditionTask(max_operand=9)
     rl = RLConfig(algorithm="grpo", n_rollouts=n_rollouts,
                   max_new_tokens=max_new_tokens, asynchronous=True,
-                  greedy=greedy, whiten_advantages=False)
+                  greedy=greedy, whiten_advantages=False,
+                  prefill_chunk=prefill_chunk, spec_k=spec_k)
     wf = workflow.make_workflow(
         "grpo", workflow.LLMSpec.from_model_config(cfg), synchronous=False,
         n_rollouts=rl.n_rollouts, seq_in=task.prompt_len,
@@ -116,11 +127,13 @@ def run(trainer, iters: int, batch: int = 4, seed: int = 0):
     comparable iteration by iteration.  Returns (metrics, (the pending
     bundle's gen tokens after each iteration, the weight version they
     were decoded with, whether the GEN weights equal the actor after the
-    iteration: ``synced_identical``), wall seconds each."""
+    iteration: ``synced_identical``, the gen masks), wall seconds
+    each."""
     task = trainer.task
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=trainer.device).manual_seed(7)
     metrics, tokens, versions, synced, walls = [], [], [], [], []
+    masks = []
     for _ in range(iters):
         prompts, answers = task.sample_batch(rng, batch)
         t0 = time.monotonic()
@@ -129,9 +142,11 @@ def run(trainer, iters: int, batch: int = 4, seed: int = 0):
         pend = trainer.engine.pipeline._pending
         tokens.append(pend["rollout"]["gen_tokens"].cpu().numpy()
                       if pend is not None else None)
+        masks.append(pend["rollout"]["mask"].cpu().numpy()
+                     if pend is not None else None)
         versions.append(pend["gen_version"] if pend is not None else None)
         synced.append(synced_identical(trainer))
-    return metrics, (tokens, versions, synced), walls
+    return metrics, (tokens, versions, synced, masks), walls
 
 
 def synced_identical(trainer) -> Optional[bool]:
@@ -185,8 +200,53 @@ def _launch_counter():
     return counts
 
 
+def _gen_replay():
+    """Hold each sharded GEN against a world-of-one GEN on the same
+    weights: wraps this process's GEN executor (a rank process, once at
+    its start) so that after the task every GEN rank gathers the weights
+    it decoded with (a collective over the GEN mesh) and decodes the same
+    prompts on them alone, from the generator state the task started
+    from, through the same routing (``genserve.generate``: one wave or
+    the engine).  The only difference left is the reduction order of the
+    sharded matmuls.  Returns the list that receives each GEN's fraction
+    of identical tokens (GEN ranks of a sharded placement only)."""
+    from repro_torch.core.plan import decode_wave
+    from repro_torch.core.workflow import TaskKind
+    from repro_torch.engine import tasks as tasks_mod
+    from repro_torch.genserve import adapter
+    from repro_torch.parallel import sharding as sh
+    agreement: List[float] = []
+    key = (TaskKind.GEN, None)
+    fn = tasks_mod._EXECUTORS[key]
+
+    def wrapped(st, bb, pl):
+        rng = bb["rng"]
+        state = None if rng is None else rng.get_state()
+        out = fn(st, bb, pl)
+        if pl.sharded:
+            with torch.no_grad():
+                params = sh.full_tree(st.gen_params)
+            prompts = bb["prompts_rep"]
+            gen = None
+            if state is not None:
+                gen = torch.Generator(device=st.device)
+                gen.set_state(state)
+            with torch.inference_mode():
+                ro, _ = adapter.generate(
+                    params, st.cfg, prompts, gen, st.sampler,
+                    wave=decode_wave(int(prompts.shape[0])),
+                    decode_chunk=st.rl.decode_chunk,
+                    prefill_chunk=st.rl.prefill_chunk, device=st.device)
+            got = bb["fresh"]["rollout"]["gen_tokens"]
+            agreement.append(float((ro["gen_tokens"] == got).float()
+                                   .mean()))
+        return out
+    tasks_mod._EXECUTORS[key] = wrapped
+    return agreement
+
+
 def _summary(trainer, metrics, gens, walls) -> Dict[str, Any]:
-    tokens, versions, synced = gens
+    tokens, versions, synced, masks = gens
     eng = trainer.engine
     gen_t, train_t = eng.ctx.gen_task, eng.ctx.actor_train
     gen_pl, train_pl = eng.placements[gen_t], eng.placements[train_t]
@@ -205,7 +265,8 @@ def _summary(trainer, metrics, gens, walls) -> Dict[str, Any]:
         "losses": [m.get("loss") for m in metrics],
         "rewards": [m.get("reward_mean") for m in metrics],
         "sync_gb": [m.get("sync_gb") for m in metrics],
-        "tokens": tokens, "gen_versions": versions, "wall_s": walls,
+        "tokens": tokens, "masks": masks, "gen_versions": versions,
+        "wall_s": walls,
         "sync_identical": synced,
         "sync_s": list(eng.sync_durations),
         "measured_iter_s": cmp["measured_iter_s"],
@@ -213,6 +274,12 @@ def _summary(trainer, metrics, gens, walls) -> Dict[str, Any]:
         "predicted_iter_realized_s": cmp["predicted_iter_realized_s"],
         "tp_shrunk": cmp["tp_shrunk"],
         "actor_bytes": _actor_bytes(trainer),
+        # GEN's engine per iteration: its wave and decode steps (the
+        # single-wave path's wave is its whole batch)
+        "gen_wave": [m.get("gen_wave") for m in metrics],
+        "gen_decode_steps": [m.get("gen_decode_steps") for m in metrics],
+        "gen_prefill_rounds": [m.get("gen_prefill_rounds", 0.0)
+                               for m in metrics],
     }
 
 
@@ -253,65 +320,82 @@ def actor_step(trainer, batch: Dict[str, np.ndarray], gen_start: int
 
 
 def kernels_vs_plain(trainer, rows: int, prompt_len: int,
-                     new_tokens: int) -> Dict[str, Any]:
-    """The two attention kernels as the sharded path calls them
-    (``multihead_attention`` on DTensors: each rank of the placement
-    launches on its local rows, over ``data``, and heads, over
-    ``model``), at the path's shapes on this rank's placements: GEN's
+                     new_tokens: int, gen_rows: Optional[int] = None
+                     ) -> Dict[str, Any]:
+    """The two attention kernels as the sharded path calls them, at the
+    path's shapes on this rank's placements (``mesh_attention``): GEN's
     prefill over the prompt and a decode step over the cache of prompt +
-    new tokens, INF's (reference_inference) pass over the whole
-    sequence; seeded inputs in the model's dtype, held against the plain
-    versions on the full tensors.  {label: (max abs error, the local q
+    new tokens at ``gen_rows`` rows (``rows`` when None; genserve's wave
+    when GEN runs beyond one), INF's (reference_inference) pass over the
+    whole sequence at ``rows``.  {label: (max abs error, the local q
     shape)} for the placements this rank is in; every rank of a
     placement calls it (the outputs are gathered)."""
+    cfg, dev = trainer.cfg, trainer.device
+    dims = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    named = {trainer.wf.task(t).name: pl
+             for t, pl in trainer.engine.placements.items()}
+    L = prompt_len + new_tokens
+    out: Dict[str, Any] = {}
+    pl = named["actor_generation"]
+    if pl.here and pl.sharded:
+        got = mesh_attention(pl.mesh, dev, cfg.dtype, *dims,
+                             gen_rows or rows, prompt_len, L)
+        out["gen_prefill"], out["gen_decode"] = got["prefill"], \
+            got["decode"]
+    pl = named["reference_inference"]
+    if pl.here and pl.sharded:
+        out["inf"] = mesh_attention(pl.mesh, dev, cfg.dtype, *dims, rows,
+                                    L)["prefill"]
+    return out
+
+
+def mesh_attention(mesh, dev, dtype: str, H: int, KV: int, hd: int,
+                   rows: int, S: int, L: Optional[int] = None,
+                   seed: int = 11) -> Dict[str, Any]:
+    """``multihead_attention`` on DTensors as a sharded step calls it
+    (each rank of ``mesh`` launches the kernel on its local rows, over
+    ``data``, and heads, over ``model``): a causal pass over ``S``
+    positions ("prefill", the flash kernel) and, with ``L``, one decode
+    step against an ``L``-slot cache whose last slot is not yet valid
+    ("decode", the flash-decode kernel); seeded inputs in ``dtype``,
+    held against the plain versions on the full tensors.  {label: (max
+    abs error, the local q shape)}; every rank of the mesh calls it."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import attention
     from repro_torch.parallel import sharding as sh
-    cfg, dev = trainer.cfg, trainer.device
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dtype = getattr(torch, cfg.dtype)
-    g = torch.Generator().manual_seed(11)
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(seed)
 
     def rn(*shape):
-        return torch.randn(shape, generator=g).to(dev, dtype)
+        return torch.randn(shape, generator=g).to(dev, dt)
 
     def local(x):
         return list(x.to_local().shape)
 
-    eng = trainer.engine
-    named = {trainer.wf.task(t).name: pl for t, pl in eng.placements.items()}
     heads = sh.P("data", None, "model", None)
-    L = prompt_len + new_tokens
-    out: Dict[str, Any] = {}
-    for label, name, S in (("gen_prefill", "actor_generation", prompt_len),
-                           ("inf", "reference_inference", L)):
-        pl = named[name]
-        if not (pl.here and pl.sharded):
-            continue
-        q, k, v = rn(rows, S, H, hd), rn(rows, S, KV, hd), rn(rows, S, KV, hd)
-        pos = torch.arange(S, device=dev)
-        d = [sh.distribute(t, pl.mesh, heads) for t in (q, k, v)]
-        got = attention.multihead_attention(*d, pos, pos, causal=True,
-                                            force_impl="kernel")
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        out[label] = (float((got.full_tensor() - want).abs().max()),
-                      local(d[0]))
-    pl = named["actor_generation"]
-    if pl.here and pl.sharded:
-        q, kc, vc = rn(rows, 1, H, hd), rn(rows, L, KV, hd), rn(rows, L, KV, hd)
-        valid = L - 1                      # the cache before the last token
-        bias = torch.where(torch.arange(L, device=dev) < valid, 0.0,
-                           -1e30).expand(rows, L).contiguous()
-        d = [sh.distribute(t, pl.mesh, heads) for t in (q, kc, vc)]
-        pos = torch.arange(L, device=dev)
-        got = attention.multihead_attention(
-            *d, pos[valid - 1:valid], pos, causal=True, bias=bias,
-            force_impl="kernel")
-        want = dec.decode_attention_plain(q[:, 0], kc, vc, bias)
-        out["gen_decode"] = (float((got.full_tensor()[:, 0] - want)
-                                   .abs().max()), local(d[0])[:1] +
-                             local(d[0])[2:])
+    q, k, v = rn(rows, S, H, hd), rn(rows, S, KV, hd), rn(rows, S, KV, hd)
+    pos = torch.arange(S, device=dev)
+    d = [sh.distribute(t, mesh, heads) for t in (q, k, v)]
+    got = attention.multihead_attention(*d, pos, pos, causal=True,
+                                        force_impl="kernel")
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    out = {"prefill": (float((got.full_tensor() - want).abs().max()),
+                       local(d[0]))}
+    if L is None:
+        return out
+    q, kc, vc = rn(rows, 1, H, hd), rn(rows, L, KV, hd), rn(rows, L, KV, hd)
+    valid = L - 1                          # the cache before the last token
+    bias = torch.where(torch.arange(L, device=dev) < valid, 0.0,
+                       -1e30).expand(rows, L).contiguous()
+    d = [sh.distribute(t, mesh, heads) for t in (q, kc, vc)]
+    pos = torch.arange(L, device=dev)
+    got = attention.multihead_attention(
+        *d, pos[valid - 1:valid], pos, causal=True, bias=bias,
+        force_impl="kernel")
+    want = dec.decode_attention_plain(q[:, 0], kc, vc, bias)
+    out["decode"] = (float((got.full_tensor()[:, 0] - want).abs().max()),
+                     local(d[0])[:1] + local(d[0])[2:])
     return out
 
 
@@ -325,19 +409,31 @@ def rank_main(device, cfg: ModelConfig, iters: int, batch: int,
               count_launches: bool = False, n_rollouts: int = 4,
               max_new_tokens: int = 4,
               step: Optional[tuple] = None,
-              kernels: bool = False) -> Dict[str, Any]:
+              kernels: bool = False,
+              variants: Optional[Dict[str, dict]] = None,
+              evaluate: bool = False, replay: bool = False
+              ) -> Dict[str, Any]:
     """One rank's run: for each of ``modes`` a fresh trainer over
     ``iters`` iterations: "sampled", "greedy", or "serialized" (sampled,
-    with the overlapped walk off: the stage walk of the same world).
-    ``state`` (a numpy state tree, the JAX package's ``state_tree()``)
-    replaces the seeded weights.  With ``step`` = (a ``step_batch``, its
+    with the overlapped walk off: the stage walk of the same world); then
+    each of ``variants`` (label -> ``make_trainer`` keywords, e.g.
+    ``{"chunked": {"greedy": True, "prefill_chunk": 16}}``).  ``state``
+    (a numpy state tree, the JAX package's ``state_tree()``) replaces
+    the seeded weights.  With ``step`` = (a ``step_batch``, its
     gen_start), first one ``actor_step`` on it from a fresh trainer's
     state; with ``kernels``, ``kernels_vs_plain`` at the runs' shapes
-    (these launches are outside the task counts).  Returns this rank's
-    summaries (and launches per task kind, and the peak device memory,
-    on the card)."""
+    (these launches are outside the task counts); with ``evaluate``,
+    each run's trainer then scores a fixed prompt batch
+    (``RLTrainer.evaluate``); with ``replay``, each run's GEN tasks are
+    held against a world-of-one GEN on the same weights (``_gen_replay``:
+    a summary's ``replay_agreement``, on the GEN ranks).  Returns this
+    rank's summaries (and launches per task kind, and the peak device
+    memory, on the card)."""
+    from repro_torch.core.plan import decode_wave
     counts = _launch_counter() if count_launches else None
+    replayed = _gen_replay() if replay else None
     out: Dict[str, Any] = {"rank": dist.rank()}
+    rows = batch * n_rollouts
     if step is not None or kernels:
         tr = make_trainer(cfg, device, n_rollouts=n_rollouts,
                           max_new_tokens=max_new_tokens)
@@ -345,24 +441,39 @@ def rank_main(device, cfg: ModelConfig, iters: int, batch: int,
             out["step"] = actor_step(tr, *step)
         if kernels:
             out["kernels"] = kernels_vs_plain(
-                tr, batch * n_rollouts, tr.task.prompt_len, max_new_tokens)
+                tr, rows, tr.task.prompt_len, max_new_tokens,
+                gen_rows=decode_wave(rows))
         del tr
-    for mode in modes:
-        tr = make_trainer(cfg, device, greedy=mode == "greedy",
-                          n_rollouts=n_rollouts,
-                          max_new_tokens=max_new_tokens,
-                          overlap=False if mode == "serialized" else None)
+    runs = [(m, dict(greedy=m == "greedy",
+                     overlap=False if m == "serialized" else None))
+            for m in modes] + list((variants or {}).items())
+    for label, kw in runs:
+        tr = make_trainer(cfg, device, n_rollouts=n_rollouts,
+                          max_new_tokens=max_new_tokens, **kw)
         if state is not None:
             from repro_torch import bridge
             tr.load_state_tree(bridge.from_numpy_state_tree(
                 state, cfg, tr.device))
-        out[mode] = _summary(tr, *run(tr, iters, batch))
+        out[label] = _summary(tr, *run(tr, iters, batch))
+        if replayed is not None:
+            out[label]["replay_agreement"] = list(replayed)
+            replayed.clear()
+        if evaluate:
+            out[label]["eval"] = evaluate_batch(tr)
         del tr
     if counts is not None:
         out["launches"] = counts
     if torch.device(device).type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
+
+
+def evaluate_batch(trainer, n: int = 8, seed: int = 3) -> float:
+    """``RLTrainer.evaluate`` on a fixed prompt batch (every rank calls
+    it; every rank gets the GEN lead's score)."""
+    prompts, answers = trainer.task.sample_batch(
+        np.random.default_rng(seed), n)
+    return trainer.evaluate(prompts, answers, None)
 
 
 def check(sharded: Dict[str, Any], base: Dict[str, Any], *,
@@ -385,6 +496,8 @@ def check(sharded: Dict[str, Any], base: Dict[str, Any], *,
         if greedy or sharded["gen_versions"][it] == 0:
             assert np.array_equal(a, b), \
                 f"iter {it}: generation diverged between worlds"
+            assert np.array_equal(sharded["masks"][it], base["masks"][it]), \
+                f"iter {it}: gen masks differ between worlds"
         else:
             assert float(np.mean(a == b)) >= AGREEMENT, \
                 f"iter {it}: {int(np.sum(a != b))} of {a.size} tokens differ"
@@ -394,6 +507,9 @@ def check(sharded: Dict[str, Any], base: Dict[str, Any], *,
                                rtol=1e-6)
     nbytes = sharded["actor_bytes"]
     assert all(abs(g * 1e9 - nbytes) < 1 for g in sharded["sync_gb"][1:])
+    for a in sharded.get("replay_agreement", ()):
+        assert a >= REPLAY_AGREEMENT, \
+            f"GEN vs a world-of-one GEN on its own weights: {a}"
     assert all(x is True for x in sharded["sync_identical"]), \
         f"GEN weights differ from the actor after a sync: " \
         f"{sharded['sync_identical']}"

@@ -286,7 +286,7 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
         raise ValueError(
             "--drift / --fault in a world of several ranks: the elastic "
             "controller's checkpoints and the fault injector run on one "
-            "device only (ROADMAP.md §1 item 9b)")
+            "device only (ROADMAP.md §1 item 1)")
     # SPMD: every rank runs this launcher; rank 0 alone speaks
     say = print if dist.rank() == 0 else (lambda *a, **k: None)
     cfg = cfg or archs.get(args.arch, smoke=args.smoke)

@@ -50,6 +50,7 @@ import torch
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import FFN, Mixer, ModelConfig
+from repro_torch.parallel import sharding as sh
 from repro_torch.tree import tree_map
 
 
@@ -99,12 +100,35 @@ def distribute_cache(blocks, mesh):
     hd]`` under the ``kv_cache`` rule (slots over ``data``, kv heads over
     ``model``), recurrent state and ``cm_shift`` with slots over
     ``data``.  The in-place writers then write each rank's shard."""
-    from repro_torch.parallel import sharding as sh
     kv = sh.P(None, *sh.default_activation_rules(seq_shard=False)["kv_cache"])
     return {name: {n: sh.distribute(t, mesh, kv if n in ("k", "v")
                                     else sh.P(None, sh.DATA))
                    for n, t in leaves.items()}
             for name, leaves in blocks.items()}
+
+
+# a page pool [R, NP + 2, ps, KV, hd] on a mesh: kv heads over ``model``,
+# pages whole on every ``data`` rank (the block table lets any slot map
+# any page, so pages cannot follow one slot's shard)
+POOL_SPEC = sh.P(None, None, None, sh.MODEL, None)
+
+
+def distribute_paged_cache(cfg: ModelConfig, blocks, mesh):
+    """``init_paged_cache``'s leaves as DTensors on ``mesh``: pools under
+    ``POOL_SPEC``, the per-slot leaves (recurrent state, ``cm_shift``)
+    with slots over ``data``, as ``distribute_cache``.  ``paged_view``
+    then gathers each rank's own slots' pages, and ``paged_update_*``
+    all-gather the fresh tokens over ``data`` before every rank writes
+    them into its copy of the pages."""
+    out = {}
+    for j, spec in enumerate(cfg.pattern):
+        name = f"layer{j}"
+        pool = spec.mixer == Mixer.ATTENTION
+        out[name] = {n: sh.distribute(t, mesh, POOL_SPEC
+                                      if pool and n in ("k", "v")
+                                      else sh.P(None, sh.DATA))
+                     for n, t in blocks[name].items()}
+    return out
 
 
 def gather_slots(blocks, idx):
@@ -116,25 +140,37 @@ def scatter_slots(dst_blocks, src_blocks, slot_mask):
     """Overwrite (in place) the slot rows of ``dst_blocks`` with
     ``src_blocks`` where ``slot_mask`` [B] is True — the whole-row
     replacement at prefill injection, so no stale KV from a previous
-    occupant leaks into a recycled slot."""
-    idx = torch.nonzero(slot_mask, as_tuple=True)[0]
+    occupant leaks into a recycled slot.  DTensor leaves: each rank
+    writes its own slots."""
+    return tree_map(lambda d, s: _rows_in_place(_put_rows, d, slot_mask, s),
+                    dst_blocks, src_blocks)
 
-    def put(dst, src):
-        dst[:, idx] = src[:, idx].to(dst.dtype)
-        return dst
 
-    return tree_map(put, dst_blocks, src_blocks)
+def _rows_in_place(fn, leaf, slot_mask, *others):
+    """``fn(leaf, *others, mask)`` on a cache leaf [R, B, ...] and its
+    [B] slot mask: on a DTensor leaf, on this rank's shard with its slots
+    of the mask (and of ``others``, laid out as the leaf)."""
+    if sh.is_dtensor(leaf):
+        fn(leaf.to_local(), *(sh.local_view(o, leaf) for o in others),
+           sh.local_view(slot_mask, leaf, 1))
+    else:
+        fn(leaf, *others, slot_mask)
+    return leaf
+
+
+def _put_rows(dst, src, mask) -> None:
+    idx = torch.nonzero(mask, as_tuple=True)[0].to(dst.device)
+    dst[:, idx] = src[:, idx].to(dst.dtype)
+
+
+def _zero_rows(leaf, mask) -> None:
+    leaf[:, torch.nonzero(mask, as_tuple=True)[0].to(leaf.device)] = 0
 
 
 def zero_slots(blocks, slot_mask):
     """Zero (in place) the cache rows of slots where ``slot_mask`` [B]."""
-    idx = torch.nonzero(slot_mask, as_tuple=True)[0]
-
-    def zero(l):
-        l[:, idx] = 0
-        return l
-
-    return tree_map(zero, blocks)
+    return tree_map(lambda l: _rows_in_place(_zero_rows, l, slot_mask),
+                    blocks)
 
 
 def ring_slot_positions(cache_len: int, window: Optional[int], pos,
@@ -173,7 +209,16 @@ def write_kv(cache_k, cache_v, k_new, v_new, pos, window: Optional[int],
     first such token (the keep-first-L truncation of a one-shot prefill).
     A dropped token's slot keeps its value (or takes the token that
     finally lands there), so every write is exact, no write order
-    matters and nothing waits for the device."""
+    matters and nothing waits for the device.  DTensor caches: each rank
+    writes its own shard, with its rows of ``k_new`` / ``v_new``, ``pos``
+    and ``valid`` (no cache-sized temporary)."""
+    if sh.is_dtensor(cache_k):
+        rows = lambda x: sh.local_view(x, cache_k, 0)
+        write_kv(cache_k.to_local(), cache_v.to_local(),
+                 sh.local_view(k_new, cache_k), sh.local_view(v_new, cache_v),
+                 rows(pos) if torch.is_tensor(pos) and pos.ndim else pos,
+                 window, valid=rows(valid))
+        return cache_k, cache_v
     B, C = k_new.shape[:2]
     L = cache_k.shape[1]
     if not torch.is_tensor(pos) or pos.ndim == 0:
@@ -355,7 +400,12 @@ def paged_view(cfg: ModelConfig, blocks, btab, max_seq: int, *,
     ``identity_block_table`` forever) returns a view of the pool: the
     steps then write the pool in place.  Otherwise the pages are gathered
     into a new tensor, which ``paged_update_decode`` /
-    ``paged_update_chunk`` scatter back."""
+    ``paged_update_chunk`` scatter back.
+
+    DTensor pools (``distribute_paged_cache``): each rank gathers its own
+    slots' pages (slots over ``data`` where they divide it, kv heads as
+    the pool's), always as a copy: a view of the pool would hold every
+    slot on every ``data`` rank."""
     out = {}
     B, MP = btab.shape
     for j, spec in enumerate(cfg.pattern):
@@ -368,6 +418,8 @@ def paged_view(cfg: ModelConfig, blocks, btab, max_seq: int, *,
         mp = -(-L // page_size)
 
         def g(pool):
+            if sh.is_dtensor(pool):
+                return _local_pages_view(pool, btab, mp, page_size, L)
             R, tail = pool.shape[0], pool.shape[3:]
             if identity:
                 if pool_pages(pool) != B * MP:
@@ -385,6 +437,24 @@ def paged_view(cfg: ModelConfig, blocks, btab, max_seq: int, *,
     return out
 
 
+def _local_pages_view(pool, btab, mp: int, page_size: int, L: int):
+    """``paged_view``'s gather on a DTensor pool: this rank's slots'
+    pages (rows of ``btab`` over ``data`` where the slots divide it) as a
+    DTensor view ``[R, B, L, KV, hd]``."""
+    from torch.distributed.tensor import DTensor
+    mesh = pool.device_mesh
+    B = btab.shape[0]
+    shape = (pool.shape[0], B, L) + tuple(pool.shape[3:])
+    pl = sh.tensor_placements(sh.P(None, sh.DATA, None, sh.MODEL, None),
+                              shape, mesh)
+    rows = sh.local_block(btab, mesh, sh.row_placements(pl, 1))
+    loc = pool.to_local()
+    t = loc[:, rows[:, :mp].long()]
+    t = t.view(loc.shape[0], rows.shape[0], mp * page_size,
+               *loc.shape[3:])[:, :, :L].contiguous()
+    return DTensor.from_local(t, mesh, pl, run_check=False)
+
+
 def _merge_per_slot(layer, new, mask) -> None:
     """Emit-masked per-slot merge (in place) of a layer's non-pool leaves
     that the step wrote into other tensors."""
@@ -397,11 +467,23 @@ def _merge_per_slot(layer, new, mask) -> None:
 
 def _scatter_tokens(pool, view, page, off, slot) -> None:
     """pool[:, page, off] = view[:, row, slot] for [B] or [B, C] indices
-    (dropped entries carry the sink page)."""
+    (dropped entries carry the sink page).  DTensors: each rank takes its
+    own slots' tokens from its view, all-gathers them over ``data`` and
+    writes every slot's into its copy of the pages."""
+    if sh.is_dtensor(pool):
+        tok = _view_tokens(view.to_local(), sh.local_view(slot, view, 1))
+        tok = sh.gather_rows(tok, view, 1, 1)
+        pool.to_local()[:, page, off] = tok.to(pool.dtype)
+        return
+    pool[:, page, off] = _view_tokens(view, slot).to(pool.dtype)
+
+
+def _view_tokens(view, slot):
+    """view[:, row, slot] for [B] or [B, C] slot indices."""
     rows = torch.arange(view.shape[1], device=view.device)
     if slot.ndim == 2:
         rows = rows[:, None].expand_as(slot)
-    pool[:, page, off] = view[:, rows, slot].to(pool.dtype)
+    return view[:, rows, slot]
 
 
 def _live_page(btab, slot, page_size: int, live, n_pool: int):
@@ -485,7 +567,9 @@ def copy_pages(cfg: ModelConfig, blocks, src, dst):
             continue
         layer = blocks[f"layer{j}"]
         for kk in ("k", "v"):
-            pool = layer[kk]
+            # a DTensor pool holds every page on every rank: a local copy
+            pool = layer[kk].to_local() if sh.is_dtensor(layer[kk]) \
+                else layer[kk]
             n = pool_pages(pool)
             s = torch.as_tensor(src, device=pool.device).to(torch.int64)
             d = torch.as_tensor(dst, device=pool.device).to(torch.int64)
@@ -501,9 +585,9 @@ def zero_paged_slots(cfg: ModelConfig, blocks, slot_mask):
     Pool pages are left alone: stale contents are masked by position
     validity, and a recycled slot's block-table row may still point at
     pages a live sharer reads.  Returns ``blocks``."""
-    idx = torch.nonzero(torch.as_tensor(slot_mask), as_tuple=True)[0]
+    mask = torch.as_tensor(slot_mask)
     for j, spec in enumerate(cfg.pattern):
         for kk, leaf in blocks[f"layer{j}"].items():
             if not (spec.mixer == Mixer.ATTENTION and kk in ("k", "v")):
-                leaf[:, idx.to(leaf.device)] = 0
+                _rows_in_place(_zero_rows, leaf, mask)
     return blocks

@@ -14,7 +14,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import FFN, ModelConfig
-from repro_torch.parallel.sharding import is_dtensor, vocab_parallel_embedding
+from repro_torch.parallel.sharding import (P, is_dtensor, kernel_specs,
+                                          local_call,
+                                          vocab_parallel_embedding)
 
 
 # fp32 elements drawn at a time for a leaf of another dtype (512 MB)
@@ -134,6 +136,20 @@ def init_embeddings(gen, cfg: ModelConfig, dtype):
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                   dtype=dtype)
     return p
+
+
+def take_rows(x, idx):
+    """``x[b, idx[b]]`` for x [B, S, ...] and idx [B]: each row's entry
+    at its own index.  A DTensor ``x``: each rank picks its own rows
+    (over ``data``) with its rows of ``idx``."""
+    def pick(x, idx):
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+    if not is_dtensor(x):
+        return pick(x, idx)
+    b, _ = kernel_specs(x.device_mesh, x.shape[0], 1)
+    rest = (None,) * (x.ndim - 2)
+    return local_call(pick, (x, idx), (P(b, None, *rest), P(b)),
+                      P(b, *rest))
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):

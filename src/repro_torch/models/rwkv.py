@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, token_shift
+from repro_torch.models.layers import dense_init, take_rows, token_shift
 from repro_torch.parallel.sharding import hint
 
 _CHUNK = 64
@@ -169,7 +169,7 @@ def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
             tm = x[:, -1, :]
         else:
             idx = (valid.sum(dim=1) - 1).clamp(0, S - 1)
-            tm = x[torch.arange(B, device=x.device), idx]
+            tm = take_rows(x, idx)
         return y, {"tm_shift": tm, "wkv": wkv_end}
     return y
 

@@ -77,7 +77,11 @@ def speculative_accept(gen: Optional[torch.Generator], target_logits,
     iff u_j < p_j(d_j) / q_j(d_j); on rejection t* is drawn from the
     residual ``max(p - q, 0)``, after all k accepts from p itself), so
     the emitted tokens follow the target's distribution exactly.  The
-    uniforms, then t*, are drawn from ``gen``."""
+    uniforms, then t*, are drawn from ``gen``.  DTensor logits (a sharded
+    verify) are gathered first: every rank draws and decides on the full
+    batch, as ``sample_with_logprobs``, and gets plain tensors back."""
+    target_logits, drafts, draft_logits = (
+        sh.full(target_logits), sh.full(drafts), sh.full(draft_logits))
     B, k1, V = target_logits.shape
     k = k1 - 1
     dev = target_logits.device
@@ -115,7 +119,10 @@ def speculative_accept(gen: Optional[torch.Generator], target_logits,
 
 
 def initial_alive(prompts, eos_token: Optional[int]):
-    """[B] bool: alive at generation start (prompt not ending in EOS)."""
+    """[B] bool: alive at generation start (prompt not ending in EOS).
+    Here and in ``next_alive`` a DTensor operand is gathered first: the
+    decision is the full batch's on every rank."""
+    prompts = sh.full(prompts)
     if eos_token is None:
         return torch.ones((prompts.shape[0],), dtype=torch.bool,
                           device=prompts.device)
@@ -124,6 +131,7 @@ def initial_alive(prompts, eos_token: Optional[int]):
 
 def next_alive(alive, emitted, eos_token: Optional[int]):
     """Aliveness after emitting `emitted` [B]: dies on (its own) EOS."""
+    alive, emitted = sh.full(alive), sh.full(emitted)
     if eos_token is None:
         return alive
     return alive & (emitted != eos_token)

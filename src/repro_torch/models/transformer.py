@@ -18,7 +18,12 @@ chooses the attention path per call (the trainer's loss passes
 sharding hints sit at its points (``parallel.sharding.hint``: the
 identity on plain tensors, a redistribution of a DTensor under
 ``use_hints``); a fresh decode cache of a sharded forward is laid out
-on the activations' mesh (``cache.distribute_cache``).
+on the activations' mesh (``cache.distribute_cache``).  The decode,
+prefill-chunk and verify steps also hint each residual sum (the
+reference hints their embedding only and lets GSPMD carry the layout):
+DTensor would otherwise resolve the row-parallel partial sums by
+sharding the rows over ``data``, unevenly where a wave does not divide
+it, and the next flatten refuses such a tensor.
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ from repro_torch.models.config import FFN, Mixer, ModelConfig
 from repro_torch.models.layers import (apply_ffn, embed_features,
                                        embed_tokens, init_embeddings,
                                        init_ffn, init_rmsnorm, rmsnorm,
-                                       sinusoidal_positions, token_shift,
-                                       unembed)
+                                       sinusoidal_positions, take_rows,
+                                       token_shift, unembed)
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import hint, is_dtensor
 from repro_torch.tree import tree_leaves
 
@@ -172,7 +178,7 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
         x = hint(x + y, "residual")
         if cache_entry is not None:
             for name, t in st.items():
-                cache_entry[name].copy_(t)
+                _masked_copy(cache_entry[name], t, None)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.moe:
         y, aux = moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)
@@ -180,7 +186,7 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
     if spec.ffn == FFN.RWKV_CHANNEL:
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
         if cache_entry is not None:
-            cache_entry["cm_shift"].copy_(h[:, -1, :])
+            _masked_copy(cache_entry["cm_shift"], h[:, -1, :], None)
         return hint(x + y, "residual"), 0.0
     return hint(x + apply_ffn(p["ffn"], cfg, spec.ffn, h), "residual"), 0.0
 
@@ -256,7 +262,12 @@ def _decode_mask(pos, q_pos, cache_len: int, window: Optional[int],
 
 def _masked_copy(leaf, new, mask) -> None:
     """leaf <- new (in place), on the rows (axis 0) where ``mask`` [B] is
-    True when a mask is given."""
+    True when a mask is given.  A DTensor leaf: each rank on its shard,
+    with its rows of ``new`` and ``mask``."""
+    if is_dtensor(leaf):
+        _masked_copy(leaf.to_local(), sh.local_view(new, leaf),
+                     sh.local_view(mask, leaf, 0))
+        return
     new = new.to(leaf.dtype)
     if mask is not None:
         new = torch.where(mask.view((-1,) + (1,) * (leaf.ndim - 1)), new,
@@ -285,13 +296,14 @@ def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
         y = attn_mod.multihead_attention(
             q, ck, cv, q_pos, k_pos, causal=True, window=window,
             cap=cfg.attn_softcap, k_valid=valid, bias=bias)
-        x = x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
+        x = hint(x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"],
+                 "decode_residual")
     else:
         key, _, apply = _MIXERS[spec.mixer]
         y, st_new = apply(p[key], cfg, h, state=entry, return_state=True)
         for name, t in st_new.items():
             _masked_copy(entry[name], t, write_mask)
-        x = x + y
+        x = hint(x + y, "decode_residual")
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.moe:
         return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
@@ -333,8 +345,9 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                 if key not in masks:
                     masks[key] = _decode_mask(pos, q_pos, *key, x.shape[0])
                 mask = masks[key]
-            x = _layer_decode(bp[f"layer{j}"], cfg, spec, x, entry, pos,
-                              q_pos, window, mask, write_mask)
+            x = hint(_layer_decode(bp[f"layer{j}"], cfg, spec, x, entry,
+                                   pos, q_pos, window, mask, write_mask),
+                     "decode_residual")
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], cfg, x)[:, 0]
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
@@ -354,6 +367,10 @@ def _chunk_attention(p, cfg: ModelConfig, spec, h, entry, pos, q_pos,
     window = cache_mod.effective_window(cfg, spec, long_mode)
     q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
     ck0, cv0 = entry["k"], entry["v"]
+    if is_dtensor(ck0):
+        # the chunk's k/v in the cache's layout: the concatenation below
+        # is then each rank's own, and no cache shard moves
+        k, v = sh.redistribute_like(k, ck0), sh.redistribute_like(v, cv0)
     # cache contents before this chunk (cursor pos-1); pos == 0 rows see
     # an all-invalid cache
     k_pos_c, valid_c = cache_mod.ring_slot_positions(ck0.shape[1], window,
@@ -386,7 +403,7 @@ def _layer_prefill_chunk(p, cfg: ModelConfig, spec, x, entry, pos, valid,
                                            q_pos, valid, long_mode)
         cache_mod.write_kv(entry["k"], entry["v"], k, v, pos, window,
                            valid=valid)
-        x = x + y @ p["attn"]["wo"]
+        x = hint(x + y @ p["attn"]["wo"], "decode_residual")
     else:
         key, _, apply = _MIXERS[spec.mixer]
         names = (("conv", "ssm") if spec.mixer == Mixer.MAMBA
@@ -395,7 +412,7 @@ def _layer_prefill_chunk(p, cfg: ModelConfig, spec, x, entry, pos, valid,
                           return_state=True, valid=valid)
         for name, t in st_new.items():
             _masked_copy(entry[name], t, live)
-        x = x + y
+        x = hint(x + y, "decode_residual")
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.moe:
         return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
@@ -404,8 +421,7 @@ def _layer_prefill_chunk(p, cfg: ModelConfig, spec, x, entry, pos, valid,
                              h[:, :-1]], dim=1)
         y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
         idx = (n_valid - 1).clamp(0, C - 1)
-        _masked_copy(entry["cm_shift"],
-                     h[torch.arange(B, device=x.device), idx], live)
+        _masked_copy(entry["cm_shift"], take_rows(h, idx), live)
         return x + y
     return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
 
@@ -430,13 +446,13 @@ def prefill_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
     for r in range(cfg.n_pattern_repeats):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
-            x = _layer_prefill_chunk(
+            x = hint(_layer_prefill_chunk(
                 bp[f"layer{j}"], cfg, spec, x,
                 _entry(cache["blocks"][f"layer{j}"], r), pos, valid,
-                n_valid, long_mode)
+                n_valid, long_mode), "decode_residual")
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     idx = (n_valid - 1).clamp(0, C - 1)
-    h_last = x[torch.arange(B, device=x.device), idx]
+    h_last = take_rows(x, idx)
     logits = unembed(params["embed"], cfg, h_last)
     return logits, {"blocks": cache["blocks"], "pos": pos + n_valid}
 
@@ -478,12 +494,13 @@ def verify_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
             y, k, v, _ = _chunk_attention(
                 p, cfg, spec, h, _entry(cache["blocks"][f"layer{j}"], r),
                 pos, q_pos, chunk_valid, long_mode)
-            x = x + y @ p["attn"]["wo"]
+            x = hint(x + y @ p["attn"]["wo"], "decode_residual")
             h = rmsnorm(p["norm2"], x, cfg.norm_eps)
             if spec.moe:
                 x = x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
             else:
                 x = x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+            x = hint(x, "decode_residual")
             deltas[f"layer{j}"]["k"].append(k)
             deltas[f"layer{j}"]["v"].append(v)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -20,6 +20,13 @@ Port of ``repro.parallel.sharding``.  Two pieces, as the reference:
 A ``PartitionSpec`` here is a small tuple (``P("data", None)``): entries
 are an axis name, a tuple of axis names, or ``None``.
 
+Beyond the reference (whose arrays are immutable): the in-place writers
+of the decode caches take DTensors shard by shard.  ``local_view`` gives
+a rank its block of an operand laid out as the DTensor it writes into
+(rows of positions and masks, fresh k/v), ``gather_rows`` all-gathers a
+rank's rows over the mesh dimensions that split them, and
+``local_rows`` views one local row of every shard as a DTensor.
+
 Storage and use: a parameter is stored under its spec (FSDP over
 ``data`` as the reference), and a step redistributes it to its use
 placements (``use_spec``: the spec without ``data``, the all-gather
@@ -34,6 +41,7 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as tdist
 
 DATA, MODEL = "data", "model"
 AXES = (DATA, MODEL)
@@ -324,10 +332,115 @@ def for_use(params):
     return map_with_path(use, params)
 
 
+def distribute_params(params, mesh):
+    """A parameter tree committed to ``mesh`` by ``param_tree_specs``:
+    each plain leaf (the same full tensor on every rank) becomes the
+    DTensor of its shard, with no communication; DTensor leaves (already
+    placed) come through as they are."""
+    specs = param_tree_specs(params)
+
+    def put(path, x):
+        if x is None or is_dtensor(x):
+            return x
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return distribute(x, mesh, spec)
+    return map_with_path(put, params)
+
+
+def mesh_size(mesh) -> int:
+    """Devices in a torch DeviceMesh or in a placement's ``LocalMesh``."""
+    if hasattr(mesh, "devices"):
+        return int(mesh.devices.size)
+    return int(mesh.size())
+
+
 def full(x):
     """The full tensor of a DTensor (a collective over its mesh); plain
     tensors and other leaves unchanged."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+# ---------------------------------------------------------------------------
+# In-place writes into DTensor shards: each rank writes its own block
+# ---------------------------------------------------------------------------
+
+def row_placements(placements, row_dim: int) -> Tuple:
+    """The placements of a per-row operand whose dim 0 is dim
+    ``row_dim`` of a DTensor laid out by ``placements``: its rows split
+    as that dim is, replicated over every other mesh dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if isinstance(p, Shard) and p.dim == row_dim
+                 else Replicate() for p in placements)
+
+
+def local_block(x, mesh, placements):
+    """This rank's block of ``x`` (every rank's same full tensor) under
+    ``placements``: slices, no communication (``distribute``'s local
+    shard, on whatever device ``x`` lies)."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            x = x.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return x
+
+
+def local_view(x, ref, row_dim: Optional[int] = None):
+    """This rank's block of ``x`` as DTensor ``ref`` lays it out, for an
+    in-place write into ``ref.to_local()``.  ``row_dim`` None: ``x`` has
+    ``ref``'s dims (a DTensor is redistributed to ``ref``'s placements:
+    nothing moves when they agree).  ``row_dim`` d: ``x`` is a per-row
+    operand (positions, masks, block-table rows) whose dim 0 is
+    ``ref``'s dim d.  A plain ``x`` is every rank's same full tensor and
+    is sliced (no communication); None and non-tensors pass through."""
+    if x is None or not torch.is_tensor(x):
+        return x
+    want = tuple(ref.placements) if row_dim is None \
+        else row_placements(ref.placements, row_dim)
+    if is_dtensor(x):
+        return x.redistribute(ref.device_mesh, want).to_local()
+    return local_block(x, ref.device_mesh, want)
+
+
+def row_shards(ref, row_dim: int) -> int:
+    """How many shards DTensor ``ref`` splits its dim ``row_dim`` into."""
+    from torch.distributed.tensor import Shard
+    n = 1
+    for i, p in enumerate(ref.placements):
+        if isinstance(p, Shard) and p.dim == row_dim:
+            n *= ref.device_mesh.size(i)
+    return n
+
+
+def gather_rows(local, ref, row_dim: int, dim: int):
+    """``local`` (this rank's rows along ``dim``, laid out as DTensor
+    ``ref`` splits its dim ``row_dim``) all-gathered over the mesh
+    dimensions that split them, in mesh order: every rank then holds the
+    rows of the whole mesh (its other dims stay this rank's).  The plain
+    collective, which works wherever ranks share a card."""
+    from torch.distributed.tensor import Shard
+    mesh = ref.device_mesh
+    out = local
+    for i, p in enumerate(ref.placements):
+        if not (isinstance(p, Shard) and p.dim == row_dim):
+            continue
+        n = mesh.size(i)
+        x = out.movedim(dim, 0).contiguous()
+        buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        tdist.all_gather_into_tensor(buf, x, group=mesh.get_group(i))
+        out = buf.movedim(0, dim)
+    return out
+
+
+def local_rows(ref, dim: int, index: int):
+    """The DTensor of local row ``index`` along ``dim`` on every rank of
+    a mesh that splits ``dim``: a view of ``ref``'s local shards (writes
+    land in ``ref``), whose global rows are each shard's ``index``-th."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(ref.to_local().narrow(dim, index, 1),
+                              ref.device_mesh, ref.placements,
+                              run_check=False)
 
 
 def full_tree(tree):

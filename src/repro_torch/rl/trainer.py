@@ -428,16 +428,20 @@ class RLTrainer:
             return step
         return self._sharded("ref_logp", placement, build)
 
-    def sharded_generate(self, placement, prompts):
-        """(params, prompts, rng) single-wave decode on the gen mesh;
-        the rollout comes back full on every gen rank."""
+    def sharded_generate(self, placement, prompts, sampler=None):
+        """(params, prompts, rng) single-wave decode on the gen mesh
+        (``sampler``: the trainer's when None); the rollout comes back
+        full on every gen rank."""
+        sampler = sampler or self.sampler
+
         def build():
             def step(params, prompts, rng):
                 with torch.no_grad(), self._step_in(placement):
-                    return sh.full_tree(self._generate(
-                        sh.for_use(params), prompts=prompts, rng=rng))
+                    return sh.full_tree(rollout.generate(
+                        sh.for_use(params), self.cfg, prompts, rng,
+                        sampler))
             return step
-        return self._sharded("generate", placement, build)
+        return self._sharded(("generate", sampler), placement, build)
 
     def sharded_critic_vals(self, placement, sequences):
         def build():
@@ -498,12 +502,28 @@ class RLTrainer:
     # ------------------------------------------------------------------
     def evaluate(self, prompts: np.ndarray, answers: np.ndarray,
                  rng: Optional[torch.Generator]) -> float:
+        """Greedy exact-match accuracy of the generation replica.  In a
+        world of several ranks every rank calls it: the GEN ranks decode
+        on their placement (sharded over its mesh when it spans several
+        ranks) and the GEN lead's score reaches every rank."""
         sampler = dataclasses.replace(self.sampler, greedy=True)
-        with torch.inference_mode():
-            ro = rollout.generate(
-                self.gen_params, self.cfg,
-                torch.as_tensor(prompts, device=self.device), rng, sampler)
-        gen_np = ro["gen_tokens"].cpu().numpy()
-        exact = [self.task.reward(a, g) >= 1.0
-                 for a, g in zip(answers, gen_np)]
-        return float(np.mean(exact))
+        prompts_t = torch.as_tensor(prompts, device=self.device)
+        score = None
+        pl = self.engine.placements[self.engine.ctx.gen_task] \
+            if dist.multi() else None
+        if pl is None or (pl.here and not pl.sharded):
+            with torch.inference_mode():
+                ro = rollout.generate(self.gen_params, self.cfg, prompts_t,
+                                      rng, sampler)
+        elif pl.here:
+            pd = pl.shard_batch(prompts_t)
+            with pl.mesh:
+                ro = self.sharded_generate(pl, pd, sampler)(
+                    self.gen_params, pd, rng)
+        if pl is None or pl.here:
+            gen_np = ro["gen_tokens"].cpu().numpy()
+            score = float(np.mean([self.task.reward(a, g) >= 1.0
+                                   for a, g in zip(answers, gen_np)]))
+        if pl is not None:
+            score = dist.broadcast_object(score, pl.lead)
+        return score

@@ -41,6 +41,10 @@ def _cuda():
     (2, 256, 16, 8, 128, True, None, None), (1, 77, 4, 4, 48, False, None, None),
     (2, 256, 64, 8, 128, True, None, None),     # jamba's heads: GQA 8
     (2, 1000, 16, 16, 80, False, None, None),   # hubert: non-causal, H == KV
+    # qwen3-0.6b's one-shot admission per rank of a DP 2 / TP 2 mesh:
+    # genserve.generate(mesh=)'s wave 8 at prompt 64, the RL engine's
+    # wave 32 at the addition task's prompt 5 (chip_smoke phase 23)
+    (4, 64, 8, 4, 128, True, None, None), (16, 5, 8, 4, 128, True, None, None),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_cuda(B, S, H, KV, hd, causal, window, cap, dtype):
@@ -63,6 +67,8 @@ def test_flash_attention_cuda(B, S, H, KV, hd, causal, window, cap, dtype):
     (2, 4, 2, 64, 300, None), (1, 8, 8, 80, 512, 30.0),
     (16, 16, 8, 128, 320, None), (3, 4, 1, 128, 1000, 30.0),
     (16, 64, 8, 128, 320, None),                # jamba's heads: GQA 8
+    # a decode step per rank of the same meshes (phase 23)
+    (4, 8, 4, 128, 80, None), (16, 8, 4, 128, 9, None),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_cuda(B, H, KV, hd, L, cap, dtype):

@@ -194,14 +194,30 @@ def test_unported_options_raise(flag, capsys):
 
 
 def test_unported_engine_arguments_raise():
-    """Every engine argument of the JAX adapter is taken now; only
-    ``mesh`` (sharded serving) is refused, naming ROADMAP.md §1 item 9."""
+    """No engine argument of the JAX adapter is refused any more (the
+    name is older than the port of the last one, ``mesh``): ``mesh=`` of
+    a world of one (a placement's one-device mesh) serves exactly as
+    ``mesh=None``, as the reference's ``serve`` drops a one-device mesh
+    (the sharded modes are ``tests/test_torch_sharded_genserve.py``'s),
+    and every other engine argument takes the engine path."""
+    from repro_torch.engine.placement import LocalMesh
     cfg = tarchs.SMOKE["qwen3-0.6b"]
     tp = TT.init_params(cfg)
+    prompts = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (6, 4)))
+    one = LocalMesh(np.array([[torch.device("cpu")]], dtype=object))
+    for kw in ({}, {"prefill_chunk": 2, "page_size": 2,
+                    "prefix_cache": True}):
+        outs = [tadapter.generate(tp, cfg, prompts, None,
+                                  TSampler(max_new_tokens=3, greedy=True),
+                                  wave=4, fast_path=False, device="cpu",
+                                  mesh=m, **kw) for m in (one, None)]
+        (a, sa), (b, sb) = outs
+        assert sa["engine"] == sb["engine"] == "genserve"
+        for k in ("gen_tokens", "mask", "logprobs"):
+            assert torch.equal(a[k], b[k]), (kw, k)
+        assert sa["occupancy_trace"] == sb["occupancy_trace"]
     prompts = torch.zeros((2, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tadapter.generate(tp, cfg, prompts, None, TSampler(greedy=True),
-                          fast_path=False, device="cpu", mesh=object())
     dcfg = dataclasses.replace(cfg, name="draft", n_layers=1)
     for kw in ({"slot_failures": {1: [0]}}, {"cancels": {1: [0]}},
                {"prefill_chunk": 4}, {"prefill_chunk": 2, "page_size": 2,

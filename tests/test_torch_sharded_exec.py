@@ -155,6 +155,24 @@ def test_sampled_tokens_identical_to_world_of_one(world):
             assert np.mean(a == b) >= sharded_exec.AGREEMENT
 
 
+def test_gen_replay_on_its_own_weights_is_identical(world):
+    """Each sharded GEN against a world-of-one GEN decoding the same
+    prompts from the same generator state on the weights the GEN ranks
+    held (``sharded_exec._gen_replay``): with the weights equal, only the
+    reduction order of the sharded matmuls differs, and every token
+    agrees (``sharded_exec.REPLAY_AGREEMENT``), sampled runs after the
+    syncs included."""
+    ranks, _, _, _ = world
+    for r in ranks[:4]:
+        for mode in ("sampled", "greedy"):
+            got = r[mode]["replay_agreement"]
+            assert len(got) == ITERS, (r["rank"], mode, got)
+            assert all(a >= sharded_exec.REPLAY_AGREEMENT for a in got), \
+                (r["rank"], mode, got)
+    for r in ranks[4:]:
+        assert r["sampled"]["replay_agreement"] == []
+
+
 def test_greedy_tokens_identical_to_jax_single_device(world):
     ranks, _, jtokens, _ = world
     got = ranks[0]["greedy"]["tokens"]

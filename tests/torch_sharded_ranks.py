@@ -1,5 +1,6 @@
 """Rank functions of the sharded CPU tests (``test_torch_sharded.py``,
-``test_torch_sharded_exec.py``) and the subprocess that spawns them.
+``test_torch_sharded_exec.py``, ``test_torch_sharded_genserve.py``) and
+the subprocess that spawns them.
 
 The tests run ``python tests/torch_sharded_ranks.py IN OUT`` with a
 timeout of their own: ``IN`` is a pickle of the job (its kind and
@@ -106,15 +107,13 @@ def steps_rank(device, job):
     out["rollout"] = _np(tr.sharded_generate(gpl, pd)(tr.gen_params, pd,
                                                       None))
     out["kernels"] = kernels_on_dtensors(gpl.mesh)
-    # a sharded GEN that needs the genserve engine is refused (item 9b)
+    # the same GEN on the genserve engine, served on the GEN mesh
     tr.rl = dataclasses.replace(tr.rl, gen_engine="genserve")
     bb = {"prompts_rep": prompts, "rng": None, "gen_start": G,
           "answers_rep": np.zeros(len(prompts))}
-    try:
-        tasks_mod.run_generation(tr, bb, gpl)
-        out["genserve_refusal"] = None
-    except NotImplementedError as e:
-        out["genserve_refusal"] = str(e)
+    tasks_mod.run_generation(tr, bb, gpl)
+    out["genserve_rollout"] = _np(bb["fresh"]["rollout"])
+    out["genserve_engine"] = bb["gen_stats"]["engine"]
     return out
 
 
@@ -185,7 +184,8 @@ def exec_rank(device, job):
     from repro_torch.launch import sharded_exec
     return sharded_exec.rank_main(device, job["cfg"], job["iters"],
                                   job["batch"], modes=job["modes"],
-                                  state=job["state"], kernels=True)
+                                  state=job["state"], kernels=True,
+                                  replay=True)
 
 
 def exec_world1(job):
@@ -225,6 +225,135 @@ def swap_run(device, job):
                           for r in tr.engine.pipeline.records]}
 
 
+# ---------------------------------------------------------------------------
+# genserve on a mesh (test_torch_sharded_genserve.py)
+# ---------------------------------------------------------------------------
+
+def _gather_spy():
+    """Record the local shape of every all-gather input (DTensor's
+    functional all-gathers, by either name, and the plain collective):
+    [shapes], undo."""
+    import torch.distributed as tdist
+    import torch.distributed._functional_collectives as funcol
+    shapes, saved = [], []
+    for mod, name, arg in ((funcol, "all_gather_tensor", 0),
+                           (funcol, "all_gather_single", 0),
+                           (tdist, "all_gather_into_tensor", 1)):
+        fn = getattr(mod, name, None)
+        if fn is None:
+            continue
+        saved.append((mod, name, fn))
+
+        def spy(*a, _fn=fn, _arg=arg, **k):
+            shapes.append(tuple(a[_arg].shape))
+            return _fn(*a, **k)
+        setattr(mod, name, spy)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return shapes, undo
+
+
+def serve_modes(device, job, mesh=None):
+    """Each mode of the job through ``genserve.generate`` (on ``mesh``
+    when given): the rollout, the engine stats the tests compare, the
+    leaked pages, the wall seconds, and on a mesh the cache leaves'
+    placements after serving and whether any all-gather took a cache
+    shard's shape."""
+    import time
+    from repro_torch.genserve import adapter, decoder
+    from repro_torch.rl.rollout import SamplerConfig
+    params = {a: bridge.from_numpy_params(p, job["cfgs"][a], device)
+              for a, p in job["params"].items()}
+    dcfg = job["draft_cfg"]
+    draft = bridge.from_numpy_params(job["draft"], dcfg, device)
+    out = {}
+    init_state = decoder._init_state
+    for name, m in job["modes"].items():
+        cfg = job["cfgs"][m["arch"]]
+        kw = dict(m["kw"])
+        if kw.get("spec_k"):
+            kw.update(draft_params=draft, draft_cfg=dcfg)
+        states = []
+
+        def capture(*a, **k):
+            states.append(init_state(*a, **k))
+            return states[-1]
+        decoder._init_state = capture
+        shapes, undo = _gather_spy() if mesh is not None else ([], None)
+        t0 = time.monotonic()
+        try:
+            ro, st = adapter.generate(
+                params[m["arch"]], cfg, torch.as_tensor(m["prompts"]), None,
+                SamplerConfig(max_new_tokens=m["N"], greedy=True,
+                              eos_token=m.get("eos")),
+                fast_path=False, device=device, mesh=mesh, **kw)
+        finally:
+            decoder._init_state = init_state
+            if undo is not None:
+                undo()
+        rec = {"rollout": _np(ro), "wall": time.monotonic() - t0,
+               "stats": {k: v for k, v in st.items()
+                         if not k.startswith("_")
+                         and k not in ("ttft", "queue_wait", "rounds")}}
+        if "_pagepool" in st:
+            rec["leaked"] = st["_pagepool"].leak_check(
+                expected_refs=st["_radix"].page_refs())
+        if mesh is not None:
+            caches = {k: states[0][k] for k in ("cache", "dcache")
+                      if k in states[0]}
+            rec["placements"] = {
+                f"{k}/{layer}/{leaf}": (sh.is_dtensor(t), str(t.placements)
+                                        if sh.is_dtensor(t) else None)
+                for k, blocks in caches.items()
+                for layer, leaves in blocks.items()
+                for leaf, t in leaves.items()}
+            # a leaf's local shape, and a k/v entry's (one repeat): the
+            # 2-D entries of the recurrent leaves would meet the logits'
+            local = {tuple(t.to_local().shape[i:])
+                     for blocks in caches.values()
+                     for leaves in blocks.values()
+                     for leaf, t in leaves.items()
+                     for i in ((0, 1) if leaf in ("k", "v") else (0,))}
+            rec["cache_gathered"] = sorted(set(shapes) & local)
+            rec["n_gathers"] = len(shapes)
+        out[name] = rec
+    return out
+
+
+def genserve_rank(device, job):
+    """``serve_modes`` on a 2x2 ("data", "model") mesh of this world."""
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh(device.type, torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=sh.AXES)
+    return serve_modes(device, job, mesh)
+
+
+def gen_rl_rank(device, job):
+    from repro_torch.launch import sharded_exec
+    return sharded_exec.rank_main(
+        device, job["cfg"], job["iters"], job["batch"], modes=(),
+        state=job["state"], n_rollouts=job["n_rollouts"],
+        variants=job["variants"], evaluate=True)
+
+
+def gen_rl_world1(job):
+    """The variants folded onto one device (this process, no world)."""
+    from repro_torch.launch import sharded_exec
+    out = {}
+    for label, kw in job["variants"].items():
+        tr = sharded_exec.make_trainer(job["cfg"], torch.device("cpu"),
+                                       n_rollouts=job["n_rollouts"], **kw)
+        if job["state"] is not None:
+            tr.load_state_tree(bridge.from_numpy_state_tree(
+                job["state"], job["cfg"], tr.device))
+        out[label] = sharded_exec._summary(
+            tr, *sharded_exec.run(tr, job["iters"], job["batch"]))
+        out[label]["eval"] = sharded_exec.evaluate_batch(tr)
+    return out
+
+
 def main(inp: str, out: str) -> None:
     import torch_sharded_ranks as me    # by name: the ranks import it
     torch.set_num_threads(1)
@@ -233,6 +362,14 @@ def main(inp: str, out: str) -> None:
     if job["kind"] == "steps":
         res = {"ranks": dist.spawn(me.steps_rank, job["world"], "cpu", job,
                                    timeout=job["timeout"])}
+    elif job["kind"] == "genserve":
+        res = {"ranks": dist.spawn(me.genserve_rank, job["world"], "cpu",
+                                   job, timeout=job["timeout"]),
+               "world1": me.serve_modes(torch.device("cpu"), job)}
+    elif job["kind"] == "gen_rl":
+        res = {"ranks": dist.spawn(me.gen_rl_rank, job["world"], "cpu", job,
+                                   timeout=job["timeout"]),
+               "world1": me.gen_rl_world1(job)}
     elif job["kind"] == "swap":
         res = {"ranks": dist.spawn(me.swap_run, job["world"], "cpu", job,
                                    timeout=job["timeout"]),
