@@ -204,6 +204,22 @@ Phases, each printing its result:
              peak memory, wall time, hit and accept rates; then both
              kernels timed at those per-rank shapes (kernel, plain,
              sdpa, bound).
+ 24. elastic ranks ``launch.train --rl grpo --batch 8 --search-budget 40``
+             through ``run_rl`` on qwen3-0.6b's first 8 layers at full
+             width (fp32, vocab 16) as 8 ranks sharing the card over gloo,
+             and in a world of one on the card: ``--drift drop_tail``,
+             ``--fault permanent_crash --require-recover`` and ``--fault
+             ckpt_corrupt --require-recover``; every rank's recovery line
+             and replans the same, and the world of one's (the reactive
+             ones read measured time and are printed only; where they
+             differ, the recovery line's kind); placements
+             per rank before and after; ms/iter per plan epoch,
+             reschedule seconds, the checkpoint's GB, gather and write
+             seconds, GB/s; launches per rank and (epoch, task): GEN both
+             attention kernels, reference inference flash, TRAIN none;
+             both kernels within 2e-6 of plain at each rank's last
+             per-rank shapes, then timed at drop_tail's (kernel, plain,
+             sdpa, bound).
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -215,6 +231,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -277,30 +294,40 @@ def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3):
     return times[len(times) // 2], times[0], times[-1]
 
 
+PROFILE_ATTEMPTS = 4     # profiling sessions before device_ms fails
+PROFILE_SPARE = 2        # calls a session makes beyond the ones it times
+
+
 def device_ms(fn, torch, flush, kernel: str, iters: int = 30):
     """(median, min, max) of one kernel's own device time in ms, from
-    torch.profiler over ``iters`` calls with the L2 flushed before each.
-    A pass of its own after ``time_ms``'s, so that the tracing adds
-    nothing to the event times; ``kernel`` is part of the kernel's name."""
+    torch.profiler over its last ``iters`` of ``iters + PROFILE_SPARE``
+    calls with the L2 flushed before each.  A pass of its own after
+    ``time_ms``'s, so that the tracing adds nothing to the event times;
+    ``kernel`` is part of the kernel's name."""
     from repro_torch.launch.profile_serve import device_events
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(2):
+    for attempt in range(PROFILE_ATTEMPTS):
         # a profiling session now and then returns no device activity at
-        # all (seen once on the card for one of phase 3's cases): profile
-        # a second time before failing
+        # all, or misses a launch or two (seen on the card in phases 3,
+        # 20 and 24: 0, 10, 28 or 29 of 30): the spare calls absorb a
+        # missed launch, and a session that still sees fewer than
+        # ``iters`` is printed and profiled again
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
+            for _ in range(iters + PROFILE_SPARE):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        times = sorted(ev["dur"] / 1e3 for ev in device_events(prof)
-                       if ev["cat"] == "kernel" and kernel in ev["name"])
-        if len(times) == iters:
+        events = sorted((ev for ev in device_events(prof)
+                         if ev["cat"] == "kernel" and kernel in ev["name"]),
+                        key=lambda ev: ev["ts"])
+        if len(events) >= iters:
             break
-        print(f"[3 kernels] the profiler saw {len(times)} launches of "
-              f"{kernel}, not {iters} (attempt {attempt + 1})", flush=True)
-    check(len(times) == iters, f"the profiler saw {len(times)} launches of "
-          f"{kernel}, not {iters}")
+        print(f"[3 kernels] the profiler saw {len(events)} launches of "
+              f"{kernel} in {iters + PROFILE_SPARE} calls, fewer than "
+              f"{iters} (attempt {attempt + 1})", flush=True)
+    check(len(events) >= iters, f"the profiler saw {len(events)} launches "
+          f"of {kernel}, fewer than {iters}")
+    times = sorted(ev["dur"] / 1e3 for ev in events[-iters:])
     return times[len(times) // 2], times[0], times[-1]
 
 
@@ -2346,6 +2373,273 @@ def sharded_genserve_phase23(torch, dev, card, layers: int = LAYERS23):
           f"{card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the RL launcher's drift and faults on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+LAYERS24 = 8            # the GRPO state (2.5 GB) must fit the format's 4 GiB
+ARGV24 = ["--arch", ARCH, "--rl", "grpo", "--batch", "8",
+          "--search-budget", "40"]
+RUNS24 = (("drop_tail", ["--drift", "drop_tail", "--steps", "5"]),
+          ("permanent_crash", ["--fault", "permanent_crash",
+                               "--require-recover", "--steps", "7"]),
+          ("ckpt_corrupt", ["--fault", "ckpt_corrupt", "--require-recover",
+                            "--steps", "3"]))
+TOL24 = 2e-6            # kernel vs plain at the per-rank shapes, fp32
+
+
+def plan_key(plan):
+    """A plan's parallelization and device assignment, comparable."""
+    import numpy as np
+    return (sorted((int(t), tuple(int(x) for x in p))
+                   for t, p in plan.parallel.items()),
+            sorted((int(t), np.asarray(a).tolist())
+                   for t, a in plan.assignment.items()))
+
+
+def task_launches():
+    """Kernel launches per (plan epoch, task name) on this process: wraps
+    the registered executors (a rank process, once at its start) to read
+    the two attention kernels' counts around each task."""
+    from repro_torch.engine import tasks as tasks_mod
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    counts = {}
+    for key, fn in list(tasks_mod._EXECUTORS.items()):
+        def wrapped(st, bb, pl, _fn=fn):
+            f0, d0 = fa.launches, dec.launches
+            try:
+                return _fn(st, bb, pl)
+            finally:
+                c = counts.setdefault(
+                    f"{st.engine.epoch}/{st.wf.task(pl.task).name}", [0, 0])
+                c[0] += fa.launches - f0
+                c[1] += dec.launches - d0
+        tasks_mod._EXECUTORS[key] = wrapped
+    return counts
+
+
+def elastic24_run(torch, extra, counts=None):
+    """One ``launch.train`` run of phase 24 (``run_rl`` on the 8-layer
+    cut) in this process, a rank's or the world of one's: the recovery
+    line, the controller's records, ms/iter per plan epoch, each epoch's
+    placements, the checkpoint's metrics; on a rank also the launches per
+    (epoch, task) (set to 0 just before the run), the kernels against
+    their plain versions at the last epoch's per-rank shapes, and the
+    peak memory."""
+    import shutil
+    from repro_torch.configs import archs
+    from repro_torch.core.plan import decode_wave
+    from repro_torch.launch import sharded_exec as sx
+    from repro_torch.launch import train as train_mod
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.parallel import dist
+    if dist.rank() == 0:
+        shutil.rmtree(train_mod.CKPT_DIR, ignore_errors=True)
+    if dist.multi():
+        torch.distributed.barrier()
+    obs_metrics.reset()
+    if counts is not None:
+        counts.clear()
+    args = train_mod.parse_args(ARGV24 + extra)
+    t0 = time.monotonic()
+    res = train_mod.run_rl(args, cfg=first_layers(archs.get(ARCH),
+                                                  LAYERS24))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    tr, ctrl = res["trainer"], res["controller"]
+    eng = tr.engine
+    snap = obs_metrics.snapshot()
+    out = {"recovered": res["recovered"], "wall": wall,
+           "records": [dict(iteration=r.iteration, epoch=r.epoch,
+                            applied=r.applied, forced=r.forced,
+                            reactive=r.reactive, ckpt_bytes=r.ckpt_bytes,
+                            plan=plan_key(r.decision.plan),
+                            resched_s=r.reschedule_s)
+                       for r in ctrl.records],
+           "epochs": [(row["epoch"], row["iterations"],
+                       row["measured_iter_s"])
+                      for row in eng.epoch_report()],
+           "placements": [{tr.wf.task(t).name: (list(pl.ranks),
+                                                 list(pl.mesh_shape))
+                           for t, pl in c.placements.items()}
+                          for c in eng.ctx_history + [eng.ctx]],
+           "ckpt": {k: snap.get(k) for k in (
+               "elastic.ckpt_gather_s", "elastic.ckpt_write_s",
+               "elastic.checkpoint_bytes")}}
+    if counts is not None:
+        rows = args.batch * tr.rl.n_rollouts
+        out["launches"] = {k: tuple(v) for k, v in counts.items()}
+        out["kernels"] = sx.kernels_vs_plain(
+            tr, rows, tr.task.prompt_len, tr.rl.max_new_tokens,
+            gen_rows=decode_wave(rows))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del res, tr, ctrl, eng
+    free(torch)
+    return out
+
+
+def elastic24_rank(device):
+    """One of 8 ranks sharing the card: the three runs of ``RUNS24``."""
+    import torch
+    from repro_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = task_launches()
+    return {"rank": dist.rank(),
+            "runs": {label: elastic24_run(torch, extra, counts)
+                     for label, extra in RUNS24}}
+
+
+def _declared(records):
+    """The replans nothing timed decides (a declared drift, a forced
+    replan): what the world of one must share."""
+    return [{k: v for k, v in r.items() if k != "resched_s"}
+            for r in records if not r["reactive"]]
+
+
+def _reactive(records):
+    return [r["iteration"] for r in records if r["reactive"]]
+
+
+def elastic_ranks_phase24(torch, dev, card):
+    """``launch.train --rl grpo`` with ``--drift drop_tail``, ``--fault
+    permanent_crash --require-recover`` and ``--fault ckpt_corrupt
+    --require-recover`` on 8 ranks sharing the card (gloo), qwen3-0.6b's
+    first 8 layers at full width (fp32, vocab 16), held against the same
+    runs in a world of one on the card: the same recovery line (its kind
+    where the timed reactive replans differ: one rewrites the checkpoint
+    of its iteration) and the same declared and forced replans
+    (iteration, epoch, plan) on every rank; the kernels within 2e-6 of plain at the last epoch's per-rank
+    shapes; GEN launching both attention kernels and reference inference
+    flash in every epoch, TRAIN none; ms/iter per plan epoch, reschedule
+    seconds, the checkpoint's GB, gather and write seconds and GB/s; then
+    both kernels timed at drop_tail's per-rank shapes after its swap.
+    Ranks sharing one card measure the mechanism, not a speedup."""
+    import shutil
+    import torch.nn.functional as F
+    from repro_torch.data.synthetic import AdditionTask
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train as train_mod
+    from repro_torch.parallel import dist
+    t_phase = time.monotonic()
+    one = {}
+    for label, extra in RUNS24:
+        t0 = time.monotonic()
+        one[label] = elastic24_run(torch, extra)
+        print(f"[24 world-1] {label}: {one[label]['recovered']!r}; declared "
+              f"replans {len(_declared(one[label]['records']))}; "
+              f"{time.monotonic() - t0:.1f}s | card {card}", flush=True)
+    t0 = time.monotonic()
+    res = dist.spawn(elastic24_rank, 8, "cuda", timeout=600)
+    wall = time.monotonic() - t0
+    shutil.rmtree(train_mod.CKPT_DIR, ignore_errors=True)
+    for label, _ in RUNS24:
+        runs = [r["runs"][label] for r in res]
+        s, w1 = runs[0], one[label]
+        check(all(x["recovered"] == s["recovered"]
+                  and x["records"] == s["records"] for x in runs),
+              f"{label}: the ranks' recovery lines or replans differ")
+        # a reactive replan checkpoints too, and one at the corrupted
+        # checkpoint's iteration rewrites that file: where the (timed)
+        # reactive replans differ, the line's numbers may, not its kind
+        same = _reactive(s["records"]) == _reactive(w1["records"])
+        check(s["recovered"] == w1["recovered"] if same else
+              re.sub(r"\d+", "N", s["recovered"] or "")
+              == re.sub(r"\d+", "N", w1["recovered"] or ""),
+              f"{label}: recovery {s['recovered']!r} on ranks, "
+              f"{w1['recovered']!r} in the world of one (reactive "
+              f"replans {'alike' if same else 'differ'})")
+        check(_declared(s["records"]) == _declared(w1["records"])
+              and (label == "ckpt_corrupt" or _declared(s["records"])),
+              f"{label}: declared or forced replans on ranks "
+              f"{_declared(s['records'])} vs the world of one's "
+              f"{_declared(w1['records'])}")
+        before, after = s["placements"][0], s["placements"][-1]
+        print(f"[24 ranks] {label}: placements (ranks, mesh) before the "
+              f"first replan {before}; after the last {after}", flush=True)
+        ck = s["ckpt"]
+        gather, write = ck["elastic.ckpt_gather_s"], ck["elastic.ckpt_write_s"]
+        n = max(write["count"], 1) if write else 1
+        nbytes = ck["elastic.checkpoint_bytes"] or 0
+        secs = (gather["sum"] if gather else 0) + (write["sum"]
+                                                   if write else 0)
+        print(f"[24 ranks] {label}: {s['recovered']!r} (world of one "
+              f"{w1['recovered']!r}); replans (iteration, epoch, forced, reactive, "
+              f"reschedule s) "
+              f"{[(r['iteration'], r['epoch'], r['forced'], r['reactive'], round(r['resched_s'], 3)) for r in s['records']]}"
+              f" (world of one {[(r['iteration'], r['epoch'], round(r['resched_s'], 3)) for r in w1['records']]}); "
+              f"ms/iter per epoch "
+              f"{[(e, i, round(m * 1e3, 1)) for e, i, m in s['epochs']]} "
+              f"(world of one "
+              f"{[(e, i, round(m * 1e3, 1)) for e, i, m in w1['epochs']]}); "
+              f"checkpoints {n} of {nbytes / n / 1e9:.3f} GB, gather "
+              f"{gather['sum'] / n if gather else 0:.2f} s + write "
+              f"{write['sum'] / n if write else 0:.2f} s each, "
+              f"{nbytes / max(secs, 1e-9) / 1e9:.3f} GB/s; run "
+              f"{s['wall']:.1f} s (world of one {w1['wall']:.1f} s) | card "
+              f"{card}", flush=True)
+        launches = {r["rank"]: r["runs"][label]["launches"] for r in res}
+        print(f"[24 ranks] {label}: launches (flash, decode) per rank and "
+              f"epoch/task: {launches}", flush=True)
+        for r, c in launches.items():
+            for key, (nf, nd) in c.items():
+                task = key.split("/", 1)[1]
+                if task == "actor_generation":
+                    check(nf > 0 and nd > 0, f"{label}: GEN on rank {r} "
+                                             f"({key}) launched {nf}, {nd}")
+                elif task == "reference_inference":
+                    check(nf > 0 and nd == 0, f"{label}: INF on rank {r} "
+                                              f"({key}) launched {nf}, {nd}")
+                else:
+                    check(nf == nd == 0, f"{label}: {key} on rank {r} "
+                                         f"launched {nf}, {nd}")
+        for e, iters, _ in s["epochs"]:
+            if iters:
+                got = [c for c in launches.values()
+                       if f"{e}/actor_generation" in c]
+                check(got, f"{label}: epoch {e} ran no GEN on any rank")
+        errs = {}
+        for r in res:
+            for lb, (err, local) in r["runs"][label]["kernels"].items():
+                check(err <= TOL24, f"{label}: rank {r['rank']} {lb} "
+                                    f"{local}: kernel vs plain {err:.3g} "
+                                    f"(tol {TOL24:g})")
+                key = (lb, tuple(local))
+                errs[key] = max(errs.get(key, 0.0), err)
+        print(f"[24 ranks] {label}: kernels vs plain at the last epoch's "
+              f"per-rank shapes (local q), fp32: "
+              f"{ {f'{lb} {list(sh)}': f'{e:.3g}' for (lb, sh), e in errs.items()} }"
+              f" (tol {TOL24:g}); peak GiB per rank "
+              f"{[round(r['runs'][label]['peak_gib'], 2) for r in res]}",
+              flush=True)
+        if label == "drop_tail":
+            shapes = sorted(errs)
+    print(f"[24 ranks] 8 ranks on cuda:0 over gloo: {wall:.1f}s with the "
+          f"ranks' start", flush=True)
+    # both kernels timed at drop_tail's per-rank shapes after its swap
+    from repro_torch.configs import archs
+    c = archs.get(ARCH)
+    task = AdditionTask(max_operand=9)     # the launcher's task
+    L = task.prompt_len + task.max_answer_len
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    tag = "[24 kernels]"
+    for lb, local in shapes:
+        h = local[-2]
+        kv = c.n_kv_heads * h // c.n_heads
+        if lb == "gen_decode":
+            decode_row(torch, F, dec, flush, local[0], L, h, kv, local[-1],
+                       card, f"{lb}, per rank after the swap", tag)
+        else:
+            attn_row(torch, F, fa, flush, local[0], local[1], h, kv,
+                     local[-1], torch.float32, True, card,
+                     f"{lb}, per rank after the swap", tag)
+    del flush
+    free(torch)
+    print(f"[24 elastic ranks] {time.monotonic() - t_phase:.1f}s | card "
+          f"{card}", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3061,6 +3355,9 @@ def main() -> None:
 
     # ---- 23. the genserve engine on a mesh of ranks ------------------------
     sharded_genserve_phase23(torch, dev, card)
+
+    # ---- 24. the launcher's drift and faults on ranks ----------------------
+    elastic_ranks_phase24(torch, dev, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -26,6 +26,13 @@ the believed topology and forces a replan+swap onto the survivors.
 Checkpoint writes go through ``core.retry`` with bounded backoff; a
 persistently failing checkpoint path degrades to warn-and-continue
 (metric ``checkpoint.failures``) instead of killing the training loop.
+
+In a world of several ranks every rank runs the controller (SPMD) and
+rank 0 decides for all: its ``reschedule`` and the topology it searched
+are broadcast, so every rank swaps to the same plan; a checkpoint is
+the state gathered whole onto rank 0 (``RLTrainer.gather_state_tree``),
+which alone writes it, and its outcome (path and bytes, or the warning's
+``(None, 0)``) and what the fault injector did to it reach every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from repro_torch.core.topology import (DriftSchedule, Topology, drop_devices,
                                  topo_equal)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +124,41 @@ class ElasticController:
         cfg = self.cfg
         if not cfg.ckpt_dir:
             return None, 0
-        from repro_torch.checkpoint import io as ckpt_io
         path = os.path.join(cfg.ckpt_dir,
                             f"elastic_iter{iteration:05d}.msgpack")
-        tree = self.trainer.state_tree()
         injector = getattr(self.trainer.engine, "fault_injector", None)
+        t0 = time.monotonic()
+        with obs_trace.span("elastic.checkpoint_gather"):
+            tree = self.trainer.gather_state_tree()
+        obs_metrics.histogram("elastic.ckpt_gather_s").observe(
+            time.monotonic() - t0)
+        if not dist.multi():
+            return self._write(path, tree, injector)
+        # one writer, rank 0, which holds the whole tree; its outcome
+        # (and what the injector did to it) is every rank's
+        out, delta, err = None, None, None
+        if dist.rank() == 0:
+            mark = injector.mark() if injector is not None else None
+            try:
+                out = self._write(path, tree, injector)
+            except Exception as e:          # raised on every rank below
+                err = e
+            delta = injector.since(mark) if injector is not None else None
+        del tree
+        out, delta, why = dist.broadcast_object(
+            (out, delta, None if err is None else repr(err)), 0)
+        if err is not None:
+            raise err
+        if why is not None:
+            raise RuntimeError(f"the checkpoint's writer (rank 0) failed: "
+                               f"{why}")
+        if dist.rank() != 0 and injector is not None:
+            injector.absorb(delta)
+        return out
+
+    def _write(self, path: str, tree, injector) -> tuple:
+        from repro_torch.checkpoint import io as ckpt_io
+        cfg = self.cfg
 
         def write(attempt: int) -> int:
             if injector is not None:
@@ -130,6 +168,7 @@ class ElasticController:
         def on_retry(attempt: int, exc: BaseException) -> None:
             obs_metrics.counter("checkpoint.retries").inc()
 
+        t0 = time.monotonic()
         try:
             with obs_trace.span("elastic.checkpoint"):
                 nbytes = retry_mod.retry_call(
@@ -139,8 +178,10 @@ class ElasticController:
         except (retry_mod.RetryExhausted, OSError) as e:
             obs_metrics.counter("checkpoint.failures").inc()
             warnings.warn(f"checkpoint write failed, continuing without: "
-                          f"{e}", RuntimeWarning, stacklevel=2)
+                          f"{e}", RuntimeWarning, stacklevel=3)
             return None, 0
+        obs_metrics.histogram("elastic.ckpt_write_s").observe(
+            time.monotonic() - t0)
         if injector is not None:
             injector.maybe_corrupt_checkpoint(path)
         obs_metrics.counter("elastic.checkpoint_bytes").inc(nbytes)
@@ -163,6 +204,11 @@ class ElasticController:
         fired = self.monitor is not None and self.monitor.consume()
         reactive = (not drifted and fired
                     and iteration >= self._cooldown_until)
+        if dist.multi():
+            # rank 0 decides for the world (every rank sees the same
+            # feed and the same gathered timeline, so they agree anyway)
+            drifted, reactive = dist.broadcast_object((drifted, reactive),
+                                                      0)
         if not drifted and not reactive:
             return None
         topo_old = self._topo
@@ -176,17 +222,11 @@ class ElasticController:
             # warm-started search on the believed topology would only
             # rediscover the incumbent
             topo = self._infer_measured_topology() or self._topo
-        self._topo = topo
         trainer, cfg = self.trainer, self.cfg
         with obs_trace.span("elastic.poll", iteration=iteration,
                             reactive=reactive):
-            t0 = time.monotonic()
-            with obs_trace.span("elastic.reschedule"):
-                decision = reschedule(
-                    topo, trainer.wf, trainer.plan, budget=cfg.budget,
-                    amortization_iters=cfg.amortization_iters,
-                    seed=cfg.seed, topo_old=topo_old)
-            resched_s = time.monotonic() - t0
+            topo, decision, resched_s = self._reschedule(topo, topo_old)
+            self._topo = topo
             obs_metrics.histogram("elastic.reschedule_s").observe(
                 resched_s)
 
@@ -217,6 +257,24 @@ class ElasticController:
         self.records.append(rec)
         return rec
 
+    def _reschedule(self, topo: Topology, topo_old: Topology) -> tuple:
+        """``reschedule`` onto ``topo``: (topo, decision, seconds).  On
+        ranks, rank 0's search and its topology are the world's."""
+        trainer, cfg = self.trainer, self.cfg
+        t0 = time.monotonic()
+        decision = None
+        if dist.rank() == 0:
+            with obs_trace.span("elastic.reschedule"):
+                decision = reschedule(
+                    topo, trainer.wf, trainer.plan, budget=cfg.budget,
+                    amortization_iters=cfg.amortization_iters,
+                    seed=cfg.seed, topo_old=topo_old)
+        resched_s = time.monotonic() - t0
+        if dist.multi():
+            topo, decision, resched_s = dist.broadcast_object(
+                (topo, decision, resched_s), 0)
+        return topo, decision, resched_s
+
     def _infer_measured_topology(self) -> Optional[Topology]:
         from repro_torch.obs.calibrate import infer_drifted_topology
         trainer = self.trainer
@@ -246,13 +304,7 @@ class ElasticController:
         obs_metrics.counter("elastic.forced_replans").inc()
         with obs_trace.span("elastic.poll", iteration=iteration,
                             forced=True, dead=str(dead)):
-            t0 = time.monotonic()
-            with obs_trace.span("elastic.reschedule"):
-                decision = reschedule(
-                    topo, trainer.wf, trainer.plan, budget=cfg.budget,
-                    amortization_iters=cfg.amortization_iters,
-                    seed=cfg.seed, topo_old=base)
-            resched_s = time.monotonic() - t0
+            topo, decision, resched_s = self._reschedule(topo, base)
             ckpt_path, ckpt_bytes = self._checkpoint(iteration)
             # the incumbent references dead devices (old_cost = inf), so
             # any feasible challenger switches; reschedule only declines

@@ -55,6 +55,18 @@ reference's overlapped walk: the GEN ranks decode iteration t+1 while
 the other ranks train on t's bundle — the two lanes are different
 processes, so the overlap is real — and the bundle, the metrics and the
 weights cross at the iteration boundary.
+
+A failure on ranks reaches every rank.  A sharded task's ranks agree
+after each attempt (the worst outcome over the placement's mesh), so
+they retry or stop together; a task that fails for good sends its
+failure through the exchange in place of its payload, and every rank
+raises the same ``TaskExecutionError`` after it, as a stage raises in a
+world of one.  The overlapped walk's two sides reach the iteration
+boundary whatever befell them and raise there, after both broadcasts.
+What the fault injector recorded on a task's ranks travels with the
+task's payload (``FaultInjector.since`` / ``absorb``), so every rank's
+injector holds the world's record.  Not covered: an exception raised
+inside a collective, which leaves its peers waiting in it.
 """
 from __future__ import annotations
 
@@ -379,11 +391,24 @@ class Engine:
         inj = self.fault_injector
 
         def attempt_task(t, fn, attempt):
-            if inj is not None:
-                inj.before_task(t, attempt)
-            out = fn(self.state, bb, self.placements[t])
-            if out is not None:
-                wait_for(out)
+            pl = self.placements[t]
+            err = None
+            try:
+                if inj is not None:
+                    inj.before_task(t, attempt)
+                out = fn(self.state, bb, pl)
+                if out is not None:
+                    wait_for(out)
+            except Exception as e:
+                err = e
+            if pl.sharded:
+                # the group's ranks agree on the attempt's outcome, so
+                # that none retries (or goes on) alone
+                worst = _agree(pl, _severity(err))
+                if err is None and worst:
+                    err = _peer_failed(worst)
+            if err is not None:
+                raise err
 
         def run_lane(lane: List[int]) -> None:
             for t in lane:
@@ -434,14 +459,29 @@ class Engine:
 
         lanes = self._lanes(stage)
         if dist.multi():
+            # a task that fails here ends its lane (as a lane thread ends
+            # in a world of one) and its failure travels in place of its
+            # payload; every rank raises after the exchange
             payloads = {}
-            for t in (t for lane in lanes for t in lane):
-                if self.placements[t].here:
+            for lane in lanes:
+                for t in lane:
+                    if not self.placements[t].here:
+                        continue
                     before = (set(bb), dict(bb["metrics"]))
-                    run_lane([t])
-                    payloads[t] = _written(bb, before)
+                    mark = inj.mark() if inj is not None else None
+                    try:
+                        run_lane([t])
+                        payloads[t] = _written(bb, before)
+                    except Exception as e:      # carried to every rank
+                        payloads[t] = {"failure": _failure_fields(e)}
+                    if inj is not None:
+                        payloads[t]["faults"] = inj.since(mark)
+                    if "failure" in payloads[t]:
+                        break
             if exchange:
-                self._exchange(bb, stage, payloads, group)
+                failures, _ = self._exchange(bb, stage, payloads, group)
+                if failures:
+                    raise _failure_error(failures)
             return payloads
         if len(lanes) == 1:
             run_lane(lanes[0])
@@ -460,19 +500,34 @@ class Engine:
         return {}
 
     def _exchange(self, bb: Dict[str, Any], tasks: Sequence[int],
-                  payloads: Dict[int, dict], group=None) -> None:
+                  payloads: Dict[int, dict], group=None):
         """What each task wrote to ``bb``, from its group's lead rank to
         every rank of ``group`` (the world when None), as host arrays:
-        the counterpart of the reference's ``multidev`` host pulls."""
+        the counterpart of the reference's ``multidev`` host pulls.  A
+        task that failed sends its failure instead (one that its lane's
+        failure skipped, nothing); what the fault injector recorded on
+        the task's ranks reaches the others.  Returns (the failures in
+        lane order, the injector's records of the tasks)."""
         me = dist.rank()
+        inj = self.fault_injector
+        lane_of = {t: i for i, lane in enumerate(self._lanes(tasks))
+                   for t in lane}
+        failures, faults = [], []
         for t in sorted(tasks):
-            lead = self.placements[t].lead
+            pl = self.placements[t]
             got = dist.broadcast_object(
-                dist.to_host(payloads[t]) if me == lead else None,
-                lead, group)
-            if me != lead:
+                dist.to_host(payloads.get(t, {"skipped": True}))
+                if me == pl.lead else None, pl.lead, group)
+            if "faults" in got:
+                faults.append(got["faults"])
+                if inj is not None and not pl.here:
+                    inj.absorb(got["faults"])
+            if "failure" in got:
+                failures.append((lane_of[t], got["failure"]))
+            elif "bb" in got and me != pl.lead:
                 bb.update(dist.to_device(got["bb"], self.state.device))
                 bb["metrics"].update(got["metrics"])
+        return [f for _, f in sorted(failures, key=lambda x: x[0])], faults
 
     def _gather_timing(self, durations: Dict[int, float],
                        meta: Dict[int, tuple], sync_dur: float):
@@ -720,6 +775,7 @@ class Engine:
                                  self.state.weight_version)
         gen_pl = self.placements[self._gen_task]
         payloads: Dict[int, dict] = {}
+        rest = {"failures": [], "faults": []}
         if gen_pl.here:
             with obs_trace.span("engine.stage", tasks=len(gen_tasks),
                                 overlapped=True):
@@ -733,18 +789,36 @@ class Engine:
                     before_stage([self.wf.task(t) for t in stage], bb)
                 with obs_trace.span("engine.stage", tasks=len(stage),
                                     overlapped=True):
-                    self._run_stage(stage, bb, durations, meta,
-                                    group=self.ctx.rest_group)
-        # the iteration boundary: the fresh bundle to every rank, then the
-        # metrics of the trained bundle
-        self._exchange(bb, [self._gen_task], payloads)
+                    got = self._run_stage(stage, bb, durations, meta,
+                                          exchange=False)
+                    failures, faults = self._exchange(
+                        bb, stage, got, self.ctx.rest_group)
+                rest["faults"] += faults
+                if failures:
+                    rest["failures"] = failures
+                    break
+        # the iteration boundary, which both sides reach whatever befell
+        # them: the GEN lead's payload (the fresh bundle, or GEN's
+        # failure) to every rank, then the training lead's outcome (the
+        # trained bundle's metrics, or the rest stages' failures, and
+        # what the injector recorded there); then every rank raises alike
+        failures, _ = self._exchange(bb, [self._gen_task], payloads)
         if bundle is not None:
             lead = self.placements[self._actor_train].lead
+            me = dist.rank()
             got = dist.broadcast_object(
-                dict(bb["metrics"]) if dist.rank() == lead else None, lead)
-            bb["metrics"].update(got)
-        self._record_gen_stats(bb)
-        self.pipeline.push(bb.pop("fresh"))
+                {**rest, "metrics": dict(bb["metrics"])} if me == lead
+                else None, lead)
+            bb["metrics"].update(got["metrics"])
+            if self.fault_injector is not None and me in gen_pl.ranks:
+                for delta in got["faults"]:
+                    self.fault_injector.absorb(delta)
+            failures += got["failures"]
+        if "fresh" in bb:
+            self._record_gen_stats(bb)
+            self.pipeline.push(bb.pop("fresh"))
+        if failures:
+            raise _failure_error(failures)
         return bundle
 
     # -- reactive drift hook ---------------------------------------------
@@ -995,6 +1069,76 @@ class Engine:
                          if predicted and np.isfinite(predicted)
                          else float("nan")})
         return rows
+
+
+class _Reported(Exception):
+    """An exception as the rank that raised it reported it: its repr."""
+
+    def __init__(self, text: str):
+        super().__init__(text)
+        self.text = text
+
+    def __repr__(self) -> str:
+        return self.text
+
+
+def _severity(err: Optional[BaseException]) -> int:
+    """0 none, 1 transient, 2 permanent, 3 any other error."""
+    if err is None:
+        return 0
+    if isinstance(err, retry_mod.TransientError):
+        return 1
+    return 2 if isinstance(err, retry_mod.PermanentError) else 3
+
+
+def _agree(placement, severity: int) -> int:
+    """The worst severity over the placement's ranks (every rank of its
+    mesh calls it)."""
+    import torch
+    x = torch.tensor([severity], dtype=torch.int64)
+    mesh = placement.mesh
+    for d in range(mesh.ndim):
+        torch.distributed.all_reduce(x, op=torch.distributed.ReduceOp.MAX,
+                                     group=mesh.get_group(d))
+    return int(x.item())
+
+
+def _peer_failed(severity: int) -> BaseException:
+    """What a rank whose attempt went through raises when a peer's
+    failed: the same kind, so that the group retries or stops together."""
+    msg = "the attempt failed on another rank of the task's group"
+    if severity == 1:
+        return retry_mod.TransientError(msg)
+    if severity == 2:
+        return retry_mod.PermanentError(msg)
+    return RuntimeError(msg)
+
+
+def _failure_fields(e: BaseException) -> dict:
+    """A task's failure as host values every rank can rebuild it from."""
+    if isinstance(e, TaskExecutionError):
+        return {"task": e.task, "name": e.task_name, "devices": e.devices,
+                "attempts": e.attempts, "cause": repr(e.cause),
+                "permanent": e.permanent, "dead_devices": e.dead_devices}
+    return {"error": repr(e), "rank": dist.rank()}
+
+
+def _failure_error(failures: List[dict]) -> Exception:
+    """The first failure (in lane order) as every rank raises it, the
+    others noted on it, as a stage raises in a world of one."""
+    errs = []
+    for f in failures:
+        if "error" in f:
+            errs.append(RuntimeError(f"rank {f['rank']}: {f['error']}"))
+        else:
+            errs.append(TaskExecutionError(
+                f["task"], f["name"], f["devices"], f["attempts"],
+                _Reported(f["cause"]), permanent=f["permanent"],
+                dead_devices=f["dead_devices"]))
+    for other in errs[1:]:
+        errs[0].add_note(f"another lane of this stage also failed: "
+                         f"{other!r}")
+    return errs[0]
 
 
 def _written(bb: Dict[str, Any], before) -> dict:

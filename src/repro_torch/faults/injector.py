@@ -390,6 +390,36 @@ class FaultInjector:
             return True
         return False
 
+    # -- a world of ranks -------------------------------------------------
+    # Every rank runs its own injector on the same plan and clock; a
+    # fault fires on the ranks that run its task (or write the
+    # checkpoint), and what it recorded there reaches the other ranks
+    # through ``since`` / ``absorb``, so every rank's log and consumed
+    # events stay those of the world.
+
+    def mark(self) -> tuple:
+        """Where this injector's record stands now (for ``since``)."""
+        return (len(self.log), frozenset(self._consumed),
+                dict(self._fired_perm))
+
+    def since(self, mark: tuple) -> Dict[str, Any]:
+        """What this injector recorded after ``mark``: log entries, and
+        events consumed or fired."""
+        n, consumed, fired = mark
+        return {"log": [dict(r) for r in self.log[n:]],
+                "consumed": sorted(self._consumed - consumed),
+                "fired_perm": {i: ep for i, ep in self._fired_perm.items()
+                               if fired.get(i) != ep}}
+
+    def absorb(self, delta: Dict[str, Any]) -> None:
+        """Take what another rank's injector recorded (``since``), and
+        count it as this injector counts its own records."""
+        for entry in delta["log"]:
+            self.log.append(dict(entry))
+            obs_metrics.counter(f"faults.{entry['kind']}").inc()
+        self._consumed.update(delta["consumed"])
+        self._fired_perm.update(delta["fired_perm"])
+
     # -- reporting -------------------------------------------------------
     def fired(self, kind: Optional[str] = None) -> List[Dict[str, Any]]:
         return [r for r in self.log

@@ -328,8 +328,9 @@ def kernels_vs_plain(trainer, rows: int, prompt_len: int,
     new tokens at ``gen_rows`` rows (``rows`` when None; genserve's wave
     when GEN runs beyond one), INF's (reference_inference) pass over the
     whole sequence at ``rows``.  {label: (max abs error, the local q
-    shape)} for the placements this rank is in; every rank of a
-    placement calls it (the outputs are gathered)."""
+    shape)} for the placements this rank is in (a placement of one rank
+    calls the kernels on plain tensors); every rank of a placement calls
+    it (the outputs are gathered)."""
     cfg, dev = trainer.cfg, trainer.device
     dims = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     named = {trainer.wf.task(t).name: pl
@@ -337,15 +338,16 @@ def kernels_vs_plain(trainer, rows: int, prompt_len: int,
     L = prompt_len + new_tokens
     out: Dict[str, Any] = {}
     pl = named["actor_generation"]
-    if pl.here and pl.sharded:
-        got = mesh_attention(pl.mesh, dev, cfg.dtype, *dims,
-                             gen_rows or rows, prompt_len, L)
+    if pl.here:
+        got = mesh_attention(pl.mesh if pl.sharded else None, dev,
+                             cfg.dtype, *dims, gen_rows or rows,
+                             prompt_len, L)
         out["gen_prefill"], out["gen_decode"] = got["prefill"], \
             got["decode"]
     pl = named["reference_inference"]
-    if pl.here and pl.sharded:
-        out["inf"] = mesh_attention(pl.mesh, dev, cfg.dtype, *dims, rows,
-                                    L)["prefill"]
+    if pl.here:
+        out["inf"] = mesh_attention(pl.mesh if pl.sharded else None, dev,
+                                    cfg.dtype, *dims, rows, L)["prefill"]
     return out
 
 
@@ -359,7 +361,9 @@ def mesh_attention(mesh, dev, dtype: str, H: int, KV: int, hd: int,
     step against an ``L``-slot cache whose last slot is not yet valid
     ("decode", the flash-decode kernel); seeded inputs in ``dtype``,
     held against the plain versions on the full tensors.  {label: (max
-    abs error, the local q shape)}; every rank of the mesh calls it."""
+    abs error, the local q shape)}; every rank of the mesh calls it.
+    With ``mesh`` None, the same calls on plain tensors (a placement of
+    one rank)."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import attention
@@ -371,16 +375,24 @@ def mesh_attention(mesh, dev, dtype: str, H: int, KV: int, hd: int,
         return torch.randn(shape, generator=g).to(dev, dt)
 
     def local(x):
-        return list(x.to_local().shape)
+        return list(x.to_local().shape) if mesh is not None \
+            else list(x.shape)
+
+    def full(x):
+        return x.full_tensor() if mesh is not None else x
 
     heads = sh.P("data", None, "model", None)
+
+    def place(ts):
+        return [sh.distribute(t, mesh, heads) for t in ts] \
+            if mesh is not None else list(ts)
     q, k, v = rn(rows, S, H, hd), rn(rows, S, KV, hd), rn(rows, S, KV, hd)
     pos = torch.arange(S, device=dev)
-    d = [sh.distribute(t, mesh, heads) for t in (q, k, v)]
+    d = place((q, k, v))
     got = attention.multihead_attention(*d, pos, pos, causal=True,
                                         force_impl="kernel")
     want = fa.flash_attention_plain(q, k, v, causal=True)
-    out = {"prefill": (float((got.full_tensor() - want).abs().max()),
+    out = {"prefill": (float((full(got) - want).abs().max()),
                        local(d[0]))}
     if L is None:
         return out
@@ -388,13 +400,13 @@ def mesh_attention(mesh, dev, dtype: str, H: int, KV: int, hd: int,
     valid = L - 1                          # the cache before the last token
     bias = torch.where(torch.arange(L, device=dev) < valid, 0.0,
                        -1e30).expand(rows, L).contiguous()
-    d = [sh.distribute(t, mesh, heads) for t in (q, kc, vc)]
+    d = place((q, kc, vc))
     pos = torch.arange(L, device=dev)
     got = attention.multihead_attention(
         *d, pos[valid - 1:valid], pos, causal=True, bias=bias,
         force_impl="kernel")
     want = dec.decode_attention_plain(q[:, 0], kc, vc, bias)
-    out["decode"] = (float((got.full_tensor()[:, 0] - want).abs().max()),
+    out["decode"] = (float((full(got)[:, 0] - want).abs().max()),
                      local(d[0])[:1] + local(d[0])[2:])
     return out
 

@@ -66,7 +66,11 @@ mesh={...} ranks=[...]`` line per task, the iterations, the report):
         --async --steps 3 --batch 4 --device cpu
 
 (``--device cuda`` on one card: the ranks share it over gloo.)
-``--drift`` and ``--fault`` stay with a world of one rank.
+``--drift`` and ``--fault`` run on ranks as in a world of one: rank 0
+decides each replan and writes each checkpoint (the state gathered from
+its owners' ranks), a task's failure reaches every rank, and every rank
+judges ``--require-recover`` on the world's counters, so every rank
+exits alike; after each plan swap rank 0 prints the placements again.
 """
 from __future__ import annotations
 
@@ -208,11 +212,51 @@ def run_lm(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
 # RL mode
 # ---------------------------------------------------------------------------
 
+def _world_counters() -> Dict[str, float]:
+    """This process's counters, or on ranks each counter's largest value
+    over the world: a counter is counted alike on every rank of the one
+    group that counts it (the failing task's ranks, the GEN ranks, the
+    checkpoint's writer) and not at all elsewhere."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.parallel import dist
+    snap = {k: v for k, v in obs_metrics.snapshot().items()
+            if isinstance(v, (int, float))}
+    if not dist.multi():
+        return snap
+    out: Dict[str, float] = {}
+    for part in dist.all_gather_object(snap):
+        for k, v in part.items():
+            out[k] = max(out.get(k, v), v)
+    return out
+
+
+def _load_latest_path(trainer) -> str:
+    """The file ``load_latest`` restores from ``CKPT_DIR`` into the whole
+    state: rank 0 reads on ranks, and its answer (or its error) is every
+    rank's."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.parallel import dist
+    if not dist.multi():
+        return ckpt_io.load_latest(CKPT_DIR, trainer.state_tree())[1]
+    path, err = None, None
+    if dist.rank() == 0:
+        try:
+            path = ckpt_io.load_latest(CKPT_DIR, trainer.state_like())[1]
+        except ckpt_io.CheckpointError as e:
+            err = str(e)
+    path, err = dist.broadcast_object((path, err), 0)
+    if err is not None:
+        raise ckpt_io.CheckpointError(err)
+    return path
+
+
 def _assert_recovered(scenario: str, trainer, controller, injector) -> str:
     """--require-recover: fail loudly unless the scenario's recovery
-    mechanism actually engaged.  Prints and returns the recovery line."""
-    from repro_torch.obs import metrics as obs_metrics
-    snap = obs_metrics.snapshot()
+    mechanism actually engaged.  Prints (on rank 0) and returns the
+    recovery line; on ranks every rank judges the world's counters and
+    records alike."""
+    from repro_torch.parallel import dist
+    snap = _world_counters()
     records = controller.records if controller is not None else []
     if scenario in ("link_throttle", "device_slowdown", "straggler"):
         assert any(r.reactive for r in records), (
@@ -244,11 +288,10 @@ def _assert_recovered(scenario: str, trainer, controller, injector) -> str:
         line = ("recovered: checkpoint degraded to warn-and-continue, "
                 "training completed")
     elif scenario == "ckpt_corrupt":
-        from repro_torch.checkpoint import io as ckpt_io
         assert injector.fired("ckpt_corrupt"), \
             "ckpt_corrupt: corruption never fired"
-        _, path = ckpt_io.load_latest(CKPT_DIR, trainer.state_tree())
-        line = f"recovered: load_latest fell back to {path}"
+        line = (f"recovered: load_latest fell back to "
+                f"{_load_latest_path(trainer)}")
     elif scenario == "slot_failure":
         assert snap.get("gen.slot_failures", 0) > 0, \
             "slot_failure: no slots failed"
@@ -259,7 +302,8 @@ def _assert_recovered(scenario: str, trainer, controller, injector) -> str:
             f"{scenario}: no fault events fired"
         line = (f"recovered: completed under {len(injector.log)} "
                 f"injected events")
-    print(line)
+    if dist.rank() == 0:
+        print(line)
     return line
 
 
@@ -282,11 +326,6 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
 
     from repro_torch.parallel import dist
     device = dist.init_world(resolve_device(args.device))
-    if dist.multi() and (args.drift or args.fault):
-        raise ValueError(
-            "--drift / --fault in a world of several ranks: the elastic "
-            "controller's checkpoints and the fault injector run on one "
-            "device only (ROADMAP.md §1 item 1)")
     # SPMD: every rank runs this launcher; rank 0 alone speaks
     say = print if dist.rank() == 0 else (lambda *a, **k: None)
     cfg = cfg or archs.get(args.arch, smoke=args.smoke)
@@ -320,11 +359,15 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
                   spec_k=args.spec_k, draft_arch=args.draft_arch)
     trainer = RLTrainer(cfg, rl, task, seed=0, plan=r.plan, topo=topo,
                         wf=wf, device=device)
-    if dist.multi():
-        for t, pl in sorted(trainer.engine.placements.items()):
-            dp, tp = pl.mesh_shape
-            say(f"placement {wf.task(t).name}: "
-                f"mesh={{'data': {dp}, 'model': {tp}}} ranks={list(pl.ranks)}")
+    def placements():
+        # on ranks: where each task runs (again after every plan swap)
+        if dist.multi():
+            for t, pl in sorted(trainer.engine.placements.items()):
+                dp, tp = pl.mesh_shape
+                say(f"placement {wf.task(t).name}: "
+                    f"mesh={{'data': {dp}, 'model': {tp}}} "
+                    f"ranks={list(pl.ranks)}")
+    placements()
 
     # fault injection (undeclared degradations + crash scenarios)
     injector = None
@@ -382,6 +425,7 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
             say(f"  escalated: dropped dead devices, forced replan -> "
                   f"epoch={rec.epoch} "
                   f"new={rec.decision.new_cost * 1e3:.3f}ms/iter")
+            placements()
             m = trainer.iteration(prompts, answers, rng)
         history.append(m)
         say(f"iter {step:4d} reward={m['reward_mean']:.3f} "
@@ -412,6 +456,8 @@ def run_rl(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
                       f"trans={d.transition_cost_s * 1e3:.3f}ms "
                       f"epoch={rec.epoch} "
                       f"ckpt={rec.ckpt_bytes / 1e6:.1f}MB")
+                if rec.applied:
+                    placements()
     if injector is not None:
         fired = [r for r in injector.log if r["what"] != "activate"]
         say(f"faults fired: {len(injector.log)} events "

@@ -10,9 +10,13 @@ torch.distributed (``transfer``): onto the same ranks they are
 redistributed in place of the copy; onto another rank set the source
 group assembles each leaf, its lead rank broadcasts it, and the target
 ranks distribute it onto their mesh.  Transfer volume is returned so the
-caller can account the synchronization cost."""
+caller can account the synchronization cost.  ``gather`` assembles a tree
+whole on one rank (a checkpoint's writer), and ``OnRank`` names a tree
+held whole on one rank as a source of ``transfer`` (a checkpoint read
+there)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -55,10 +59,12 @@ def transfer(tree, source, target, *, template, group=None):
     out = []
     for i, (meta, spec) in enumerate(zip(metas, specs)):
         if same and dst.sharded and source.mesh is dst.mesh:
-            # one mesh: a redistribution, no full leaf anywhere
-            x = src_leaves[i]
-            out.append(x.redistribute(dst.mesh, sh.tensor_placements(
-                spec, tuple(x.shape), dst.mesh)))
+            # one mesh: a redistribution, no full leaf anywhere (and
+            # nothing to do on a rank outside it)
+            if dst.here:
+                x = src_leaves[i]
+                out.append(x.redistribute(dst.mesh, sh.tensor_placements(
+                    spec, tuple(x.shape), dst.mesh)))
             continue
         full = sh.full(src_leaves[i]) if source.here else None
         if not same and dist.rank() in members:
@@ -68,6 +74,57 @@ def transfer(tree, source, target, *, template, group=None):
             out.append(sh.distribute(full, dst.mesh, spec) if dst.sharded
                        else full)
     return tree_unflatten(template, out) if dst.here else None
+
+
+@dataclasses.dataclass(frozen=True)
+class OnRank:
+    """A tree held whole on one rank (a checkpoint read there): the
+    source placement ``transfer`` takes it from."""
+    rank: int
+    sharded = False
+    mesh = None
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return (self.rank,)
+
+    @property
+    def lead(self) -> int:
+        return self.rank
+
+    @property
+    def here(self) -> bool:
+        return dist.rank() == self.rank
+
+
+def gather(tree, source, dst: int, *, template):
+    """``tree`` laid out on placement ``source`` -> the same values whole,
+    as host tensors, on rank ``dst``: a checkpoint's writer.
+
+    Every rank calls it; ``tree`` is the source ranks' state (None
+    elsewhere), ``template`` the tree's meta tensors.  The source ranks
+    assemble each leaf (``sh.full``: a collective over the source mesh)
+    and the source's lead sends it to ``dst``.  Returns the tree on
+    ``dst`` and None on the other ranks.  Leaf by leaf, so at most one
+    full leaf is held beside the trees (and ``dst``'s growing copy)."""
+    me = dist.rank()
+    src_leaves = tree_leaves(tree) if source.here else None
+    out = []
+    for i, meta in enumerate(tree_leaves(template)):
+        full = None
+        if source.here:
+            full = sh.full(src_leaves[i])
+            if me == source.lead:
+                full = full.detach().cpu()
+        if source.lead != dst:
+            if me == source.lead:
+                torch.distributed.send(full.contiguous(), dst)
+            elif me == dst:
+                full = torch.empty(tuple(meta.shape), dtype=meta.dtype)
+                torch.distributed.recv(full, source.lead)
+        if me == dst:
+            out.append(full)
+    return tree_unflatten(template, out) if me == dst else None
 
 
 def _device(placement) -> torch.device:

@@ -39,7 +39,10 @@ Differences from the reference, all forced by the framework:
     INF run under ``torch.no_grad()``: DTensor views refuse inference
     tensors.  A sampled sharded GEN draws the whole batch's random
     numbers on every gen rank (``sampling.sample_with_logprobs``), so
-    its tokens are those of the unsharded run.
+    its tokens are those of the unsharded run.  A checkpoint on ranks is
+    ``gather_state_tree``: each key assembled by its owner and sent whole
+    to one writing rank; ``restore_checkpoint`` reads it on one rank and
+    moves each key onto its owner.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from repro_torch.optim import adam
 from repro_torch.parallel import dist
 from repro_torch.parallel import sharding as sh
 from repro_torch.rl import losses, rewards as rewards_mod, rollout
-from repro_torch.rl.sync import meta_tree, transfer
+from repro_torch.rl.sync import OnRank, gather, meta_tree, transfer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -216,7 +219,42 @@ class RLTrainer:
             tree["critic_opt"] = self.critic_opt
         return tree
 
-    def load_state_tree(self, tree: Dict[str, object]) -> None:
+    def gather_state_tree(self, dst: int = 0) -> Optional[Dict[str, object]]:
+        """``state_tree()`` whole, for one writer.  In a world of one it
+        is ``state_tree()``; on ranks every rank calls it, each state
+        key's owner placement assembles it leaf by leaf and its lead
+        sends it to rank ``dst`` (``rl.sync.gather``), which gets the
+        tree as host tensors; the other ranks get None."""
+        if not dist.multi():
+            return self.state_tree()
+        out: Dict[str, object] = {}
+        for key, _ in self._OWNERS:
+            if key not in self.meta:
+                continue
+            # a key no placement owns lies whole on every rank
+            src = self._owners.get(key) or OnRank(dst)
+            out[key] = gather(getattr(self, key), src, dst,
+                              template=self.meta[key])
+        if dist.rank() != dst:
+            return None
+        out["weight_version"] = torch.tensor(self.weight_version,
+                                             dtype=torch.int32)
+        return out
+
+    def load_state_tree(self, tree: Optional[Dict[str, object]], *,
+                        src: Optional[int] = None) -> None:
+        """Take ``tree`` (a ``state_tree()``) as the live state.  On
+        ranks, with ``src`` None every rank passes the whole tree, as at
+        construction; with ``src`` only that rank does (a checkpoint read
+        there; the others pass None).  Either way each state key then
+        moves onto its owning placement."""
+        if src is not None and dist.multi():
+            version = dist.broadcast_object(
+                int(tree["weight_version"]) if dist.rank() == src
+                else None, src)
+            tree = tree if dist.rank() == src else \
+                {k: None for k in self.meta}
+            tree["weight_version"] = version
         self.actor = tree["actor"]
         self.ref = tree["ref"]
         self.actor_opt = tree["actor_opt"]
@@ -227,9 +265,42 @@ class RLTrainer:
             self.value_head = tree["value_head"]
             self.critic_opt = tree["critic_opt"]
         if dist.multi():
-            # a whole state on every rank, as at construction: re-own it
+            # re-own it: from every rank (the whole state, as at
+            # construction) or from ``src`` alone
             self._owners.clear()
+            if src is not None:
+                self._owners.update({k: OnRank(src) for k in self.meta})
             self.install_placements(self.engine.placements, self.wf)
+
+    def state_like(self) -> Dict[str, object]:
+        """Empty tensors on this trainer's device shaped like the whole
+        ``state_tree()``: what ``checkpoint.io.restore`` fills on a rank
+        that may hold none of the state."""
+        tree = {k: tree_map(lambda m: torch.empty(
+            tuple(m.shape), dtype=m.dtype, device=self.device), v)
+            for k, v in self.meta.items()}
+        tree["weight_version"] = torch.tensor(0, dtype=torch.int32)
+        return tree
+
+    def restore_checkpoint(self, path: str, src: int = 0) -> None:
+        """Load the checkpoint at ``path`` (``checkpoint.io``'s file):
+        rank ``src`` reads it (every rank calls it) and each state key
+        moves onto its owning placement, as ``load_state_tree`` moves
+        it; in a world of one, the file onto this trainer's device."""
+        from repro_torch.checkpoint import io as ckpt_io
+        if not dist.multi():
+            self.load_state_tree(ckpt_io.restore(path, self.state_tree()))
+            return
+        tree, err = None, None
+        if dist.rank() == src:
+            try:
+                tree = ckpt_io.restore(path, self.state_like())
+            except ckpt_io.CheckpointError as e:
+                err = str(e)
+        err = dist.broadcast_object(err, src)
+        if err is not None:
+            raise ckpt_io.CheckpointError(err)
+        self.load_state_tree(tree, src=src)
 
     # -- step functions ---------------------------------------------------
     def _generate(self, params, prompts, rng):

@@ -70,6 +70,57 @@ def run_world(job, tmp_path, timeout=300):
         return pickle.load(f)
 
 
+class Started:
+    """A job's world running in a subprocess (``start_world``) while the
+    test goes on; ``result()`` waits for it."""
+
+    def __init__(self, job, tmp_path, timeout):
+        import time
+        self.inp, self.out = tmp_path / "job.pkl", tmp_path / "out.pkl"
+        with open(self.inp, "wb") as f:
+            pickle.dump(job, f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.join(REPO, "src"), os.path.join(REPO, "tests"),
+             env.get("PYTHONPATH", "")])
+        self.deadline = time.monotonic() + timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, HELPER, str(self.inp), str(self.out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=REPO, start_new_session=True)
+        self._res = None
+
+    def result(self):
+        import time
+        if self._res is None:
+            try:
+                out, err = self.proc.communicate(
+                    timeout=max(self.deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                raise AssertionError("the ranks did not end in time")
+            assert self.proc.returncode == 0, \
+                f"stdout:\n{out}\nstderr:\n{err}"
+            with open(self.out, "rb") as f:
+                self._res = pickle.load(f)
+        return self._res
+
+    def stop(self):
+        """End the subprocess and its ranks (its process group)."""
+        import signal
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.communicate()
+
+
+def start_world(job, tmp_path, timeout=300) -> Started:
+    """``run_world`` without waiting: the world starts now."""
+    return Started(job, tmp_path, timeout)
+
+
 def _batch(seed=12):
     rng = np.random.default_rng(seed)
     T = S - G

@@ -354,6 +354,216 @@ def gen_rl_world1(job):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the RL launcher's drift and faults on ranks (test_torch_elastic_ranks.py,
+# test_torch_faults_ranks.py)
+# ---------------------------------------------------------------------------
+
+def plan_key(plan):
+    """A plan's parallelization and device assignment, comparable."""
+    return (sorted((int(t), tuple(int(x) for x in p))
+                   for t, p in plan.parallel.items()),
+            sorted((int(t), np.asarray(a).tolist())
+                   for t, a in plan.assignment.items()))
+
+
+def records(controller):
+    """The elastic controller's reactions, comparable across worlds."""
+    if controller is None:
+        return []
+    return [{"iteration": r.iteration, "epoch": r.epoch,
+             "applied": r.applied, "forced": r.forced,
+             "reactive": r.reactive, "plan": plan_key(r.decision.plan),
+             "ckpt_bytes": r.ckpt_bytes} for r in controller.records]
+
+
+def placed(trainer):
+    """task name -> its placement's ranks."""
+    return {trainer.wf.task(t).name: list(pl.ranks)
+            for t, pl in trainer.engine.placements.items()}
+
+
+def launch_runs(runs, root):
+    """``launch.train.main`` on this rank for each (name, argv) of
+    ``runs`` in turn, each in a working directory of its own under
+    ``root`` (the checkpoints' ``results/elastic_ckpt``) with fresh
+    metrics: the lines this rank printed, its outcome ("done" or the
+    exception it raised), the controller's records, and the launcher's
+    result (the trainer is the last run's, for the caller)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    from repro_torch.obs import metrics
+    out = {}
+    for name, argv in runs:
+        cwd = os.path.join(root, name)
+        os.makedirs(cwd, exist_ok=True)
+        os.chdir(cwd)
+        metrics.reset()
+        buf = io.StringIO()
+        res, outcome = None, "done"
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = train.main(list(argv))
+        except Exception as e:          # the same on every rank, or not
+            outcome = f"{type(e).__name__}: {e}"
+        out[name] = {"lines": buf.getvalue().splitlines(),
+                     "outcome": outcome,
+                     "records": records(res["controller"]) if res else [],
+                     "holds": None if res is None else sorted(
+                         k for k in res["trainer"].meta
+                         if getattr(res["trainer"], k) is not None),
+                     "result": res}
+    return out
+
+
+def _gen_tokens(trainer):
+    """Record the gen tokens of every fresh bundle the engine pushes
+    (every rank pushes the exchanged bundle)."""
+    tokens = []
+    pipe = trainer.engine.pipeline
+    push = pipe.push
+
+    def spy(fresh):
+        tokens.append(fresh["rollout"]["gen_tokens"].cpu().numpy())
+        return push(fresh)
+    pipe.push = spy
+    return tokens
+
+
+def ckpt_roundtrip(trainer, controller, iteration: int, batch: int):
+    """After a launcher run: a checkpoint through the controller (rank 0
+    writes the state gathered from the ranks), the gathered state, then
+    two greedy iterations, the checkpoint restored on every rank, and
+    the same two iterations again: their tokens, the state gathered
+    after the restore, and which state keys this rank holds."""
+    path, nbytes = controller.checkpoint_now(iteration)
+    state = _np(trainer.gather_state_tree())
+    trainer.sampler = dataclasses.replace(trainer.sampler, greedy=True)
+    tokens = _gen_tokens(trainer)
+
+    def two():
+        rng = np.random.default_rng(5)
+        for _ in range(2):
+            prompts, answers = trainer.task.sample_batch(rng, batch)
+            trainer.iteration(prompts, answers, None)
+    two()
+    trainer.restore_checkpoint(path)
+    restored = _np(trainer.gather_state_tree())
+    two()
+    return {"path": path, "bytes": nbytes, "state": state,
+            "restored": restored, "tokens": tokens,
+            "holds": sorted(k for k in trainer.meta
+                            if getattr(trainer, k) is not None)}
+
+
+def gen_swap(device, job):
+    """``sharded_exec``'s greedy trainer (async GRPO, GEN on plan devices
+    0-3): two iterations, then a forced replan that drops GEN's last
+    plan device (``ElasticController.handle_failure``), then two more:
+    the GEN tokens of each iteration, GEN's ranks and mesh before and
+    after, and the plan decided on.  The same in a world of one."""
+    from repro_torch.engine.elastic import ElasticConfig, ElasticController
+    from repro_torch.engine.executor import TaskExecutionError
+    from repro_torch.launch import sharded_exec as sx
+    tr = sx.make_trainer(job["cfg"], device, greedy=True)
+    eng = tr.engine
+    gen_t = eng.ctx.gen_task
+
+    def where():
+        pl = eng.placements[gen_t]
+        return list(pl.ranks), list(pl.mesh_shape)
+    _, g1, _ = sx.run(tr, 2, job["batch"])
+    before = where()
+    devs = [int(d) for d in eng.plan.assignment[gen_t].reshape(-1)]
+    err = TaskExecutionError(gen_t, "actor_generation", devs, 1,
+                             RuntimeError("GEN worker lost"),
+                             permanent=True, dead_devices=(max(devs),))
+    ctrl = ElasticController(tr, lambda it: eng.topo,
+                             ElasticConfig(budget=job["budget"]))
+    rec = ctrl.handle_failure(2, err)
+    _, g2, _ = sx.run(tr, 2, job["batch"], seed=1)
+    return {"tokens": g1[0] + g2[0], "before": before, "after": where(),
+            "plan": plan_key(rec.decision.plan), "epoch": rec.epoch,
+            "placed": placed(tr)}
+
+
+def overlapped_failure(device, job):
+    """``sharded_exec``'s trainer (async GRPO: on ranks GEN decodes on
+    0-3 while 4-7 train, the overlapped walk) with a permanent crash of
+    actor_training at iteration 1, its first trained one: the error this
+    rank raised; then the forced replan drops the dead device, one more
+    iteration runs, and: the placements, whether this rank runs any
+    task, the state keys it holds, the injector's log.  The same in a
+    world of one (the stage walk)."""
+    from repro_torch.core import retry
+    from repro_torch.engine.elastic import ElasticConfig, ElasticController
+    from repro_torch.engine.executor import TaskExecutionError
+    from repro_torch.faults import FaultInjector, fault_scenario
+    from repro_torch.launch import sharded_exec as sx
+    tr = sx.make_trainer(job["cfg"], device, greedy=True)
+    eng = tr.engine
+    inj = FaultInjector(fault_scenario(
+        "permanent_crash", at=1, gen_task=eng.ctx.gen_task,
+        train_task=eng.ctx.actor_train, n_tasks=tr.wf.n_tasks))
+    eng.attach_fault_injector(inj)
+    eng.set_task_retry(retry.RetryPolicy(max_attempts=3),
+                       sleep=lambda s: None)
+    out = {"overlap": eng.overlap_active(), "error": None}
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=tr.device).manual_seed(7)
+    for it in range(2):
+        prompts, answers = tr.task.sample_batch(rng, job["batch"])
+        try:
+            tr.iteration(prompts, answers, gen)
+        except TaskExecutionError as e:
+            out["error"] = {"text": str(e), "task": e.task,
+                            "permanent": e.permanent,
+                            "dead": list(e.dead_devices),
+                            "devices": list(e.devices)}
+            ctrl = ElasticController(tr, lambda i: eng.topo,
+                                     ElasticConfig(budget=job["budget"]))
+            rec = ctrl.handle_failure(it, e)
+            out["plan"] = plan_key(rec.decision.plan)
+            m = tr.iteration(prompts, answers, gen)
+            out["after_loss"] = m.get("loss")
+    # a swap that keeps every placement where it is: the sharded states
+    # redistribute on their meshes, which a rank outside them skips
+    eng.apply_plan(eng.plan, topo=eng.topo)
+    prompts, answers = tr.task.sample_batch(rng, job["batch"])
+    out["kept_loss"] = tr.iteration(prompts, answers, gen).get("loss")
+    out["placed"] = placed(tr)
+    out["runs_a_task"] = any(pl.here for pl in eng.placements.values())
+    out["holds"] = sorted(k for k in tr.meta if getattr(tr, k) is not None)
+    out["log"] = [(r["what"], r["iteration"]) for r in inj.log]
+    return out
+
+
+def launch_rank(device, job):
+    """This rank's part of the launcher job: its ``launch_runs`` (the
+    results dropped), then the job's extras."""
+    root = job["cwd"]
+    runs = launch_runs(job["runs"], root)
+    out = {"rank": dist.rank(), "runs": {}}
+    for name, r in runs.items():
+        res = r.pop("result")
+        out["runs"][name] = r
+        if name == job.get("ckpt") and res is not None:
+            os.chdir(os.path.join(root, name))
+            out["ckpt"] = ckpt_roundtrip(res["trainer"], res["controller"],
+                                         job["steps"], job["batch"])
+        del res
+    for extra in job.get("extras", ()):
+        out[extra] = globals()[extra](device, job)
+    return out
+
+
+def launch_world1(job):
+    """The job's extras in a world of one (this process)."""
+    return {extra: globals()[extra](torch.device("cpu"), job)
+            for extra in job.get("extras", ())}
+
+
 def main(inp: str, out: str) -> None:
     import torch_sharded_ranks as me    # by name: the ranks import it
     torch.set_num_threads(1)
@@ -370,6 +580,10 @@ def main(inp: str, out: str) -> None:
         res = {"ranks": dist.spawn(me.gen_rl_rank, job["world"], "cpu", job,
                                    timeout=job["timeout"]),
                "world1": me.gen_rl_world1(job)}
+    elif job["kind"] == "launch":
+        res = {"ranks": dist.spawn(me.launch_rank, job["world"], "cpu", job,
+                                   timeout=job["timeout"]),
+               "world1": me.launch_world1(job)}
     elif job["kind"] == "swap":
         res = {"ranks": dist.spawn(me.swap_run, job["world"], "cpu", job,
                                    timeout=job["timeout"]),
