@@ -1,20 +1,47 @@
-"""HetRL profiler (§4.1): calibrates *achievable* compute throughput and
-memory bandwidth of the actual local device by micro-benchmarking — what
-``obs.calibrate.fit_calibration(measure_local=True)`` records.
+"""HetRL profiler (§4.1): collects hardware information.
 
-Port of the microbench of ``repro.core.profiler``: the same work at the
-same defaults (a chain of ``iters`` fp32 ``size``² matmuls; ``iters``
-passes of an ``mbytes``-MB copy-scale), timed on the host clock up to a
-device synchronize.  The device is ``cuda`` unless the caller names another
-(``resolve_device`` turns TF32 off there, so fp32 means fp32).
+Port of ``repro.core.profiler``.  In a physical deployment this probes
+GPUs and links; here it (a) reads the device topology graph (the
+simulated environment's ground truth: ``profile_topology``) and (b)
+calibrates *achievable* compute throughput and memory bandwidth of the
+actual local device by micro-benchmarking (``profile_local``, what
+``obs.calibrate.fit_calibration(measure_local=True)`` records): the
+reference's work at its defaults (a chain of ``iters`` fp32 ``size``²
+matmuls; ``iters`` passes of an ``mbytes``-MB copy-scale), timed on the
+host clock up to a device synchronize.  The device is ``cuda`` unless
+the caller names another (``resolve_device`` turns TF32 off there, so
+fp32 means fp32).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Dict
 
+import numpy as np
 import torch
 
+from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device, resolve_dtype, synchronize
+
+
+@dataclasses.dataclass
+class HardwareInfo:
+    tflops: Dict[int, float]
+    mem_gb: Dict[int, float]
+    hbm_gbps: Dict[int, float]
+    latency_s: "np.ndarray"
+    bandwidth_gbps: "np.ndarray"
+
+
+def profile_topology(topo: Topology) -> HardwareInfo:
+    return HardwareInfo(
+        tflops={d.id: d.spec.fp16_tflops for d in topo.devices},
+        mem_gb={d.id: d.spec.mem_gb for d in topo.devices},
+        hbm_gbps={d.id: d.spec.hbm_gbps for d in topo.devices},
+        latency_s=topo.latency_s.copy(),
+        bandwidth_gbps=topo.bandwidth_gbps.copy(),
+    )
 
 
 def calibrate_local_device(size: int = 1024, iters: int = 8,
@@ -59,3 +86,10 @@ def calibrate_local_hbm(mbytes: int = 64, iters: int = 8,
     nbytes = 2 * x.numel() * x.element_size() * iters  # read + write a call
     return nbytes / dt / 1e9
 
+
+
+def profile_local(device=None) -> Dict[str, float]:
+    """Local-device microbenchmark pair the calibration pass records
+    (``cuda`` unless ``device`` names another)."""
+    return {"tflops": calibrate_local_device(device=device),
+            "hbm_gbps": calibrate_local_hbm(device=device)}

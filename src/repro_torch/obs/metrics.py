@@ -23,18 +23,24 @@ without bound.
 ``REPRO_METRICS=<path>`` registers an atexit hook dumping a snapshot as
 JSON (the CI smokes upload it as a workflow artifact).
 
+``timer(name)`` times a block into ``histogram(name)`` in seconds.
+
 The port keeps its own copy of ``repro.obs.metrics`` (the two packages
-share no code); the instrument names are the same.
+share no code); the instrument names are the same, and
+``repro_torch.obs`` lists those the port emits.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import threading
+import time
 from typing import Dict, List, Union
 
-__all__ = ["counter", "gauge", "histogram", "snapshot", "reset", "dump",
+__all__ = ["counter", "gauge", "histogram", "snapshot", "reset", "timer",
+           "dump",
            "Counter", "Gauge", "Histogram", "Registry", "REGISTRY"]
 
 _HIST_CAP = 65536
@@ -167,6 +173,17 @@ def gauge(name: str) -> Gauge:
 
 def histogram(name: str) -> Histogram:
     return REGISTRY.histogram(name)
+
+
+@contextlib.contextmanager
+def timer(name: str):
+    """Time a block into ``histogram(name)`` (seconds): the recovery
+    benchmarks wrap detection/replan/restore windows with it."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        histogram(name).observe(time.monotonic() - t0)
 
 
 def snapshot() -> Dict[str, object]:

@@ -13,11 +13,19 @@ instrumentation can stay unconditionally in hot host loops.  Enabled
 spans cost two ``perf_counter_ns`` reads and two list appends on a
 per-thread buffer (no lock on the hot path).
 
-``export_chrome(path)`` writes Chrome-trace/Perfetto JSON (``ph: B/E``
-duration events, microsecond timestamps).  Load in ``chrome://tracing``
-or https://ui.perfetto.dev.  This is the part of ``repro.obs.trace`` the
-port's serving path uses (the JAX package's ``validate_chrome`` checks
-its output in the tests).
+Export formats:
+
+* ``export_chrome(path)`` — Chrome-trace/Perfetto JSON (``ph: B/E``
+  duration events, microsecond timestamps).  Load in
+  ``chrome://tracing`` or https://ui.perfetto.dev.
+* ``report()`` — human summary table aggregated per span name.
+
+``validate_chrome`` schema-checks a trace object (required fields,
+per-thread monotonic timestamps, matched B/E nesting); ``python -m
+repro_torch.obs.trace <file>`` runs it from the command line, with the
+reference's output and exit codes (0 valid, 1 invalid, 2 no file named).
+
+A copy of ``repro.obs.trace``: the two packages share no code.
 
 Environment: ``REPRO_TRACE=<path>`` enables tracing at import time and
 registers an atexit hook exporting to ``<path>`` (``REPRO_TRACE=1``
@@ -32,10 +40,10 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["span", "enable", "disable", "reset", "is_enabled",
-           "export_chrome", "Tracer"]
+           "export_chrome", "report", "validate_chrome", "Tracer"]
 
 
 class _NullSpan:
@@ -142,6 +150,15 @@ class Tracer:
             return _NULL_SPAN
         return Span(self, name, args)
 
+    def current_span_id(self) -> int:
+        """Id of the innermost live span on this thread (0 when none)."""
+        if not self.enabled:
+            return 0
+        buf = getattr(self._local, "buf", None)
+        if buf is None or not buf.stack:
+            return 0
+        return buf.stack[-1].id
+
     # -- control ---------------------------------------------------------
     def enable(self) -> None:
         self.enabled = True
@@ -203,6 +220,24 @@ class Tracer:
             json.dump(obj, f)
         return path
 
+    def report(self) -> str:
+        """Per-span-name aggregate: count, total/mean/max milliseconds."""
+        agg: Dict[str, List[float]] = {}
+        for _tid, (name, *_rest) in self._all_records():
+            t0, t1 = _rest[2], _rest[3]
+            agg.setdefault(name, []).append((t1 - t0) / 1e6)
+        if not agg:
+            return "(no spans recorded)"
+        rows = sorted(((sum(v), name, v) for name, v in agg.items()),
+                      reverse=True)
+        w = max(len(name) for _, name, _ in rows)
+        out = [f"{'span':<{w}}  {'count':>6}  {'total_ms':>10}  "
+               f"{'mean_ms':>9}  {'max_ms':>9}"]
+        for total, name, v in rows:
+            out.append(f"{name:<{w}}  {len(v):>6}  {total:>10.2f}  "
+                       f"{total / len(v):>9.3f}  {max(v):>9.3f}")
+        return "\n".join(out)
+
 
 # ---------------------------------------------------------------------------
 # Module-level singleton
@@ -213,6 +248,10 @@ TRACER = Tracer()
 
 def span(name: str, **args):
     return TRACER.span(name, **args)
+
+
+def current_span_id() -> int:
+    return TRACER.current_span_id()
 
 
 def enable() -> None:
@@ -235,6 +274,102 @@ def export_chrome(path: str) -> str:
     return TRACER.export_chrome(path)
 
 
+def report() -> str:
+    return TRACER.report()
+
+
+# ---------------------------------------------------------------------------
+# Validation (schema check for CI and tests)
+# ---------------------------------------------------------------------------
+
+_VALID_PH = {"B", "E", "X", "M", "C", "i", "I"}
+
+
+def validate_chrome(obj) -> List[str]:
+    """Schema-check a Chrome-trace object; returns a list of problems
+    (empty = valid).  Checks: traceEvents list present, required fields
+    per event, known phase, per-(pid, tid) non-decreasing timestamps and
+    matched B/E pairs with identical names."""
+    errors: List[str] = []
+    if isinstance(obj, list):
+        events = obj
+    elif isinstance(obj, dict) and isinstance(obj.get("traceEvents"), list):
+        events = obj["traceEvents"]
+    else:
+        return ["trace must be a list or a dict with a traceEvents list"]
+    stacks: Dict[Tuple[Any, Any], List[str]] = {}
+    last_ts: Dict[Tuple[Any, Any], float] = {}
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            errors.append(f"event {i}: not an object")
+            continue
+        missing = [k for k in ("name", "ph", "ts", "pid", "tid")
+                   if k not in ev]
+        if ev.get("ph") == "M":
+            missing = [k for k in ("name", "ph", "pid") if k not in ev]
+        if missing:
+            errors.append(f"event {i}: missing fields {missing}")
+            continue
+        if ev["ph"] not in _VALID_PH:
+            errors.append(f"event {i}: unknown phase {ev['ph']!r}")
+            continue
+        if ev["ph"] not in ("B", "E"):
+            continue
+        key = (ev["pid"], ev["tid"])
+        ts = float(ev["ts"])
+        if ts < last_ts.get(key, float("-inf")):
+            errors.append(f"event {i}: ts {ts} decreases on tid {key}")
+        last_ts[key] = ts
+        stack = stacks.setdefault(key, [])
+        if ev["ph"] == "B":
+            stack.append(ev["name"])
+        else:
+            if not stack:
+                errors.append(f"event {i}: E without matching B "
+                              f"({ev['name']!r})")
+            elif stack[-1] != ev["name"]:
+                errors.append(f"event {i}: E {ev['name']!r} closes "
+                              f"B {stack[-1]!r}")
+                stack.pop()
+            else:
+                stack.pop()
+    for key, stack in stacks.items():
+        if stack:
+            errors.append(f"tid {key}: unclosed spans {stack}")
+    return errors
+
+
+def validate_file(path: str) -> List[str]:
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        return [f"{path}: {e}"]
+    return validate_chrome(obj)
+
+
+def _main(argv: List[str]) -> int:
+    import sys
+    if not argv:
+        sys.stderr.write(
+            "usage: python -m repro_torch.obs.trace <trace.json>\n")
+        return 2
+    status = 0
+    for path in argv:
+        errors = validate_file(path)
+        if errors:
+            status = 1
+            sys.stdout.write(f"{path}: INVALID\n")
+            for e in errors[:20]:
+                sys.stdout.write(f"  {e}\n")
+        else:
+            with open(path) as f:
+                n = len(json.load(f).get("traceEvents", []))
+            sys.stdout.write(f"{path}: valid chrome trace ({n} events, "
+                             f"{n // 2} spans)\n")
+    return status
+
+
 # ---------------------------------------------------------------------------
 # Environment hookup
 # ---------------------------------------------------------------------------
@@ -255,3 +390,7 @@ def _env_setup() -> None:
 
 _env_setup()
 
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_main(sys.argv[1:]))
