@@ -221,6 +221,26 @@ Phases, each printing its result:
              per-rank shapes, then timed at drop_tail's (kernel, plain,
              sdpa, bound).
 
+ 25. roofline qwen3-0.6b at full width and depth in bf16, seed-made
+             weights: (a) ``core.profiler.profile_local()`` on the card;
+             (b) ``launch.dryrun.dryrun_one`` for decode_32k on the
+             single-pod fake mesh (fake tensors on the host: the record
+             and its ``launch.roofline`` row, with the host seconds);
+             (c) ``launch.steps``' prefill [4, 4096], serve (batch 32,
+             a cache of 8192) and train (the largest batch of 8, 4, 2, 1
+             that fits at S 4096) steps on the card: CUDA-event ms
+             (median, min, max of 10 calls after 2), peak memory,
+             kernel launches per step (train none), beside the world-of-
+             one count of the same shape (plain attention), its bound
+             max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s) and bound /
+             measured; every cut named on its line; (d) the prefill and
+             serve steps with the kernels against the same steps on the
+             plain attention, logits within 2e-2 in bf16 (rtol and
+             atol), the prefill also in fp32 on the first 4 layers
+             within 2e-4; then flash_attention at [4, 4096, 16:8, 128]
+             bf16 causal and decode_attention at batch 32 over 8192
+             slots bf16, timed as phase 3 times its rows.
+
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -2172,23 +2192,24 @@ def serve23_rank(device):
     return out
 
 
-def decode_row(torch, F, dec, flush, B, L, H, KV, hd, card, label, tag):
-    """One fp32 decode_attention call at [B, H, hd] over an L-slot cache
-    whose last slot is not yet valid (a decode step's bias), timed as
-    phase 3 times its rows: error against the plain version, kernel,
-    plain and sdpa times, and the bound recounted from these inputs
-    (the valid K/V rows only)."""
+def decode_row(torch, F, dec, flush, B, L, H, KV, hd, card, label, tag,
+               dtype=None):
+    """One decode_attention call (fp32 unless ``dtype`` says otherwise)
+    at [B, H, hd] over an L-slot cache whose last slot is not yet valid
+    (a decode step's bias), timed as phase 3 times its rows: error
+    against the plain version, kernel, plain and sdpa times, and the
+    bound recounted from these inputs (the valid K/V rows only)."""
+    dtype = dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(5)
-    q = torch.randn((B, H, hd), generator=g, device="cuda")
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dtype)
     k, v = (torch.randn((B, L, KV, hd), generator=g, device="cuda")
-            for _ in range(2))
+            .to(dtype) for _ in range(2))
     bias = torch.where(torch.arange(L, device="cuda") < L - 1, 0.0,
                        -1e30).expand(B, L).contiguous()
     run = lambda: dec.decode_attention(q, k, v, bias)  # noqa: E731
     out = run()
     err = max_err(out, dec.decode_attention_plain(q, k, v, bias))
-    check(bool(torch.isfinite(out).all()) and err <= tol(torch.float32,
-                                                          torch),
+    check(bool(torch.isfinite(out).all()) and err <= tol(dtype, torch),
           f"decode_attention {label}: max abs err {err}")
     q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), \
         v.transpose(1, 2).contiguous()
@@ -2199,17 +2220,23 @@ def decode_row(torch, F, dec, flush, B, L, H, KV, hd, card, label, tag):
         q4, k4, v4, attn_mask=bias[:, None, None, :], enable_gqa=True),
         torch, flush)
     n_valid = int((bias == 0).sum())
-    nbytes = 4 * (q.numel() + out.numel() + bias.numel()
-                  + 2 * n_valid * KV * hd)
+    nbytes = (q.element_size() * (q.numel() + out.numel()
+                                  + 2 * n_valid * KV * hd)
+              + bias.element_size() * bias.numel())
     flops = 4.0 * H * hd * n_valid
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = flops / PEAK_FLOPS["torch.float32"] * 1e3
+    b_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    name = str(dtype).replace("torch.", "")
     print(f"{tag} decode_attention ({label}) q{tuple(q.shape)} "
-          f"k{tuple(k.shape)} fp32, {n_valid} valid rows: err {err:.3g} "
-          f"(tol 2e-4) | kernel {spread(ms)}, plain {spread(plain)}, sdpa "
-          f"{spread(lib)}, kernel/sdpa {ms[0] / lib[0]:.2f}, bound "
-          f"{max(b_bytes, b_ops):.5f} ms ({nbytes / 1e6:.3f} MB) | card "
-          f"{card}", flush=True)
+          f"k{tuple(k.shape)} {name}, {n_valid} valid rows: err {err:.3g} "
+          f"(tol {tol(dtype, torch):g}) | kernel {spread(ms)}, plain "
+          f"{spread(plain)}, sdpa {spread(lib)}, kernel/sdpa "
+          f"{ms[0] / lib[0]:.2f}, bound {max(b_bytes, b_ops):.5f} ms "
+          f"({nbytes / 1e6:.3f} MB) | card {card}", flush=True)
+    return dict(max_abs_err=err, ms=ms[0], plain_ms=plain[0],
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=lib[0])
 
 
 def sharded_genserve_phase23(torch, dev, card, layers: int = LAYERS23):
@@ -2638,6 +2665,237 @@ def elastic_ranks_phase24(torch, dev, card):
     free(torch)
     print(f"[24 elastic ranks] {time.monotonic() - t_phase:.1f}s | card "
           f"{card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 25: qwen3-0.6b's full-width steps against the dry-run's roofline
+# ---------------------------------------------------------------------------
+
+# the dry-run records counted in (b), on the single-pod fake mesh; the
+# host seconds of train_4k and prefill_32k stand in PERF.md (the three
+# together take more than the phase's minute)
+COUNT_SHAPES25 = ("decode_32k",)
+PREFILL25 = (4, 4096)       # prefill_32k [32, 32768]: its logits alone 318 GB
+DECODE25 = (32, 8192)       # decode_32k [128, 32768]: its KV cache 481 GB
+TRAIN25_SEQ = 4096          # train_4k's sequence; the largest batch that fits
+TRAIN25_BATCHES = (8, 4, 2, 1)
+STEP_ITERS, STEP_WARMUP = 10, 2
+
+
+def step_ms(torch, fn, iters: int = STEP_ITERS, warmup: int = STEP_WARMUP):
+    """(median, min, max) CUDA-event ms of one whole step over ``iters``
+    calls after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def roofline_phase25(torch, F, dev, fa, dec, card):
+    """(a) the local microbench on the card; (b) dry-run counts of
+    qwen3-0.6b on the production mesh (fake tensors, on the host);
+    (c) its prefill, serve and train steps at full width and depth in
+    bf16 on the card at world-of-one cuts of those shapes, each beside
+    its own world-of-one count and roofline bound; (d) the prefill and
+    serve steps with the kernels against the same steps on the plain
+    attention.  Returns the kernels line's rows at the new shapes."""
+    from repro_torch.configs import archs
+    from repro_torch.configs.shapes import SHAPES, InputShape
+    from repro_torch.core import profiler
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    t_phase = time.monotonic()
+    tag = "[25 roofline]"
+    cfg = archs.get(ARCH)
+    V = cfg.vocab_size
+    bf16 = torch.bfloat16
+
+    # (a) the local microbench (core.profiler.profile_local) on the card
+    prof = profiler.profile_local()
+    print(f"{tag} (a) profile_local() on the card: {prof['tflops']:.2f} "
+          f"TFLOP/s (fp32 1024^2 matmuls, TF32 off), "
+          f"{prof['hbm_gbps']:.1f} GB/s (64 MB copy-scale) | card {card}",
+          flush=True)
+    check(prof["tflops"] > 0 and prof["hbm_gbps"] > 0,
+          "profile_local gave a non-positive rate")
+
+    # (b) the dry-run counts on the single-pod fake mesh (256 ranks)
+    for name in COUNT_SHAPES25:
+        t0 = time.monotonic()
+        rec = dryrun.dryrun_one(ARCH, name, False, verbose=False)
+        dt = time.monotonic() - t0
+        check(not torch.distributed.is_initialized(),
+              "dryrun_one left a process group initialized")
+        check(rec["n_devices"] == 256 and rec["flops_per_device"] > 0
+              and rec["bytes_per_device"] > 0, f"dry-run {name}: {rec}")
+        print(f"{tag} (b) dryrun_one({ARCH}, {name}, single pod): "
+              f"{json.dumps(dryrun.public(rec))} ({dt:.1f}s on the host)",
+              flush=True)
+        print(f"{tag} (b) {roofline.HEADER}", flush=True)
+        print(f"{tag} (b) {roofline.row(rec)}", flush=True)
+
+    # (c) the steps on the card, each beside its world-of-one count
+    params = T.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(25)
+    tokens = lambda B, S: torch.randint(0, V, (B, S), generator=g,
+                                        device=dev)
+    measured = {}
+
+    def run(label, phase, B, S, fn, cut_note):
+        free(torch)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts(fa, dec)
+        fn()
+        torch.cuda.synchronize()
+        launches = (fa.launches, dec.launches)
+        ms = step_ms(torch, fn)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        t0 = time.monotonic()
+        rec = dryrun.count_step(cfg, InputShape(label, S, B, phase))
+        count_s = time.monotonic() - t0
+        b_ops = rec["flops_per_device"] / roofline.peak_flops(rec)
+        b_bytes = rec["bytes_per_device"] / roofline.HBM_BW
+        bound = max(b_ops, b_bytes) * 1e3
+        print(f"{tag} (c) {label} step [{B}, {S}] ({cut_note}): "
+              f"{spread(ms)} over {STEP_ITERS} calls after {STEP_WARMUP}, "
+              f"peak {gib(peak):.2f} GiB above the {gib(base):.2f} GiB "
+              f"held before it, launches per step flash {launches[0]} "
+              f"decode {launches[1]} | count (world of one, plain "
+              f"attention, {count_s:.1f}s): {rec['flops_per_device']:.4e} "
+              f"FLOP, {rec['bytes_per_device']:.4e} B (unfused), bound "
+              f"{bound:.3f} ms by {'bytes' if b_bytes >= b_ops else 'FLOPs'}"
+              f" ({b_ops * 1e3:.3f} ms FLOPs at 989 TFLOP/s, "
+              f"{b_bytes * 1e3:.3f} ms bytes at 3.35 TB/s); bound / "
+              f"measured {bound / ms[0]:.4f} | card {card}", flush=True)
+        measured[label] = launches
+        return launches
+
+    # prefill [4, 4096]
+    Bp, Sp = PREFILL25
+    pbatch = {"tokens": tokens(Bp, Sp)}
+    prefill = steps_mod.make_prefill_step(cfg, max_cache_len=Sp)
+    launches = run("prefill", "prefill", Bp, Sp,
+                   lambda: prefill(params, pbatch),
+                   f"cut from prefill_32k [32, 32768]: its logits alone "
+                   f"would be {32 * 32768 * V * 2 / 1e9:.0f} GB in bf16")
+    check(launches == (cfg.n_layers, 0), f"prefill step launches "
+          f"{launches}, expected ({cfg.n_layers}, 0)")
+
+    # train: the largest batch that fits at S 4096 (remat, fp32 Adam)
+    opt_cfg = adam.AdamConfig()
+    opt = adam.init_adam_state(params, opt_cfg)
+    train = steps_mod.make_train_step(cfg, opt_cfg)
+    for Bt in TRAIN25_BATCHES:
+        tb = {"tokens": tokens(Bt, TRAIN25_SEQ),
+              "labels": tokens(Bt, TRAIN25_SEQ),
+              "loss_mask": torch.ones((Bt, TRAIN25_SEQ), dtype=bf16,
+                                      device=dev)}
+        try:
+            _, _, m = train(params, opt, tb)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass        # the traceback's tensors go when the block ends
+        print(f"{tag} (c) train batch {Bt} x {TRAIN25_SEQ} does not fit",
+              flush=True)
+        del tb
+        free(torch)
+    check(math.isfinite(float(m["loss"])), "train step: non-finite loss")
+    del m
+    launches = run("train", "train", Bt, TRAIN25_SEQ,
+                   lambda: train(params, opt, tb),
+                   f"cut from train_4k [256, 4096]: the largest batch "
+                   f"of {TRAIN25_BATCHES} that fits")
+    check(launches == (0, 0), f"train step launched {launches}")
+    del opt, tb
+    free(torch)
+
+    # serve: batch 32, a full cache of 8192 positions
+    Bd, L = DECODE25
+    cache = cache_mod.init_cache(cfg, Bd, L, dtype=bf16, device=dev)
+    for leaf in cache["blocks"]["layer0"].values():
+        leaf.normal_(generator=g)
+    cache["pos"] = L - 1
+    dbatch = {"tokens": tokens(Bd, 1), "cache": cache}
+    serve = steps_mod.make_serve_step(cfg)
+    full_kv = cfg.n_layers * 2 * 128 * 32768 * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * 2
+    launches = run("serve", "decode", Bd, L,
+                   lambda: serve(params, dbatch),
+                   f"cut from decode_32k [128, 32768]: its KV cache would "
+                   f"be {full_kv / 1e9:.0f} GB in bf16")
+    check(launches == (0, cfg.n_layers), f"serve step launches "
+          f"{launches}, expected (0, {cfg.n_layers})")
+
+    # (d) the kernel path against the plain attention
+    def both(fn):
+        out_k = fn()
+        attn.set_attention_impl("plain")
+        try:
+            out_p = fn()
+        finally:
+            attn.set_attention_impl("kernel")
+        return out_k, out_p
+
+    lk, lp = both(lambda: prefill(params, pbatch)[0])
+    err_p = rel_err(lk, lp, 2e-2)
+    dk, dp = both(lambda: serve(params, dbatch)[0])
+    err_d = rel_err(dk, dp, 2e-2)
+    cut = dataclasses.replace(first_layers(cfg, 4), dtype="float32")
+    p4 = T.init_params(cut, seed=0, device=dev)
+    prefill4 = steps_mod.make_prefill_step(cut, max_cache_len=Sp)
+    fk, fp = both(lambda: prefill4(p4, pbatch)[0])
+    err_f = rel_err(fk, fp, 2e-4)
+    print(f"{tag} (d) kernels vs plain attention, |a - b| / (1 + |b|) of "
+          f"the logits: prefill bf16 {err_p:.3g} (tol 2e-2), serve bf16 "
+          f"{err_d:.3g} (tol 2e-2), prefill fp32 on the first 4 layers "
+          f"{err_f:.3g} (tol 2e-4) | card {card}", flush=True)
+    for out in (lk, lp, dk, dp, fk, fp):
+        check(bool(torch.isfinite(out.float()).all()), "non-finite logits")
+    check(err_p <= 2e-2 and err_d <= 2e-2 and err_f <= 2e-4,
+          "the kernel steps disagree with the plain attention")
+    del params, p4, cache, dbatch, pbatch, lk, lp, dk, dp, fk, fp
+    free(torch)
+
+    # the kernels line's rows at these shapes
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = {
+        "flash_attention/qwen3_prefill_4096": dict(
+            name="flash_attention/qwen3_prefill_4096", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:26",
+            launches=measured["prefill"][0],
+            **attn_row(torch, F, fa, flush, Bp, Sp, H, KV, hd, bf16, True,
+                       card, f"{ARCH} prefill step [{Bp}, {Sp}]", tag)),
+        "decode_attention/qwen3_decode_8192": dict(
+            name="decode_attention/qwen3_decode_8192", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:21",
+            launches=measured["serve"][1],
+            **decode_row(torch, F, dec, flush, Bd, L, H, KV, hd, card,
+                         f"{ARCH} serve step, cache {L}", tag, dtype=bf16)),
+    }
+    del flush
+    free(torch)
+    print(f"{tag} {time.monotonic() - t_phase:.1f}s | card {card}",
+          flush=True)
+    return rows
 
 
 def main() -> None:
@@ -3358,6 +3616,9 @@ def main() -> None:
 
     # ---- 24. the launcher's drift and faults on ranks ----------------------
     elastic_ranks_phase24(torch, dev, card)
+
+    # ---- 25. full-width steps against the dry-run's roofline ---------------
+    results.update(roofline_phase25(torch, F, dev, fa, dec, card))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

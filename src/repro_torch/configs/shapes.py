@@ -1,24 +1,30 @@
-"""Assigned input shapes, and how a sequence splits between the feature
-and the token frontends.
+"""Assigned input shapes, and input specs for the dry-run.
 
-A copy of the framework-free part of ``repro.configs.shapes``:
+Port of ``repro.configs.shapes``:
 
     train_4k     seq_len=4096    global_batch=256   (training)
     prefill_32k  seq_len=32768   global_batch=32    (inference-prefill)
     decode_32k   seq_len=32768   global_batch=128   (inference-decode)
     long_500k    seq_len=524288  global_batch=1     (long-context-decode)
 
+Decode shapes run ``serve_step`` (one new token + KV cache of seq_len).
 ``long_500k`` runs only for architectures with a sub-quadratic long
-mode; encoder-only architectures have no decode step.  The JAX module's
-``input_specs`` (``ShapeDtypeStruct`` stand-ins that the dry-run lowers
-through XLA) has no counterpart yet: it comes with the port's dry-run
-and roofline reports (ROADMAP.md §1 item 10).
+mode; encoder-only architectures have no decode step.
+
+``input_specs`` builds every model input as a fake tensor (``torch.
+_subclasses.fake_tensor.FakeTensorMode``): shape, dtype and device with
+no memory behind them, the counterpart of the reference's
+``ShapeDtypeStruct`` stand-ins.  Every leaf, the decode cache's
+included, builds under fake mode.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
 
+import torch
+
+from repro_torch.models import cache as cache_mod
 from repro_torch.models.config import ModelConfig
 
 
@@ -60,3 +66,34 @@ def token_splits(cfg: ModelConfig, seq_len: int):
         return seq_len, 0
     n_feat = min(N_PATCHES, seq_len // 2)
     return n_feat, seq_len - n_feat
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                param_dtype=torch.bfloat16, fake_mode=None
+                ) -> Dict[str, object]:
+    """Fake-tensor stand-ins for every model input (no allocation), in
+    ``fake_mode`` (a ``FakeTensorMode``; a new one when None): the
+    parameters and the inputs of one step must share a mode.  Token ids
+    are int64 (the reference's int32: torch indexes with int64)."""
+    if fake_mode is None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        fake_mode = FakeTensorMode()
+    B, S = shape.global_batch, shape.seq_len
+    n_feat, n_tok = token_splits(cfg, S)
+    with fake_mode:
+        if shape.phase in ("train", "prefill"):
+            specs = {}
+            if n_feat:
+                specs["features"] = torch.empty((B, n_feat, cfg.feature_dim),
+                                                dtype=param_dtype)
+            if n_tok:
+                specs["tokens"] = torch.empty((B, n_tok), dtype=torch.int64)
+            if shape.phase == "train":
+                specs["labels"] = torch.empty((B, S), dtype=torch.int64)
+                specs["loss_mask"] = torch.empty((B, S), dtype=param_dtype)
+            return specs
+        # decode: one token + cache of seq_len
+        cache = cache_mod.init_cache(cfg, B, S, long_mode=shape.long_mode,
+                                     dtype=param_dtype)
+        return {"tokens": torch.empty((B, 1), dtype=torch.int64),
+                "cache": cache}

@@ -199,7 +199,8 @@ def _entry(leaf: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
 def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
             long_mode: bool = False, return_cache: bool = False,
             max_cache_len: Optional[int] = None,
-            attn_impl: Optional[str] = None) -> Dict[str, Any]:
+            attn_impl: Optional[str] = None,
+            remat: bool = False) -> Dict[str, Any]:
     """Full-sequence forward over ``inputs`` (``embed_inputs``: tokens
     [B, S_t], features [B, S_f, feature_dim] or both, S = S_f + S_t;
     positions run over the whole sequence).  Returns {"logits" [B, S, V],
@@ -207,7 +208,12 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
     decode cache primed with the sequence (``{"blocks", "pos": S}``).
     ``attn_impl`` ("plain" | "kernel" | None for the module default)
     picks every attention layer's path for this call only, so concurrent
-    callers never share a toggle."""
+    callers never share a toggle.  ``remat`` (under grad, without a
+    cache) recomputes each repeat's layers in the backward pass, as the
+    reference's ``remat`` checkpoints each scanned superblock: its
+    ``save_mixer`` policy saves the mixer outputs, whose backward needs
+    the mixer's own intermediates all the same, so both recompute every
+    layer's forward once (``torch.utils.checkpoint``)."""
     x = hint(embed_inputs(params, cfg, inputs), "residual")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
@@ -221,8 +227,7 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
         if is_dtensor(x):
             cache["blocks"] = cache_mod.distribute_cache(cache["blocks"],
                                                          x.device_mesh)
-    aux = None                  # summed only over MoE layers: no kernel else
-    for r in range(cfg.n_pattern_repeats):
+    def repeat(x, aux, r):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
             entry = (None if cache is None
@@ -232,6 +237,16 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
                                   attn_impl=attn_impl)
             if torch.is_tensor(a):
                 aux = a if aux is None else aux + a
+        return x, aux
+
+    recompute = remat and cache is None and torch.is_grad_enabled()
+    aux = None                  # summed only over MoE layers: no kernel else
+    for r in range(cfg.n_pattern_repeats):
+        if recompute:
+            from torch.utils.checkpoint import checkpoint
+            x, aux = checkpoint(repeat, x, aux, r, use_reentrant=False)
+        else:
+            x, aux = repeat(x, aux, r)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

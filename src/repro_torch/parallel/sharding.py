@@ -230,13 +230,14 @@ def param_tree_specs(params):
 def _mesh_sizes(mesh) -> Dict[str, int]:
     names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
     shape = (mesh.devices.shape if hasattr(mesh, "devices")
-             else tuple(mesh.mesh.shape))
+             else tuple(mesh.size(i) for i in range(len(names))))
     return dict(zip(names, shape))
 
 
 def sanitize_spec(spec: P, shape, mesh) -> P:
-    """Drop axis assignments whose product does not divide the dimension;
-    for tuple entries keep the greedy prefix of axes that divides.
+    """Drop axis assignments whose product does not divide the dimension
+    (and axes the mesh lacks); for tuple entries keep the greedy prefix
+    of axes that divides.
     ``mesh`` is a torch DeviceMesh or anything with ``axis_names`` and
     ``devices.shape``."""
     sizes = _mesh_sizes(mesh)
@@ -248,7 +249,7 @@ def sanitize_spec(spec: P, shape, mesh) -> P:
         axes = entry if isinstance(entry, tuple) else (entry,)
         kept, prod = [], 1
         for a in axes:
-            if shape[d] % (prod * sizes[a]) == 0:
+            if a in sizes and shape[d] % (prod * sizes[a]) == 0:
                 kept.append(a)
                 prod *= sizes[a]
         if not kept:
@@ -460,7 +461,8 @@ def redistribute_like(x, ref):
 # ---------------------------------------------------------------------------
 
 def _axis_if(mesh, axis: str, n: int):
-    return axis if n % _mesh_sizes(mesh)[axis] == 0 else None
+    sizes = _mesh_sizes(mesh)
+    return axis if axis in sizes and n % sizes[axis] == 0 else None
 
 
 def local_call(fn, args: Sequence, in_specs: Sequence, out_specs: Sequence,

@@ -170,7 +170,9 @@ def _run(code, env=None):
 def test_port_imports_no_jax_and_no_repro():
     """Nor msgpack: the port writes the checkpoint format with its own
     codec.  The walk covers genserve's copies of the framework-free
-    scheduler and page pool."""
+    scheduler and page pool, the ILP and baseline schedulers and the
+    dry-run tooling; importing every module (``launch.mesh`` among them)
+    initializes no process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -181,13 +183,19 @@ def test_port_imports_no_jax_and_no_repro():
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.') "
         "or k == 'msgpack' or k.startswith('msgpack.'))\n"
         "new = [m for m in ('repro_torch.genserve.pagepool', "
-        "'repro_torch.genserve.scheduler', 'repro_torch.genserve.decoder') "
-        "if m not in mods]\n"
-        "print(len(mods), bad, new)\n")
+        "'repro_torch.genserve.scheduler', 'repro_torch.genserve.decoder', "
+        "'repro_torch.core.ilp', 'repro_torch.core.baselines', "
+        "'repro_torch.launch.mesh', 'repro_torch.launch.op_analysis', "
+        "'repro_torch.launch.dryrun', 'repro_torch.launch.dryrun_all', "
+        "'repro_torch.launch.roofline', 'repro_torch.launch.reanalyze', "
+        "'repro_torch.launch.op_profile') if m not in mods]\n"
+        "import torch.distributed as dist\n"
+        "pg = dist.is_available() and dist.is_initialized()\n"
+        "print(len(mods), bad, new, pg)\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr
     n, rest = r.stdout.split(" ", 1)
-    assert int(n) >= 20 and rest.strip() == "[] []", r.stdout
+    assert int(n) >= 20 and rest.strip() == "[] [] False", r.stdout
 
 
 def test_kernel_build_module_needs_no_nvcc(tmp_path):

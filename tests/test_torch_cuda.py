@@ -585,3 +585,49 @@ def test_kernel_wrappers_on_dtensors_cuda():
             assert err <= tols[name], (name, err)
             assert placements.startswith("(Shard(dim=0), Shard(dim=")
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_serve_steps_kernels_against_plain(dtype):
+    """``launch.steps``' prefill and serve steps (qwen3-0.6b's first 2
+    layers at full width) with the kernels against the same steps on the
+    plain attention: last-position and decode logits within the
+    attention tolerance; each step launches its kernel once per layer."""
+    import dataclasses
+    from repro_torch.configs import archs
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import transformer as T
+    dev = _cuda()
+    cfg = archs.get("qwen3-0.6b")
+    cfg = dataclasses.replace(cfg, n_layers=2, pattern=cfg.pattern[:2],
+                              dtype=dtype)
+    params = T.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 300),
+                                     generator=g, device=dev)}
+    nxt_tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=g,
+                            device=dev)
+    prefill = steps.make_prefill_step(cfg, max_cache_len=320)
+    serve = steps.make_serve_step(cfg)
+
+    def run(impl):
+        attn.set_attention_impl(impl)
+        try:
+            t_flash.launches = t_decode.launches = 0
+            last, cache = prefill(params, batch)
+            nxt = {"tokens": nxt_tok, "cache": cache}
+            logits, _ = serve(params, nxt)
+            torch.cuda.synchronize()
+            return last, logits, (t_flash.launches, t_decode.launches)
+        finally:
+            attn.set_attention_impl("kernel")
+    k_last, k_logits, k_n = run("kernel")
+    p_last, p_logits, p_n = run("plain")
+    assert k_n == (2, 2) and p_n == (0, 0)
+    np.testing.assert_allclose(k_last.float().cpu(), p_last.float().cpu(),
+                               **tol(dtype))
+    np.testing.assert_allclose(k_logits.float().cpu(),
+                               p_logits.float().cpu(), **tol(dtype))
