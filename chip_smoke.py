@@ -235,8 +235,11 @@ Phases, each printing its result:
              max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s) and bound /
              measured; every cut named on its line; (d) the prefill and
              serve steps with the kernels against the same steps on the
-             plain attention, logits within 2e-2 in bf16 (rtol and
-             atol), the prefill also in fp32 on the first 4 layers
+             plain attention (|a - b| / (1 + |b|) of the logits): in
+             bf16 at all 28 layers within 1.25x of the gap torch's sdpa
+             opens in the plain attention's place (the bf16 gap grows
+             with depth for any fused attention), at the first 2 layers
+             within 2e-2, the prefill in fp32 on the first 4 layers
              within 2e-4; then flash_attention at [4, 4096, 16:8, 128]
              bf16 causal and decode_attention at batch 32 over 8192
              slots bf16, timed as phase 3 times its rows.
@@ -2701,6 +2704,26 @@ def step_ms(torch, fn, iters: int = STEP_ITERS, warmup: int = STEP_WARMUP):
     return times[len(times) // 2], times[0], times[-1]
 
 
+def sdpa_attention(q, k, v, q_pos, k_pos, *, causal, window, cap,
+                   k_valid=None):
+    """torch's ``scaled_dot_product_attention`` in the plain attention's
+    place (shared positions, no window or softcap): phase 25's yardstick
+    for the bf16 gap a fused attention opens against the plain path."""
+    import torch
+    import torch.nn.functional as F
+    check(window is None and cap is None, "sdpa_attention: no window, cap")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.shape[1] == 1:
+        mask = None if k_valid is None else torch.where(
+            k_valid.reshape(1, 1, 1, -1), 0.0, -1e30).to(q.dtype)
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)
+    else:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+    return o.transpose(1, 2)
+
+
 def roofline_phase25(torch, F, dev, fa, dec, card):
     """(a) the local microbench on the card; (b) dry-run counts of
     qwen3-0.6b on the production mesh (fake tensors, on the host);
@@ -2755,15 +2778,23 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
                                         device=dev)
     measured = {}
 
-    def run(label, phase, B, S, fn, cut_note):
+    def first_call(fn):
+        """The step's first call, with the launch counts zeroed just
+        before it and read just after, and the peak reset: (launches,
+        memory held before it)."""
         free(torch)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counts(fa, dec)
         fn()
         torch.cuda.synchronize()
-        launches = (fa.launches, dec.launches)
-        ms = step_ms(torch, fn)
+        return (fa.launches, dec.launches), base
+
+    def run(label, phase, B, S, fn, cut_note, first=None):
+        """Time ``fn`` (its first call, made here or given as ``first``,
+        is the first of the two warm-up calls) beside its count."""
+        launches, base = first or first_call(fn)
+        ms = step_ms(torch, fn, warmup=STEP_WARMUP - 1)
         peak = torch.cuda.max_memory_allocated(dev) - base
         t0 = time.monotonic()
         rec = dryrun.count_step(cfg, InputShape(label, S, B, phase))
@@ -2772,7 +2803,8 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
         b_bytes = rec["bytes_per_device"] / roofline.HBM_BW
         bound = max(b_ops, b_bytes) * 1e3
         print(f"{tag} (c) {label} step [{B}, {S}] ({cut_note}): "
-              f"{spread(ms)} over {STEP_ITERS} calls after {STEP_WARMUP}, "
+              f"{spread(ms)} over {STEP_ITERS} calls after {STEP_WARMUP} "
+              f"(the first counting the launches), "
               f"peak {gib(peak):.2f} GiB above the {gib(base):.2f} GiB "
               f"held before it, launches per step flash {launches[0]} "
               f"decode {launches[1]} | count (world of one, plain "
@@ -2805,22 +2837,23 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
               "labels": tokens(Bt, TRAIN25_SEQ),
               "loss_mask": torch.ones((Bt, TRAIN25_SEQ), dtype=bf16,
                                       device=dev)}
+        out = []
         try:
-            _, _, m = train(params, opt, tb)
-            torch.cuda.synchronize()
+            first = first_call(lambda: out.append(train(params, opt, tb)))
             break
         except torch.cuda.OutOfMemoryError:
             pass        # the traceback's tensors go when the block ends
         print(f"{tag} (c) train batch {Bt} x {TRAIN25_SEQ} does not fit",
               flush=True)
-        del tb
+        del tb, out
         free(torch)
-    check(math.isfinite(float(m["loss"])), "train step: non-finite loss")
-    del m
+    check(math.isfinite(float(out[0][2]["loss"])),
+          "train step: non-finite loss")
+    del out
     launches = run("train", "train", Bt, TRAIN25_SEQ,
                    lambda: train(params, opt, tb),
                    f"cut from train_4k [256, 4096]: the largest batch "
-                   f"of {TRAIN25_BATCHES} that fits")
+                   f"of {TRAIN25_BATCHES} that fits", first=first)
     check(launches == (0, 0), f"train step launched {launches}")
     del opt, tb
     free(torch)
@@ -2842,34 +2875,71 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     check(launches == (0, cfg.n_layers), f"serve step launches "
           f"{launches}, expected (0, {cfg.n_layers})")
 
-    # (d) the kernel path against the plain attention
-    def both(fn):
-        out_k = fn()
-        attn.set_attention_impl("plain")
+    # (d) the kernel path against the plain attention.  In bf16 the gap
+    # grows with depth for any fused attention, torch's sdpa as much as
+    # the kernels (bf16 probabilities in the PV product; the plain path
+    # runs fp32 inside): at all 28 layers each step is held to sdpa's
+    # own gap from plain (within 1.25x), at its first 2 layers to 2e-2,
+    # and in fp32 at its first 4 layers to 2e-4
+    def run_as(impl, fn):
+        attn.set_attention_impl(impl)
         try:
-            out_p = fn()
+            return fn()
         finally:
             attn.set_attention_impl("kernel")
-        return out_k, out_p
 
-    lk, lp = both(lambda: prefill(params, pbatch)[0])
-    err_p = rel_err(lk, lp, 2e-2)
-    dk, dp = both(lambda: serve(params, dbatch)[0])
-    err_d = rel_err(dk, dp, 2e-2)
-    cut = dataclasses.replace(first_layers(cfg, 4), dtype="float32")
-    p4 = T.init_params(cut, seed=0, device=dev)
-    prefill4 = steps_mod.make_prefill_step(cut, max_cache_len=Sp)
-    fk, fp = both(lambda: prefill4(p4, pbatch)[0])
-    err_f = rel_err(fk, fp, 2e-4)
-    print(f"{tag} (d) kernels vs plain attention, |a - b| / (1 + |b|) of "
-          f"the logits: prefill bf16 {err_p:.3g} (tol 2e-2), serve bf16 "
-          f"{err_d:.3g} (tol 2e-2), prefill fp32 on the first 4 layers "
-          f"{err_f:.3g} (tol 2e-4) | card {card}", flush=True)
-    for out in (lk, lp, dk, dp, fk, fp):
-        check(bool(torch.isfinite(out.float()).all()), "non-finite logits")
-    check(err_p <= 2e-2 and err_d <= 2e-2 and err_f <= 2e-4,
-          "the kernel steps disagree with the plain attention")
-    del params, p4, cache, dbatch, pbatch, lk, lp, dk, dp, fk, fp
+    def sdpa_run(fn):
+        keep = attn.plain_attention, attn.chunked_attention
+        attn.plain_attention = attn.chunked_attention = sdpa_attention
+        try:
+            return run_as("plain", fn)
+        finally:
+            attn.plain_attention, attn.chunked_attention = keep
+
+    def gaps(step, p_, batch):
+        fn = lambda: step(p_, batch)[0]     # noqa: E731
+        k_, p_out = fn(), run_as("plain", fn)
+        check(bool(torch.isfinite(k_.float()).all())
+              and bool(torch.isfinite(p_out.float()).all()),
+              "non-finite logits")
+        return rel_err(k_, p_out, 0), p_out, fn
+
+    cut2 = first_layers(cfg, 2)
+    p2 = T.init_params(cut2, seed=0, device=dev)
+    err = {}
+    for name, step, p_, batch in (
+            ("prefill", prefill, params, pbatch),
+            ("serve", serve, params, dbatch),
+            ("prefill, first 2 layers", steps_mod.make_prefill_step(
+                cut2, max_cache_len=Sp), p2, pbatch),
+            ("serve, first 2 layers", steps_mod.make_serve_step(cut2), p2,
+             {"tokens": dbatch["tokens"], "cache": {
+                 "blocks": {"layer0": {n: t[:2] for n, t in
+                                       cache["blocks"]["layer0"].items()}},
+                 "pos": L - 1}})):
+        e, p_out, fn = gaps(step, p_, batch)
+        err[name] = e
+        if "first" not in name:
+            err[name + " (sdpa)"] = rel_err(sdpa_run(fn), p_out, 0)
+    cut4 = dataclasses.replace(first_layers(cfg, 4), dtype="float32")
+    p4 = T.init_params(cut4, seed=0, device=dev)
+    err["prefill fp32, first 4 layers"] = gaps(
+        steps_mod.make_prefill_step(cut4, max_cache_len=Sp), p4, pbatch)[0]
+    print(f"{tag} (d) the kernel steps against the plain attention, "
+          f"|a - b| / (1 + |b|) of the logits: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in err.items())
+          + f" (bf16 all layers: within 1.25x sdpa's gap; first 2 layers: "
+          f"2e-2; fp32: 2e-4) | card {card}", flush=True)
+    for name in ("prefill", "serve"):
+        check(err[name] <= 1.25 * err[name + " (sdpa)"],
+              f"{name} step: the kernels are {err[name]:.4g} from plain, "
+              f"sdpa {err[name + ' (sdpa)']:.4g}")
+        check(err[name + ", first 2 layers"] <= 2e-2,
+              f"{name} step, first 2 layers: {err[name + ', first 2 layers']}"
+              f" from plain")
+    check(err["prefill fp32, first 4 layers"] <= 2e-4,
+          "the fp32 prefill step disagrees with the plain attention")
+    del params, p2, p4, cache, dbatch, pbatch
     free(torch)
 
     # the kernels line's rows at these shapes

@@ -18,8 +18,9 @@ a counterpart exists: ``n_devices``, ``flops_per_device``,
 shard sizes.  ``counted_by`` is ``"torch dispatch"``; keys with no
 meaning here (``flops_xla_raw``, ``compile_s``,
 ``generated_code_size_in_bytes``) are left out, as is a peak
-(``temp_size_in_bytes``: torch's memory tracker counts no fake
-tensors).  ``bytes_per_device`` counts every aten op as its own kernel,
+(``temp_size_in_bytes``): torch's ``MemTracker`` gives one on fake
+tensors, but a peak does not follow the depth extrapolation below (6%
+off on a 5-layer train smoke).  ``bytes_per_device`` counts every aten op as its own kernel,
 so it bounds the reference's fused count from above.  The residual
 stream is not sequence-parallel in a train step (``_rules``).  Attention
 runs

@@ -46,13 +46,12 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cpu"):
+def make_production_mesh(*, multi_pod: bool = False):
     """The production mesh over the current world (``production_world``
     gives a fake one)."""
     from torch.distributed.device_mesh import init_device_mesh
     shape, axes = production_shape(multi_pod)
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 @contextlib.contextmanager
@@ -67,13 +66,13 @@ def production_world(*, multi_pod: bool = False):
         yield make_production_mesh(multi_pod=multi_pod)
 
 
-def make_host_mesh(model_axis: int = 1, device_type: str = "cpu"):
+def make_host_mesh(model_axis: int = 1):
     """Tiny mesh over the ranks of the current world (a CPU smoke run's
     gloo ranks, or a fake world): (world // model_axis, model_axis)."""
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
     data = max(n // model_axis, 1)
-    return init_device_mesh(device_type, (data, model_axis),
+    return init_device_mesh("cpu", (data, model_axis),
                             mesh_dim_names=("data", "model"))
 
 

@@ -45,8 +45,6 @@ from torch.utils._pytree import tree_flatten
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
-aten = torch.ops.aten
-
 # FLOPs per output element: the reference counts one for each elementwise
 # HLO op in its _ELEMENTWISE set (add, subtract, multiply, divide, maximum,
 # minimum, exponential, tanh, rsqrt, sqrt, power, negate, abs, log,
@@ -101,11 +99,13 @@ _COLLECTIVE_OPS = {
     "send": ("collective-permute", 0),
 }
 
-# ops that move no bytes: metadata, allocation without a write
+# ops that move no bytes: metadata, views the schema does not mark as
+# such, allocation without a write
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "sym_size", "sym_stride", "sym_numel",
          "sym_storage_offset", "device", "is_same_size", "wait_tensor",
-         "detach", "lift_fresh", "_local_scalar_dense"}
+         "detach", "lift_fresh", "_local_scalar_dense", "_unsafe_view",
+         "_reshape_alias"}
 
 
 def _nbytes(t) -> int:

@@ -98,18 +98,17 @@ def make_train_step(cfg: ModelConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, *, long_mode: bool = False,
-                      max_cache_len: Optional[int] = None,
-                      attn_impl: Optional[str] = None):
+                      max_cache_len: Optional[int] = None):
     """``prefill_step(params, batch) -> (last logits [B, V], cache)``:
     the forward over the prompt with a decode cache of ``max_cache_len``
-    positions (default: the prompt's) primed by it.  ``attn_impl`` as
-    ``T.forward`` (None: the module default, the kernels on the card)."""
+    positions (default: the prompt's) primed by it, on the module's
+    attention (``models.attention.set_attention_impl``: the kernels on
+    the card)."""
     def prefill_step(params, batch):
         with torch.no_grad():
             out = T.forward(sh.for_use(params), cfg, batch,
                             long_mode=long_mode, return_cache=True,
-                            max_cache_len=max_cache_len,
-                            attn_impl=attn_impl)
+                            max_cache_len=max_cache_len)
         return out["logits"][:, -1], out["cache"]
     return prefill_step
 

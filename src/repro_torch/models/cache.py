@@ -97,12 +97,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 def distribute_cache(blocks, mesh):
     """A fresh cache's leaves as DTensors on ``mesh`` (every rank holds
     the same zeros, so no communication): attention k/v ``[R, B, L, KV,
-    hd]`` under the ``kv_cache`` rule (slots over ``data``, kv heads over
-    ``model``), recurrent state and ``cm_shift`` with slots over
-    ``data``.  The in-place writers then write each rank's shard."""
-    kv = sh.P(None, *sh.default_activation_rules(seq_shard=False)["kv_cache"])
+    hd]`` under the ``kv_cache`` rule (slots over the data axes, kv
+    heads over ``model``), recurrent state and ``cm_shift`` with slots
+    over the data axes.  The in-place writers then write each rank's
+    shard."""
+    data = tuple(a for a in (sh.POD, sh.DATA) if a in mesh.mesh_dim_names)
+    kv = sh.P(None, *sh.default_activation_rules(
+        data_axes=data, seq_shard=False)["kv_cache"])
+    rows = sh.P(None, data if len(data) > 1 else data[0])
     return {name: {n: sh.distribute(t, mesh, kv if n in ("k", "v")
-                                    else sh.P(None, sh.DATA))
+                                    else rows)
                    for n, t in leaves.items()}
             for name, leaves in blocks.items()}
 

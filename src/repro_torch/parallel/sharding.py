@@ -45,6 +45,7 @@ import torch.distributed as tdist
 
 DATA, MODEL = "data", "model"
 AXES = (DATA, MODEL)
+POD = "pod"         # a multi-pod mesh's outer data axis (launch.mesh)
 
 
 class P(tuple):
@@ -500,11 +501,19 @@ def local_call(fn, args: Sequence, in_specs: Sequence, out_specs: Sequence,
 
 
 def kernel_specs(mesh, batch: int, parts: int) -> Tuple:
-    """(batch axis, part axis) of a kernel call on ``mesh``: the batch
-    over ``data`` and the independent parts (heads; channels) over
-    ``model``, each only where it divides; ``parts`` is the gcd-style
-    count that must divide (heads and kv heads alike)."""
-    return _axis_if(mesh, DATA, batch), _axis_if(mesh, MODEL, parts)
+    """(batch axes, part axis) of a kernel call on ``mesh``: the batch
+    over the data axes (``data``, and ``pod`` first on a multi-pod mesh)
+    and the independent parts (heads; channels) over ``model``, each
+    only where it divides; ``parts`` is the gcd-style count that must
+    divide (heads and kv heads alike)."""
+    data = tuple(a for a in (POD, DATA) if a in _mesh_sizes(mesh))
+    return (sanitize_spec(P(data), (batch,), mesh)[0],
+            _axis_if(mesh, MODEL, parts))
+
+
+def _on(entry, axis: str) -> bool:
+    """Whether spec entry ``entry`` names mesh axis ``axis``."""
+    return axis in (entry if isinstance(entry, tuple) else (entry,))
 
 
 def vocab_parallel_embedding(table, ids):
@@ -529,12 +538,15 @@ def vocab_parallel_embedding(table, ids):
         ok = (local >= 0) & (local < tab.shape[0])
         rows = tab[local.clamp(0, tab.shape[0] - 1)]
         return rows * ok[..., None].to(rows.dtype)
-    rows = Shard(0) if b else Replicate()
-    vocab = Shard(0) if m else Replicate()
-    # mesh dims (data, model): the output is a sum over the vocab shards,
-    # the table's gradient a sum over the data shards
-    out = (rows, Partial() if m else Replicate())
-    grad = (Partial() if b else Replicate(), vocab)
+    # per mesh dim: the output is a sum over the vocab shards (``model``)
+    # and split by rows over the data axes; the table's gradient is a sum
+    # over the data axes
+    names = mesh.mesh_dim_names
+    out = tuple((Partial() if m else Replicate()) if a == MODEL
+                else Shard(0) if _on(b, a) else Replicate() for a in names)
+    grad = tuple((Shard(0) if m else Replicate()) if a == MODEL
+                 else Partial() if _on(b, a) else Replicate()
+                 for a in names)
     return local_call(lookup, (ids, table), (P(b), P(m, None)), out,
                       in_grad=(P(b), grad))
 

@@ -90,7 +90,7 @@ def test_depth_extrapolation_equals_the_direct_count():
     the whole depth (every repeat does the same work)."""
     cfg = dataclasses.replace(archs.get("qwen3-0.6b", smoke=True),
                               n_layers=5)
-    shape = InputShape("smoke", 8, 2, "train")
+    shape = InputShape("smoke", 4, 2, "train")
     got = dryrun.count_step(cfg, shape)
     assert cfg.n_pattern_repeats == 5
     direct = dryrun._count_once(cfg, shape, None, torch.bfloat16)
@@ -188,12 +188,12 @@ def mesh_2x2():
 
 def test_train_step_on_a_mesh_moves_gathers_or_scatters(mesh_2x2):
     rec = dryrun.count_step(archs.get("qwen3-0.6b", smoke=True),
-                            InputShape("smoke", 32, 4, "train"), mesh_2x2)
+                            InputShape("smoke", 16, 4, "train"), mesh_2x2)
     coll = rec["collective_bytes_per_device"]
     assert rec["n_devices"] == 4
     assert coll["all-gather"] + coll["reduce-scatter"] > 0
     whole = dryrun.count_step(archs.get("qwen3-0.6b", smoke=True),
-                              InputShape("smoke", 32, 4, "train"))
+                              InputShape("smoke", 16, 4, "train"))
     assert rec["flops_per_device"] < whole["flops_per_device"]
     assert rec["argument_size_in_bytes"] < whole["argument_size_in_bytes"]
 
@@ -223,6 +223,12 @@ def test_dryrun_one_leaves_no_process_group_and_keeps_a_live_one():
                             verbose=False, cfg=cfg)
     assert rec["n_devices"] == 256 and rec["phase"] == "decode"
     assert not dist.is_initialized()
+    # two pods: the parameters replicated over ``pod``, the batch split
+    multi = dryrun.dryrun_one("qwen3-0.6b", "decode_32k", True,
+                              verbose=False, cfg=cfg)
+    assert multi["n_devices"] == 512 and not dist.is_initialized()
+    assert multi["flops_per_device"] == pytest.approx(
+        rec["flops_per_device"] / 2, rel=0.01)
     skip = dryrun.dryrun_one("hubert-xlarge", "decode_32k", False,
                              verbose=False)
     assert skip["skipped"] == skip_reason(archs.get("hubert-xlarge"),
