@@ -110,16 +110,17 @@ Phases, each printing its result:
  15. launcher ``launch.train --rl grpo --require-recover`` with ``--drift
              drop_tail``, ``--fault ckpt_fail``, ``ckpt_flaky``,
              ``ckpt_corrupt`` and ``slot_failure`` at full width cut to the
-             first 8 layers (the whole state, 2.5 GB, must fit the format's
+             first 4 layers (the whole state, 1.3 GB, must fit the format's
              4 GiB); ``ckpt_corrupt`` prints ``load_latest fell back to
              ...``, ``slot_failure`` ``N slot failures requeued``.
  16. control no fault: the phase-14 trainer with the monitor and deadlines
              armed as the launcher arms them, 12 iterations; how often
              each fires (printed, not a gate); the local microbench of
              ``core.profiler``.
- 17. genserve the rest of the engine at qwen3-0.6b's full width in fp32
-             (batch 48, wave 16, prompt 256 with 128 shared tokens, 64
-             new, greedy), each run against one-shot admission: chunked
+ 17. genserve the rest of the engine at qwen3-0.6b's full width, its
+             first 8 layers, in fp32 (batch 48, wave 16, prompt 256 with
+             128 shared tokens, 64 new, greedy), each run against
+             one-shot admission: chunked
              (C=64), paged (page 16, identity block table), paged with
              prefix reuse (hit rate > 0, no leaked page under
              REPRO_OBS_STRICT=1), speculative k=4 with a 2-layer draft of
@@ -127,8 +128,8 @@ Phases, each printing its result:
              its own draft (chunked), slot failures {2: [0, 1]} and
              cancels {3: [2, 40]}: tokens and masks identical, log-probs
              within 1e-3; decode_attention launches in every run,
-             flash_attention in one-shot admission only.  Then rwkv6-3b
-             and Jamba's first 2 layers (MoE capacity_factor E / top_k:
+             flash_attention in one-shot admission only.  Then rwkv6-3b's
+             first 8 layers and Jamba's first 2 (MoE capacity_factor E / top_k:
              no token dropped), chunked against one-shot: identical, the
              scan kernels launched in one-shot only.
  18. serve   ``launch.serve`` in bf16 with phase 5's traffic: --prefill-chunk
@@ -273,6 +274,8 @@ RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
 HUBERT_ARCH = "hubert-xlarge"
 PIXTRAL_ARCH = "pixtral-12b"
+LAYERS15 = 4                       # phase 15's depth cut of qwen3-0.6b
+LAYERS17 = 8                       # phase 17's depth cut (qwen3, rwkv6)
 LAYERS22 = 8                       # phase 22's depth cut of qwen3-0.6b
 
 
@@ -1128,15 +1131,15 @@ def elastic_phase14(torch, dev, fa, dec, card):
 def launcher_phase15(torch, dev, fa, dec, card):
     """``launch.train --rl grpo --require-recover`` with ``--drift
     drop_tail``, then ``--fault ckpt_fail``, ``ckpt_flaky`` and
-    ``ckpt_corrupt``, at qwen3-0.6b's full width cut to its first 8 layers
-    (the whole trainer state, about 2.5 GB, then fits the checkpoint
-    format's 4 GiB; at 28 layers it is 8.8 GB)."""
+    ``ckpt_corrupt``, at qwen3-0.6b's full width cut to its first
+    ``LAYERS15`` layers (the whole trainer state, about 1.3 GB, then fits
+    the checkpoint format's 4 GiB; at 28 layers it is 8.8 GB)."""
     import shutil
     from repro_torch.configs import archs
     from repro_torch.launch import train as train_mod
     from repro_torch.rl.trainer import RLTrainer
     from repro_torch.tree import tree_leaves
-    cut = first_layers(archs.get(ARCH), 8)
+    cut = first_layers(archs.get(ARCH), LAYERS15)
     hook = StageLaunches(fa, dec)
     restore = hook.install(RLTrainer)
     ckpt_dir = Path(train_mod.CKPT_DIR)
@@ -1151,7 +1154,8 @@ def launcher_phase15(torch, dev, fa, dec, card):
             argv = ["--arch", ARCH, "--rl", "grpo", "--batch", "16",
                     "--require-recover"] + extra
             print(f"[15 launcher] python -m repro_torch.launch.train "
-                  f"{' '.join(argv)}, first 8 of {archs.get(ARCH).n_layers} "
+                  f"{' '.join(argv)}, first {LAYERS15} of "
+                  f"{archs.get(ARCH).n_layers} "
                   f"layers at full width (depth cut: the state must fit the "
                   f"checkpoint format's 4 GiB)", flush=True)
             t0 = time.monotonic()
@@ -1267,8 +1271,9 @@ def _same_rollout(a, b, rows=None):
 
 
 def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
-    """The rest of genserve at full width in fp32, held against one-shot
-    admission on the same weights and prompts (qwen3-0.6b, batch 48, wave
+    """The rest of genserve at full width in fp32 (depth cut to the
+    first ``LAYERS17`` layers), held against one-shot admission on the
+    same weights and prompts (qwen3-0.6b, batch 48, wave
     16, prompt 256 with the first 128 tokens shared, 64 new, greedy):
     chunked admission, the paged cache (identity block table), radix
     prefix reuse, speculative decoding (a 2-layer draft of the target's
@@ -1283,7 +1288,7 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
     from repro_torch.rl.rollout import SamplerConfig
     from repro_torch.tree import tree_map
     t_phase = time.monotonic()
-    cfg = archs.get(ARCH)
+    cfg = first_layers(archs.get(ARCH), LAYERS17)
     params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     B, W, P, N = 48, 16, 256, 64
     prompts = torch.randint(0, cfg.vocab_size, (B, P),
@@ -1319,7 +1324,8 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
         base = runs["one-shot"][0]
         for m, (ro, st, n, sec) in runs.items():
             same, lp = _same_rollout(base, ro)
-            print(f"[17 genserve] {ARCH} fp32 full width, {m}: tokens and "
+            print(f"[17 genserve] {ARCH} fp32 full width, first "
+                  f"{cfg.n_layers} layers, {m}: tokens and "
                   f"masks identical to one-shot={same}, logprob max diff "
                   f"{lp:.3g} (tol 1e-3); {st['decode_steps']} decode "
                   f"rounds, {st['prefill_rounds']} prefill-chunk rounds, "
@@ -1404,7 +1410,7 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
     # capacity_factor E / top_k no token can be dropped
     jcfg = dataclasses.replace(
         jcfg, capacity_factor=jcfg.n_experts / jcfg.top_k)
-    for c in (archs.get(RWKV_ARCH), jcfg):
+    for c in (first_layers(archs.get(RWKV_ARCH), LAYERS17), jcfg):
         p_ = T.init_params(c, seed=0, device=dev, dtype=torch.float32)
         pr = torch.randint(0, c.vocab_size, (12, 64),
                            generator=torch.Generator().manual_seed(0))
@@ -1412,8 +1418,9 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
         chk = serve_on(p_, c, pr, 8, small, prefill_chunk=16)
         same, lp = _same_rollout(one[0], chk[0])
         scan = "rwkv" if c.name == RWKV_ARCH else "mamba"
-        cut = ("" if c.name == RWKV_ARCH else ", first 2 layers, MoE "
-               f"capacity_factor {c.capacity_factor}")
+        cut = (f", first {c.n_layers} layers" if c.name == RWKV_ARCH
+               else f", first 2 layers, MoE capacity_factor "
+               f"{c.capacity_factor}")
         print(f"[17 genserve] {c.name} fp32 full width{cut}"
               f", 12 requests, wave 8, prompt 64, 16 new: chunked (C=16) "
               f"identical to one-shot={same}, logprob max diff {lp:.3g}; "
@@ -2067,8 +2074,9 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
           f"{replayed} (bound {sx.REPLAY_AGREEMENT}); GEN weights equal to "
           f"the actor bit for bit after each iteration {s['sync_identical']} "
           f"(greedy {r0['greedy']['sync_identical']}); first trained loss "
-          f"{l1:.6g} vs {b1:.6g} (relative {abs(l1 - b1) / abs(b1):.2g}, "
-          f"tol 1e-5); actor step on a fixed {batch * G}-row batch: loss and "
+          f"{l1:.6g} vs {b1:.6g} (difference {abs(l1 - b1):.2g}, "
+          f"tol 1e-5 relative); actor step on a fixed {batch * G}-row "
+          f"batch: loss and "
           f"grad norm relative {rel['loss']:.2g} / {rel['grad_norm']:.2g} "
           f"(tol 1e-5)", flush=True)
     ms = {m: 1e3 * sum(r0[m]["wall_s"][1:]) / (iters - 1)
@@ -3652,7 +3660,7 @@ def main() -> None:
     print(f"[14 elastic] launches in the first iteration after the swap "
           f"(flash, decode): {after}", flush=True)
 
-    # ---- 15. the launcher's drift and checkpoint faults, 8-layer cut -------
+    # ---- 15. the launcher's drift and checkpoint faults, 4-layer cut -------
     launcher_phase15(torch, dev, fa, dec, card)
 
     # ---- 16. no-fault control: spurious fires of the monitor and deadlines -

@@ -11,7 +11,6 @@ process group survives a test."""
 import dataclasses
 import json
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,8 +30,7 @@ from repro_torch.configs.shapes import (SHAPES, InputShape,  # noqa: E402
                                         input_specs, skip_reason)
 from repro_torch.launch import dryrun, op_profile, reanalyze  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
-from repro_torch.launch.mesh import (data_axes, fake_world,  # noqa: E402
-                                     production_world)
+from repro_torch.launch.mesh import fake_world, production_world  # noqa
 from repro_torch.launch.roofline import roofline_terms  # noqa: E402
 
 B, S = 2, 64
