@@ -110,17 +110,16 @@ Phases, each printing its result:
  15. launcher ``launch.train --rl grpo --require-recover`` with ``--drift
              drop_tail``, ``--fault ckpt_fail``, ``ckpt_flaky``,
              ``ckpt_corrupt`` and ``slot_failure`` at full width cut to the
-             first 4 layers (the whole state, 1.3 GB, must fit the format's
+             first 8 layers (the whole state, 2.5 GB, must fit the format's
              4 GiB); ``ckpt_corrupt`` prints ``load_latest fell back to
              ...``, ``slot_failure`` ``N slot failures requeued``.
  16. control no fault: the phase-14 trainer with the monitor and deadlines
              armed as the launcher arms them, 12 iterations; how often
              each fires (printed, not a gate); the local microbench of
              ``core.profiler``.
- 17. genserve the rest of the engine at qwen3-0.6b's full width, its
-             first 8 layers, in fp32 (batch 48, wave 16, prompt 256 with
-             128 shared tokens, 64 new, greedy), each run against
-             one-shot admission: chunked
+ 17. genserve the rest of the engine at qwen3-0.6b's full width in fp32
+             (batch 48, wave 16, prompt 256 with 128 shared tokens, 64
+             new, greedy), each run against one-shot admission: chunked
              (C=64), paged (page 16, identity block table), paged with
              prefix reuse (hit rate > 0, no leaked page under
              REPRO_OBS_STRICT=1), speculative k=4 with a 2-layer draft of
@@ -128,15 +127,17 @@ Phases, each printing its result:
              its own draft (chunked), slot failures {2: [0, 1]} and
              cancels {3: [2, 40]}: tokens and masks identical, log-probs
              within 1e-3; decode_attention launches in every run,
-             flash_attention in one-shot admission only.  Then rwkv6-3b's
-             first 8 layers and Jamba's first 2 (MoE capacity_factor E / top_k:
+             flash_attention in one-shot admission only.  Then rwkv6-3b
+             and Jamba's first 2 layers (MoE capacity_factor E / top_k:
              no token dropped), chunked against one-shot: identical, the
              scan kernels launched in one-shot only.
  18. serve   ``launch.serve`` in bf16 with phase 5's traffic: --prefill-chunk
              64; --page-size 16 --prefix-cache --shared-prompts 128
-             --expect-prefix-hits; --spec-k 4 --draft-arch qwen3-0.6b
-             (tok/s, TTFT, hit and accept rates, peak memory, launches per
-             kernel); the paged view's gather per decode step.
+             --expect-prefix-hits; --spec-k 4 --draft-arch with the
+             engine's default draft of qwen3-0.6b (its first 7 layers,
+             window-free: ``default_draft``) (tok/s, TTFT, hit and accept
+             rates, peak memory, launches per kernel); the paged view's
+             gather per decode step.
  19. rl      phase 10's PPO iteration with GEN on genserve's chunked
              admission (prefill_chunk 16, decode_chunk 2): tokens identical
              to phase 10's, GEN launches decode_attention and no
@@ -231,15 +232,17 @@ Phases, each printing its result:
              a cache of 8192) and train (the largest batch of 8, 4, 2, 1
              that fits at S 4096) steps on the card: CUDA-event ms
              (median, min, max of 10 calls after 2), peak memory,
-             kernel launches per step (train none), beside the world-of-
-             one count of the same shape (plain attention), its bound
-             max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s) and bound /
-             measured; every cut named on its line; (d) the prefill and
-             serve steps with the kernels against the same steps on the
-             plain attention (|a - b| / (1 + |b|) of the logits): in
-             bf16 at all 28 layers within 1.25x of the gap torch's sdpa
-             opens in the plain attention's place (the bf16 gap grows
-             with depth for any fused attention), at the first 2 layers
+             kernel launches per step (train none), the MFU (model
+             FLOPs 2 N D, 6 N D to train, over ms x 989 TFLOP/s), beside
+             the world-of-one count of the same shape on the plain path
+             (full S^2 attention, unfused bytes: no bound on the kernel
+             path), its times at 989 TFLOP/s and 3.35 TB/s and their
+             max / measured; every cut named on its line; (d) the prefill
+             and serve steps with the kernels against the same steps on
+             the plain attention (|a - b| / (1 + |b|) of the logits): in
+             bf16 at all 28 layers within 0.1 (the bf16 gap grows with
+             depth for any fused attention: torch's sdpa in the plain
+             attention's place printed beside it), at the first 2 layers
              within 2e-2, the prefill in fp32 on the first 4 layers
              within 2e-4; then flash_attention at [4, 4096, 16:8, 128]
              bf16 causal and decode_attention at batch 32 over 8192
@@ -250,6 +253,7 @@ last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -274,8 +278,6 @@ RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
 HUBERT_ARCH = "hubert-xlarge"
 PIXTRAL_ARCH = "pixtral-12b"
-LAYERS15 = 4                       # phase 15's depth cut of qwen3-0.6b
-LAYERS17 = 8                       # phase 17's depth cut (qwen3, rwkv6)
 LAYERS22 = 8                       # phase 22's depth cut of qwen3-0.6b
 
 
@@ -459,6 +461,29 @@ def exp_floor_line(name, n_exp, ms, mhz, sms) -> str:
             f"{floor:.4f} ms at {EXP_PER_CLOCK_PER_SM} a clock per SM on "
             f"{sms} SMs at {mhz:.0f} MHz (nvidia-smi clocks.sm while it "
             f"ran); kernel {ms:.4f} ms (note, not the bound)")
+
+
+@contextlib.contextmanager
+def registered(cfg):
+    """``cfg`` as a ``configs.archs`` entry for the block, so that a
+    launcher's ``--draft-arch`` can name it."""
+    from repro_torch.configs import archs
+    archs.ARCHS[cfg.name] = cfg
+    try:
+        yield cfg.name
+    finally:
+        del archs.ARCHS[cfg.name]
+
+
+def default_draft(cfg):
+    """The engine's default speculative draft of ``cfg``
+    (``engine.tasks._draft_model``): a window-free copy with
+    ``len(pattern) * max(R // 4, 1)`` layers."""
+    pattern = tuple(dataclasses.replace(s, window=None)
+                    for s in cfg.pattern)
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-draft", pattern=pattern,
+        n_layers=len(pattern) * max(cfg.n_pattern_repeats // 4, 1))
 
 
 def first_layers(cfg, n: int):
@@ -1131,15 +1156,15 @@ def elastic_phase14(torch, dev, fa, dec, card):
 def launcher_phase15(torch, dev, fa, dec, card):
     """``launch.train --rl grpo --require-recover`` with ``--drift
     drop_tail``, then ``--fault ckpt_fail``, ``ckpt_flaky`` and
-    ``ckpt_corrupt``, at qwen3-0.6b's full width cut to its first
-    ``LAYERS15`` layers (the whole trainer state, about 1.3 GB, then fits
-    the checkpoint format's 4 GiB; at 28 layers it is 8.8 GB)."""
+    ``ckpt_corrupt``, at qwen3-0.6b's full width cut to its first 8 layers
+    (the whole trainer state, about 2.5 GB, then fits the checkpoint
+    format's 4 GiB; at 28 layers it is 8.8 GB)."""
     import shutil
     from repro_torch.configs import archs
     from repro_torch.launch import train as train_mod
     from repro_torch.rl.trainer import RLTrainer
     from repro_torch.tree import tree_leaves
-    cut = first_layers(archs.get(ARCH), LAYERS15)
+    cut = first_layers(archs.get(ARCH), 8)
     hook = StageLaunches(fa, dec)
     restore = hook.install(RLTrainer)
     ckpt_dir = Path(train_mod.CKPT_DIR)
@@ -1154,8 +1179,7 @@ def launcher_phase15(torch, dev, fa, dec, card):
             argv = ["--arch", ARCH, "--rl", "grpo", "--batch", "16",
                     "--require-recover"] + extra
             print(f"[15 launcher] python -m repro_torch.launch.train "
-                  f"{' '.join(argv)}, first {LAYERS15} of "
-                  f"{archs.get(ARCH).n_layers} "
+                  f"{' '.join(argv)}, first 8 of {archs.get(ARCH).n_layers} "
                   f"layers at full width (depth cut: the state must fit the "
                   f"checkpoint format's 4 GiB)", flush=True)
             t0 = time.monotonic()
@@ -1271,9 +1295,8 @@ def _same_rollout(a, b, rows=None):
 
 
 def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
-    """The rest of genserve at full width in fp32 (depth cut to the
-    first ``LAYERS17`` layers), held against one-shot admission on the
-    same weights and prompts (qwen3-0.6b, batch 48, wave
+    """The rest of genserve at full width in fp32, held against one-shot
+    admission on the same weights and prompts (qwen3-0.6b, batch 48, wave
     16, prompt 256 with the first 128 tokens shared, 64 new, greedy):
     chunked admission, the paged cache (identity block table), radix
     prefix reuse, speculative decoding (a 2-layer draft of the target's
@@ -1288,7 +1311,7 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
     from repro_torch.rl.rollout import SamplerConfig
     from repro_torch.tree import tree_map
     t_phase = time.monotonic()
-    cfg = first_layers(archs.get(ARCH), LAYERS17)
+    cfg = archs.get(ARCH)
     params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     B, W, P, N = 48, 16, 256, 64
     prompts = torch.randint(0, cfg.vocab_size, (B, P),
@@ -1324,8 +1347,7 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
         base = runs["one-shot"][0]
         for m, (ro, st, n, sec) in runs.items():
             same, lp = _same_rollout(base, ro)
-            print(f"[17 genserve] {ARCH} fp32 full width, first "
-                  f"{cfg.n_layers} layers, {m}: tokens and "
+            print(f"[17 genserve] {ARCH} fp32 full width, {m}: tokens and "
                   f"masks identical to one-shot={same}, logprob max diff "
                   f"{lp:.3g} (tol 1e-3); {st['decode_steps']} decode "
                   f"rounds, {st['prefill_rounds']} prefill-chunk rounds, "
@@ -1410,7 +1432,7 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
     # capacity_factor E / top_k no token can be dropped
     jcfg = dataclasses.replace(
         jcfg, capacity_factor=jcfg.n_experts / jcfg.top_k)
-    for c in (first_layers(archs.get(RWKV_ARCH), LAYERS17), jcfg):
+    for c in (archs.get(RWKV_ARCH), jcfg):
         p_ = T.init_params(c, seed=0, device=dev, dtype=torch.float32)
         pr = torch.randint(0, c.vocab_size, (12, 64),
                            generator=torch.Generator().manual_seed(0))
@@ -1418,9 +1440,8 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
         chk = serve_on(p_, c, pr, 8, small, prefill_chunk=16)
         same, lp = _same_rollout(one[0], chk[0])
         scan = "rwkv" if c.name == RWKV_ARCH else "mamba"
-        cut = (f", first {c.n_layers} layers" if c.name == RWKV_ARCH
-               else f", first 2 layers, MoE capacity_factor "
-               f"{c.capacity_factor}")
+        cut = ("" if c.name == RWKV_ARCH else ", first 2 layers, MoE "
+               f"capacity_factor {c.capacity_factor}")
         print(f"[17 genserve] {c.name} fp32 full width{cut}"
               f", 12 requests, wave 8, prompt 64, 16 new: chunked (C=16) "
               f"identical to one-shot={same}, logprob max diff {lp:.3g}; "
@@ -1440,8 +1461,10 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
 def serving_phase18(torch, dev, fa, dec, card):
     """``launch.serve`` in bf16 with phase 5's traffic, three ways:
     chunked admission, the paged cache with prefix reuse over a shared
-    128-token prompt prefix, and speculative decoding with a qwen3-0.6b
-    draft; then the paged view's copy per decode step."""
+    128-token prompt prefix, and speculative decoding with the engine's
+    default draft of qwen3-0.6b (7 layers: a draft as deep as the target
+    took the longest of the script's runs); then the paged view's copy
+    per decode step."""
     from repro_torch.configs import archs
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import cache as cache_mod
@@ -1451,15 +1474,17 @@ def serving_phase18(torch, dev, fa, dec, card):
     argv = ["--arch", ARCH, "--batch", "48", "--wave", str(W),
             "--prompt-len", str(P), "--new-tokens", str(N),
             "--decode-chunk", "4", "--seed", "0"]
+    draft = default_draft(cfg)
     reps = {}
     for label, extra in (
             ("chunked", ["--prefill-chunk", "64"]),
             ("prefix", ["--page-size", "16", "--prefix-cache",
                         "--shared-prompts", "128", "--expect-prefix-hits"]),
-            ("spec", ["--spec-k", "4", "--draft-arch", ARCH])):
+            ("spec", ["--spec-k", "4", "--draft-arch", draft.name])):
         _zero_counts(fa, dec)
         t0 = time.monotonic()
-        rep = serve_mod.main(argv + extra)
+        with registered(draft):
+            rep = serve_mod.main(argv + extra)
         torch.cuda.synchronize()
         n = {"flash_attention": fa.launches,
              "decode_attention": dec.launches}
@@ -1475,7 +1500,8 @@ def serving_phase18(torch, dev, fa, dec, card):
         check(n["decode_attention"] > 0, f"{label}: no decode_attention")
         check((n["flash_attention"] > 0) == (label == "spec"),
               f"{label}: flash_attention launches {n['flash_attention']}")
-        spec = f", spec k=4 draft {ARCH}" if label == "spec" else ""
+        spec = (f", spec k=4 draft {draft.name} ({draft.n_layers} layers)"
+                if label == "spec" else "")
         print(f"[18 serve] {ARCH} bf16 batch 48 wave {W} prompt {P} new {N},"
               f" {rep['admission']}{spec}"
               f": {rep['tok_s']:.1f} valid tok/s ({rep['seconds']:.3f} s), "
@@ -2041,35 +2067,28 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
           f"{errs['gen_decode']:.3g}, INF flash_attention {shapes['inf']} "
           f"{errs['inf']:.3g} (tol 2e-4; 4 GEN ranks on the 2x2 mesh, 4 "
           f"INF ranks on the 4x1 one)", flush=True)
-    for mode in ("sampled", "greedy"):
-        sx.check(r0[mode], base[mode], greedy=mode == "greedy")
+    # every reading is printed before the checks on it, so that a failed
+    # run shows them
     s, ser = r0["sampled"], r0["serialized"]
-    check(ser["overlap_active"] is False,
-          "the serialized run took the overlapped walk")
     steps = [r["step"] for r in res if r["step"] is not None]
     check(len(steps) == 4, f"{len(steps)} ranks ran the actor step")
     rel = {k: abs(steps[0][k] - one_step[k]) / abs(one_step[k])
            for k in ("loss", "grad_norm")}
-    check(all(v <= 1e-5 for v in rel.values()),
-          f"sharded actor step vs the world of one: relative {rel}")
-    agree = [float((a == b).mean()) for a, b in
-             zip(s["tokens"], base["sampled"]["tokens"])]
+    agree, gagree = ([float((a == b).mean()) for a, b in
+                      zip(r0[m]["tokens"], base[m]["tokens"])]
+                     for m in ("sampled", "greedy"))
     replayed = {m: r0[m]["replay_agreement"]
                 for m in ("sampled", "greedy", "serialized")}
-    check(all(len(v) == iters and min(v) >= sx.REPLAY_AGREEMENT
-              for v in replayed.values()),
-          f"GEN vs its world-of-one replay on the same weights: {replayed}")
     l1, b1 = s["losses"][1], base["sampled"]["losses"][1]
-    check(abs(l1 - b1) <= 1e-5 * abs(b1),
-          f"first trained loss {l1} vs the world of one's {b1}")
     print(f"[22 sharded] {sx.WORLD} ranks sharing cuda:0 over gloo: GEN on "
           f"ranks {s['gen_ranks']} (mesh {s['gen_mesh']}), TRAIN on "
           f"{s['train_ranks']} (mesh {s['train_mesh']}), collisions "
           f"{s['folding_collisions']}, overlap_active {s['overlap_active']}, "
           f"overlap_honest {s['overlap_honest']}, staleness "
-          f"{s['staleness']}; greedy tokens identical to the world of one "
-          f"in all {iters} iterations; sampled tokens agree {agree} "
-          f"(weight versions {s['gen_versions']}); against a world-of-one "
+          f"{s['staleness']}; greedy tokens agree with the world of one "
+          f"{gagree} (bound 1.0); sampled tokens agree {agree} "
+          f"(weight versions {s['gen_versions']}; bound 1.0 at version 0, "
+          f"{sx.AGREEMENT} after); against a world-of-one "
           f"GEN replayed on the GEN ranks' own weights and generator state "
           f"{replayed} (bound {sx.REPLAY_AGREEMENT}); GEN weights equal to "
           f"the actor bit for bit after each iteration {s['sync_identical']} "
@@ -2079,6 +2098,17 @@ def sharded_phase22(torch, dev, card, layers: int = LAYERS22):
           f"batch: loss and "
           f"grad norm relative {rel['loss']:.2g} / {rel['grad_norm']:.2g} "
           f"(tol 1e-5)", flush=True)
+    for mode in ("sampled", "greedy"):
+        sx.check(r0[mode], base[mode], greedy=mode == "greedy")
+    check(ser["overlap_active"] is False,
+          "the serialized run took the overlapped walk")
+    check(all(v <= 1e-5 for v in rel.values()),
+          f"sharded actor step vs the world of one: relative {rel}")
+    check(all(len(v) == iters and min(v) >= sx.REPLAY_AGREEMENT
+              for v in replayed.values()),
+          f"GEN vs its world-of-one replay on the same weights: {replayed}")
+    check(abs(l1 - b1) <= 1e-5 * abs(b1),
+          f"first trained loss {l1} vs the world of one's {b1}")
     ms = {m: 1e3 * sum(r0[m]["wall_s"][1:]) / (iters - 1)
           for m in ("sampled", "serialized")}
     sync_ms = 1e3 * sum(s["sync_s"]) / max(len(s["sync_s"]), 1)
@@ -2691,6 +2721,12 @@ DECODE25 = (32, 8192)       # decode_32k [128, 32768]: its KV cache 481 GB
 TRAIN25_SEQ = 4096          # train_4k's sequence; the largest batch that fits
 TRAIN25_BATCHES = (8, 4, 2, 1)
 STEP_ITERS, STEP_WARMUP = 10, 2
+# phase 25's bf16 limit at all 28 layers, |a - b| / (1 + |b|) of the
+# logits against the plain attention, fixed from the readings on an H100
+# 80GB HBM3 at 700 W: the kernels 0.0453 (prefill) and 0.0574-0.0613
+# (serve), torch's sdpa in the plain attention's place 0.0460 and 0.0724;
+# one layer's flash call is 0.0156 from plain there, as sdpa's
+DEPTH25_TOL = 0.1
 
 
 def step_ms(torch, fn, iters: int = STEP_ITERS, warmup: int = STEP_WARMUP):
@@ -2807,21 +2843,28 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
         t0 = time.monotonic()
         rec = dryrun.count_step(cfg, InputShape(label, S, B, phase))
         count_s = time.monotonic() - t0
-        b_ops = rec["flops_per_device"] / roofline.peak_flops(rec)
-        b_bytes = rec["bytes_per_device"] / roofline.HBM_BW
-        bound = max(b_ops, b_bytes) * 1e3
+        t = roofline.roofline_terms(rec)
+        b_ops, b_bytes = t["compute_s"] * 1e3, t["memory_s"] * 1e3
+        mfu = t["model_flops"] / (ms[0] * 1e-3 * roofline.peak_flops(rec))
+        n_d = 6 if phase == "train" else 2
+        note = ("the step's own path, its bytes an upper bound"
+                if phase == "train" else "the kernel path does less work, "
+                "so this is no bound on it")
         print(f"{tag} (c) {label} step [{B}, {S}] ({cut_note}): "
               f"{spread(ms)} over {STEP_ITERS} calls after {STEP_WARMUP} "
               f"(the first counting the launches), "
               f"peak {gib(peak):.2f} GiB above the {gib(base):.2f} GiB "
               f"held before it, launches per step flash {launches[0]} "
-              f"decode {launches[1]} | count (world of one, plain "
-              f"attention, {count_s:.1f}s): {rec['flops_per_device']:.4e} "
-              f"FLOP, {rec['bytes_per_device']:.4e} B (unfused), bound "
-              f"{bound:.3f} ms by {'bytes' if b_bytes >= b_ops else 'FLOPs'}"
-              f" ({b_ops * 1e3:.3f} ms FLOPs at 989 TFLOP/s, "
-              f"{b_bytes * 1e3:.3f} ms bytes at 3.35 TB/s); bound / "
-              f"measured {bound / ms[0]:.4f} | card {card}", flush=True)
+              f"decode {launches[1]} | model FLOPs ({n_d} N D) "
+              f"{t['model_flops']:.4e}, MFU "
+              f"{mfu:.4f} at 989 TFLOP/s | the plain path's count (world "
+              f"of one, {count_s:.1f}s: full S^2 QK^T and PV, every aten "
+              f"op's bytes unfused; {note}): "
+              f"{rec['flops_per_device']:.4e} FLOP, "
+              f"{rec['bytes_per_device']:.4e} B, {b_ops:.3f} ms at 989 "
+              f"TFLOP/s, {b_bytes:.3f} ms at 3.35 TB/s; their max / "
+              f"measured {max(b_ops, b_bytes) / ms[0]:.4f} | card {card}",
+              flush=True)
         measured[label] = launches
         return launches
 
@@ -2836,10 +2879,11 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     check(launches == (cfg.n_layers, 0), f"prefill step launches "
           f"{launches}, expected ({cfg.n_layers}, 0)")
 
-    # train: the largest batch that fits at S 4096 (remat, fp32 Adam)
+    # train: the largest batch that fits at S 4096 (remat, as the count,
+    # fp32 Adam)
     opt_cfg = adam.AdamConfig()
     opt = adam.init_adam_state(params, opt_cfg)
-    train = steps_mod.make_train_step(cfg, opt_cfg)
+    train = steps_mod.make_train_step(cfg, opt_cfg, remat=True)
     for Bt in TRAIN25_BATCHES:
         tb = {"tokens": tokens(Bt, TRAIN25_SEQ),
               "labels": tokens(Bt, TRAIN25_SEQ),
@@ -2886,9 +2930,10 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     # (d) the kernel path against the plain attention.  In bf16 the gap
     # grows with depth for any fused attention, torch's sdpa as much as
     # the kernels (bf16 probabilities in the PV product; the plain path
-    # runs fp32 inside): at all 28 layers each step is held to sdpa's
-    # own gap from plain (within 1.25x), at its first 2 layers to 2e-2,
-    # and in fp32 at its first 4 layers to 2e-4
+    # runs fp32 inside): at all 28 layers each step is held to
+    # DEPTH25_TOL, at its first 2 layers to 2e-2, and in fp32 at its
+    # first 4 layers to 2e-4; sdpa's gap in the plain attention's place
+    # is printed beside it
     def run_as(impl, fn):
         attn.set_attention_impl(impl)
         try:
@@ -2936,12 +2981,12 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     print(f"{tag} (d) the kernel steps against the plain attention, "
           f"|a - b| / (1 + |b|) of the logits: "
           + ", ".join(f"{k} {v:.4g}" for k, v in err.items())
-          + f" (bf16 all layers: within 1.25x sdpa's gap; first 2 layers: "
-          f"2e-2; fp32: 2e-4) | card {card}", flush=True)
+          + f" (bf16 all layers: {DEPTH25_TOL}, sdpa printed, not held; "
+          f"first 2 layers: 2e-2; fp32: 2e-4) | card {card}", flush=True)
     for name in ("prefill", "serve"):
-        check(err[name] <= 1.25 * err[name + " (sdpa)"],
-              f"{name} step: the kernels are {err[name]:.4g} from plain, "
-              f"sdpa {err[name + ' (sdpa)']:.4g}")
+        check(err[name] <= DEPTH25_TOL,
+              f"{name} step: the kernels are {err[name]:.4g} from plain "
+              f"(sdpa {err[name + ' (sdpa)']:.4g})")
         check(err[name + ", first 2 layers"] <= 2e-2,
               f"{name} step, first 2 layers: {err[name + ', first 2 layers']}"
               f" from plain")

@@ -37,7 +37,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -77,15 +77,15 @@ def _local_bytes(tree) -> int:
                if torch.is_tensor(x))
 
 
-def build_step(cfg: ModelConfig, shape: InputShape, fake_mode, mesh=None,
-               *, param_dtype=torch.bfloat16):
+def build_step(cfg: ModelConfig, shape: InputShape, fake_mode, mesh=None):
     """(step, args) of ``shape``'s phase for ``cfg``: fake parameters
-    (the config's dtype), Adam state for a train step and ``input_specs``
-    made in ``fake_mode``, as DTensors on ``mesh`` by the step's sharding
-    trees when a mesh is given."""
+    (the config's dtype), Adam state for a train step (its layers
+    recomputed in the backward, the reference's ``remat``) and
+    ``input_specs`` made in ``fake_mode``, as DTensors on ``mesh`` by the
+    step's sharding trees when a mesh is given."""
     with fake_mode:
         params = T.init_params(cfg, 0, dtype=cfg.dtype)
-    batch = input_specs(cfg, shape, param_dtype, fake_mode=fake_mode)
+    batch = input_specs(cfg, shape, fake_mode=fake_mode)
     with fake_mode:
         if mesh is not None:
             params = steps_mod.distribute_tree(
@@ -97,7 +97,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, fake_mode, mesh=None,
                 moment_dtype="bfloat16" if cfg.param_count() > 1e11
                 else "float32")
             opt = adam.init_adam_state(params, opt_cfg)
-            return (steps_mod.make_train_step(cfg, opt_cfg),
+            return (steps_mod.make_train_step(cfg, opt_cfg, remat=True),
                     (params, opt, batch))
     if shape.phase == "prefill":
         return (steps_mod.make_prefill_step(
@@ -117,12 +117,10 @@ def _rules(mesh, shape: InputShape) -> Dict:
     return {**rules, "residual": sh.P(rules["residual"][0], None, None)}
 
 
-def _count_once(cfg: ModelConfig, shape: InputShape, mesh,
-                param_dtype) -> Dict:
+def _count_once(cfg: ModelConfig, shape: InputShape, mesh) -> Dict:
     from torch._subclasses.fake_tensor import FakeTensorMode
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
-    step, args = build_step(cfg, shape, fake_mode, mesh,
-                            param_dtype=param_dtype)
+    step, args = build_step(cfg, shape, fake_mode, mesh)
     with contextlib.ExitStack() as stack:
         stack.enter_context(fake_mode)
         stack.enter_context(plain_path())
@@ -166,8 +164,7 @@ def _extrapolate_rows(r1, r2, r3, n: int):
     return out
 
 
-def count_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
-               param_dtype=torch.bfloat16) -> Dict:
+def count_step(cfg: ModelConfig, shape: InputShape, mesh=None) -> Dict:
     """One step of ``shape``'s phase on fake tensors (sharded on ``mesh``,
     or whole in a world of one), counted per device.
 
@@ -178,10 +175,10 @@ def count_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     exact for every count here, arguments and outputs included)."""
     R = cfg.n_pattern_repeats
     if R <= 3:
-        rec = _count_once(cfg, shape, mesh, param_dtype)
+        rec = _count_once(cfg, shape, mesh)
     else:
         cuts = [_count_once(dataclasses.replace(
-            cfg, n_layers=r * len(cfg.pattern)), shape, mesh, param_dtype)
+            cfg, n_layers=r * len(cfg.pattern)), shape, mesh)
             for r in (1, 2, 3)]
         rows = _extrapolate_rows(*[c.pop("_rows") for c in cuts], R)
         rec = {**_extrapolate(*cuts, R), "_rows": rows}
@@ -207,13 +204,11 @@ def count_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
-               verbose: bool = True, cfg: Optional[ModelConfig] = None
-               ) -> Dict:
+               verbose: bool = True) -> Dict:
     """The record of one (arch, shape, mesh) on the production mesh (a
     fake world of 256 or 512 ranks, made for the call and destroyed
-    after, unless a world is initialized already).  ``cfg`` replaces
-    ``archs.get(arch)`` (a smoke config)."""
-    cfg = cfg or archs.get(arch)
+    after, unless a world is initialized already)."""
+    cfg = archs.get(arch)
     shape = SHAPES[shape_name]
     reason = skip_reason(cfg, shape)
     if reason:

@@ -22,20 +22,18 @@ COUNT_FIELDS = ("flops_per_device", "bytes_per_device",
                 "collective_bytes_per_device")
 
 
-def reanalyze(result_dir: str, recount=None) -> int:
-    """Rewrite the count fields of every record in ``result_dir``;
-    returns how many.  ``recount(arch, shape, multi_pod)`` gives the new
-    record (default ``dryrun.dryrun_one``)."""
-    if recount is None:
-        from repro_torch.launch.dryrun import dryrun_one
-        recount = lambda a, s, m: dryrun_one(a, s, m, verbose=False)
+def reanalyze(result_dir: str) -> int:
+    """Rewrite the count fields of every record in ``result_dir`` from
+    ``dryrun.dryrun_one``; returns how many."""
+    from repro_torch.launch import dryrun
     n = 0
     for path in sorted(glob.glob(os.path.join(result_dir, "*.json"))):
         with open(path) as f:
             rec = json.load(f)
         if "skipped" in rec:
             continue
-        new = recount(rec["arch"], rec["shape"], rec.get("multi_pod", False))
+        new = dryrun.dryrun_one(rec["arch"], rec["shape"],
+                                rec.get("multi_pod", False), verbose=False)
         for k in COUNT_FIELDS:
             rec[k] = new[k]
         with open(path, "w") as f:

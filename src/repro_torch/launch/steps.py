@@ -9,8 +9,11 @@ The gradient is ``torch.autograd.grad`` over the flat parameter leaves
 (the stacked ``[R, ...]`` block leaves accumulate their repeats'
 gradients), through the plain attention (``attn_impl="plain"``): the
 CUDA kernels compute forward values only, and the reference trains on
-its jnp attention too.  ``remat`` recomputes each repeat's layers in the
-backward pass, as the reference's does (``transformer.forward``).
+its jnp attention too.  ``remat=True`` recomputes each repeat's layers
+in the backward pass (``transformer.forward``), as the reference's
+default does: the dry-run counts that step, and a long sequence needs
+it to fit.  It is off by default here, where the LM mode's short
+sequences fit without it and the recomputation is a third more work.
 
 The sharding trees are DTensor placement trees (a tuple of placements,
 one per mesh dimension, per leaf) on a torch ``DeviceMesh`` with the
@@ -46,7 +49,7 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 # ---------------------------------------------------------------------------
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            long_mode: bool = False, remat: bool = True) -> torch.Tensor:
+            long_mode: bool = False, remat: bool = False) -> torch.Tensor:
     """Mean masked next-token NLL (fp32 logits) plus the MoE aux loss.
     ``batch`` holds the model inputs (``tokens`` and / or ``features``,
     see ``T.embed_inputs``), ``labels`` [B, S] over the whole sequence
@@ -72,7 +75,7 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: Optional[adam.AdamConfig] = None, *,
-                    remat: bool = True, donate: bool = False):
+                    remat: bool = False, donate: bool = False):
     """``train_step(params, opt_state, batch) -> (new_params, new_opt,
     {"loss", "lr", "grad_norm"})``; functional, as the reference's, or
     with ``donate`` writing the same values into ``params`` and

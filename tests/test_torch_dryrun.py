@@ -91,7 +91,7 @@ def test_depth_extrapolation_equals_the_direct_count():
     shape = InputShape("smoke", 4, 2, "train")
     got = dryrun.count_step(cfg, shape)
     assert cfg.n_pattern_repeats == 5
-    direct = dryrun._count_once(cfg, shape, None, torch.bfloat16)
+    direct = dryrun._count_once(cfg, shape, None)
     for k in ("flops_per_device", "bytes_per_device",
               "argument_size_in_bytes", "output_size_in_bytes"):
         assert got[k] == pytest.approx(direct[k], rel=1e-12), k
@@ -216,26 +216,32 @@ def test_long_decode_cache_shards_kv_over_model(mesh_2x2):
 
 
 def test_dryrun_one_leaves_no_process_group_and_keeps_a_live_one():
-    cfg = _tp16()
-    rec = dryrun.dryrun_one("qwen3-0.6b", "decode_32k", False,
-                            verbose=False, cfg=cfg)
+    rec = dryrun.dryrun_one("qwen3-0.6b", "decode_32k", False, verbose=False)
     assert rec["n_devices"] == 256 and rec["phase"] == "decode"
+    assert rec["flops_per_device"] > 0
     assert not dist.is_initialized()
-    # two pods: the parameters replicated over ``pod``, the batch split
-    multi = dryrun.dryrun_one("qwen3-0.6b", "decode_32k", True,
-                              verbose=False, cfg=cfg)
-    assert multi["n_devices"] == 512 and not dist.is_initialized()
-    assert multi["flops_per_device"] == pytest.approx(
-        rec["flops_per_device"] / 2, rel=0.01)
     skip = dryrun.dryrun_one("hubert-xlarge", "decode_32k", False,
                              verbose=False)
     assert skip["skipped"] == skip_reason(archs.get("hubert-xlarge"),
                                           SHAPES["decode_32k"])
     with fake_world(256):
-        dryrun.dryrun_one("qwen3-0.6b", "decode_32k", False, verbose=False,
-                          cfg=cfg)
+        dryrun.dryrun_one("qwen3-0.6b", "decode_32k", False, verbose=False)
         assert dist.is_initialized()
     assert not dist.is_initialized()
+
+
+def test_two_pods_split_the_batch():
+    """The multi-pod mesh replicates the parameters over ``pod`` and
+    splits the batch: half the single pod's work per device."""
+    cfg, shape = _tp16(), SHAPES["decode_32k"]
+    counts = {}
+    for multi_pod in (False, True):
+        with production_world(multi_pod=multi_pod) as mesh:
+            counts[multi_pod] = dryrun.count_step(cfg, shape, mesh)
+        assert not dist.is_initialized()
+    assert counts[True]["n_devices"] == 512
+    assert counts[True]["flops_per_device"] == pytest.approx(
+        counts[False]["flops_per_device"] / 2, rel=0.01)
 
 
 def test_roofline_terms_on_the_reference_record():
@@ -255,10 +261,16 @@ def test_roofline_terms_on_the_reference_record():
     assert fp32["compute_s"] == pytest.approx(1e13 / 67e12)
 
 
-def test_reanalyze_rewrites_a_record(tmp_path):
-    cfg = _tp16()
-    rec = dryrun.public(dryrun.dryrun_one("qwen3-0.6b", "decode_32k", False,
-                                          verbose=False, cfg=cfg))
+def test_reanalyze_rewrites_a_record(tmp_path, monkeypatch):
+    def count(arch, shape_name, multi_pod, verbose=True):
+        """``dryrun_one`` on the 16-head smoke config (seconds, not the
+        full width's count)."""
+        with production_world(multi_pod=multi_pod) as mesh:
+            rec = dryrun.count_step(_tp16(), SHAPES[shape_name], mesh)
+        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+                **rec}
+
+    rec = dryrun.public(count("qwen3-0.6b", "decode_32k", False))
     stale = {**rec, "flops_per_device": 1.0, "bytes_per_device": 2.0,
              "collective_bytes_per_device": {"all-gather": 3.0}}
     path = dryrun.record_path(str(tmp_path), "qwen3-0.6b", "decode_32k",
@@ -268,9 +280,9 @@ def test_reanalyze_rewrites_a_record(tmp_path):
     with open(tmp_path / "hubert-xlarge__decode_32k__single.json", "w") as f:
         json.dump({"arch": "hubert-xlarge", "skipped": "encoder-only"}, f)
     seen = []
-    n = reanalyze.reanalyze(str(tmp_path), recount=lambda a, s, m: (
-        seen.append((a, s, m)) or dryrun.dryrun_one(a, s, m, verbose=False,
-                                                    cfg=cfg)))
+    monkeypatch.setattr(dryrun, "dryrun_one", lambda a, s, m, verbose=True: (
+        seen.append((a, s, m)) or count(a, s, m)))
+    n = reanalyze.reanalyze(str(tmp_path))
     assert n == 1 and seen == [("qwen3-0.6b", "decode_32k", False)]
     with open(path) as f:
         new = json.load(f)
