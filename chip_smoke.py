@@ -231,22 +231,42 @@ Phases, each printing its result:
              (c) ``launch.steps``' prefill [4, 4096], serve (batch 32,
              a cache of 8192) and train (the largest batch of 8, 4, 2, 1
              that fits at S 4096) steps on the card: CUDA-event ms
-             (median, min, max of 10 calls after 2), peak memory,
-             kernel launches per step (train none), the MFU (model
-             FLOPs 2 N D, 6 N D to train, over ms x 989 TFLOP/s), beside
-             the world-of-one count of the same shape on the plain path
-             (full S^2 attention, unfused bytes: no bound on the kernel
-             path), its times at 989 TFLOP/s and 3.35 TB/s and their
-             max / measured; every cut named on its line; (d) the prefill
-             and serve steps with the kernels against the same steps on
-             the plain attention (|a - b| / (1 + |b|) of the logits): in
-             bf16 at all 28 layers within 0.1 (the bf16 gap grows with
-             depth for any fused attention: torch's sdpa in the plain
-             attention's place printed beside it), at the first 2 layers
-             within 2e-2, the prefill in fp32 on the first 4 layers
-             within 2e-4; then flash_attention at [4, 4096, 16:8, 128]
-             bf16 causal and decode_attention at batch 32 over 8192
-             slots bf16, timed as phase 3 times its rows.
+             (median, min, max of 10 calls after 2; the train step 3
+             after 1), peak memory, kernel launches per step (train
+             none), the MFU (model FLOPs 2 N D, 6 N D to train, over ms
+             x 989 TFLOP/s), beside the world-of-one count of the same
+             shape on the plain path (full S^2 attention, unfused bytes:
+             no bound on the kernel path), its times at 989 TFLOP/s and
+             3.35 TB/s and their max / measured, and its peak beside
+             ``torch.cuda.max_memory_allocated`` (the train step's within
+             10%); every cut named on its line; (d) the prefill and
+             serve steps with the kernels against the same steps on the
+             plain attention (|a - b| / (1 + |b|) of the logits): in
+             bf16 at all 28 layers within 0.1 and within 1.25 x the gap
+             of torch's sdpa in the plain attention's place (the bf16
+             gap grows with depth for any fused attention), at the first
+             2 layers within 2e-2, the prefill in fp32 on the first 4
+             layers within 2e-4; the plain steps' peak memory beside the
+             count's; then flash_attention at [4, 4096, 16:8, 128] bf16
+             causal and decode_attention at batch 32 over 8192 slots
+             bf16, timed as phase 3 times its rows.
+ 26. mesh    MoE models and heads that ``model`` does not divide, on 4
+             ranks sharing the card (gloo), full width, cut in depth,
+             fp32, greedy, seeded weights, through
+             ``genserve.generate(mesh=)`` against the world of one on
+             the card token for token: granite-moe-3b-a800m's first 8
+             layers on a 2x2 mesh (40 experts over ``model``: expert
+             parallel), one-shot and ``prefill_chunk`` 16; mixtral-8x7b's
+             first layer on a 2x2 mesh (tensor parallel on the experts'
+             FFN), one-shot; phi3-medium-14b's first 2 layers on a 1x4
+             mesh (``model`` 4 does not divide its 10 KV heads), one-shot;
+             wall time, peak memory and launches per rank (both
+             attention kernels on every rank), both kernels at the
+             engine's per-rank shapes vs plain (2e-4); ``rwkv6_scan`` and
+             ``mamba_scan`` on DTensors at rwkv6-3b's and Jamba's per-rank
+             shapes of a 2x2 mesh vs plain (2e-3, 1e-3); then every
+             per-rank shape timed in this process (kernel, plain, sdpa,
+             bound).
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -2721,12 +2741,17 @@ DECODE25 = (32, 8192)       # decode_32k [128, 32768]: its KV cache 481 GB
 TRAIN25_SEQ = 4096          # train_4k's sequence; the largest batch that fits
 TRAIN25_BATCHES = (8, 4, 2, 1)
 STEP_ITERS, STEP_WARMUP = 10, 2
-# phase 25's bf16 limit at all 28 layers, |a - b| / (1 + |b|) of the
-# logits against the plain attention, fixed from the readings on an H100
-# 80GB HBM3 at 700 W: the kernels 0.0453 (prefill) and 0.0574-0.0613
-# (serve), torch's sdpa in the plain attention's place 0.0460 and 0.0724;
-# one layer's flash call is 0.0156 from plain there, as sdpa's
+TRAIN25_ITERS = 3           # the train step (7.3 s a call): 3 after 1
+# phase 25's bf16 limits at all 28 layers, |a - b| / (1 + |b|) of the
+# logits against the plain attention: within DEPTH25_TOL, and within
+# SDPA25_RATIO times the gap of torch's sdpa in the plain attention's
+# place on the same inputs; from the readings on an H100 80GB HBM3 at
+# 700 W: the kernels 0.0453 (prefill) and 0.0574-0.0613 (serve), sdpa
+# 0.0460 and 0.0724; one layer's flash call is 0.0156 from plain there,
+# as sdpa's
 DEPTH25_TOL = 0.1
+SDPA25_RATIO = 1.25
+PEAK25_TOL = 0.10           # the train step's counted peak vs measured
 
 
 def step_ms(torch, fn, iters: int = STEP_ITERS, warmup: int = STEP_WARMUP):
@@ -2820,7 +2845,7 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     g = torch.Generator(device=dev).manual_seed(25)
     tokens = lambda B, S: torch.randint(0, V, (B, S), generator=g,
                                         device=dev)
-    measured = {}
+    measured, counted = {}, {}
 
     def first_call(fn):
         """The step's first call, with the launch counts zeroed just
@@ -2834,15 +2859,31 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
         torch.cuda.synchronize()
         return (fa.launches, dec.launches), base
 
-    def run(label, phase, B, S, fn, cut_note, first=None):
+    def run(label, phase, B, S, fn, cut_note, first=None,
+            iters=STEP_ITERS, warmup=STEP_WARMUP):
         """Time ``fn`` (its first call, made here or given as ``first``,
-        is the first of the two warm-up calls) beside its count."""
+        is the first of the ``warmup`` calls) beside its count."""
         launches, base = first or first_call(fn)
-        ms = step_ms(torch, fn, warmup=STEP_WARMUP - 1)
-        peak = torch.cuda.max_memory_allocated(dev) - base
+        ms = step_ms(torch, fn, iters=iters, warmup=warmup - 1)
+        top = torch.cuda.max_memory_allocated(dev)
+        peak = top - base
         t0 = time.monotonic()
         rec = dryrun.count_step(cfg, InputShape(label, S, B, phase))
         count_s = time.monotonic() - t0
+        counted[label] = rec
+        print(f"{tag} (c) {label} step [{B}, {S}]: the count's peak "
+              f"{gib(rec['peak_bytes_per_device']):.2f} GiB "
+              f"({rec['peak_counted']}; arguments "
+              f"{gib(rec['argument_size_in_bytes']):.2f}, temp "
+              f"{gib(rec['temp_size_in_bytes']):.2f}, outputs "
+              f"{gib(rec['output_size_in_bytes']):.2f} of which aliased "
+              f"{gib(rec['alias_size_in_bytes']):.2f}; the plain path) "
+              f"beside torch.cuda.max_memory_allocated {gib(top):.2f} GiB "
+              f"on the kernel path ({gib(base):.2f} held before it); "
+              f"above the arguments: counted "
+              f"{gib(rec['peak_bytes_per_device'] - rec['argument_size_in_bytes']):.2f}"
+              f", measured above what was held {gib(peak):.2f} | card "
+              f"{card}", flush=True)
         t = roofline.roofline_terms(rec)
         b_ops, b_bytes = t["compute_s"] * 1e3, t["memory_s"] * 1e3
         mfu = t["model_flops"] / (ms[0] * 1e-3 * roofline.peak_flops(rec))
@@ -2851,7 +2892,7 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
                 if phase == "train" else "the kernel path does less work, "
                 "so this is no bound on it")
         print(f"{tag} (c) {label} step [{B}, {S}] ({cut_note}): "
-              f"{spread(ms)} over {STEP_ITERS} calls after {STEP_WARMUP} "
+              f"{spread(ms)} over {iters} calls after {warmup} "
               f"(the first counting the launches), "
               f"peak {gib(peak):.2f} GiB above the {gib(base):.2f} GiB "
               f"held before it, launches per step flash {launches[0]} "
@@ -2905,8 +2946,16 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     launches = run("train", "train", Bt, TRAIN25_SEQ,
                    lambda: train(params, opt, tb),
                    f"cut from train_4k [256, 4096]: the largest batch "
-                   f"of {TRAIN25_BATCHES} that fits", first=first)
+                   f"of {TRAIN25_BATCHES} that fits", first=first,
+                   iters=TRAIN25_ITERS, warmup=1)
     check(launches == (0, 0), f"train step launched {launches}")
+    # the train step runs the plain attention either way: its peak is
+    # the count's (the arguments held in both)
+    top = torch.cuda.max_memory_allocated(dev)
+    want = counted["train"]["peak_bytes_per_device"]
+    check(abs(want - top) <= PEAK25_TOL * top,
+          f"train step: counted peak {gib(want):.2f} GiB against "
+          f"{gib(top):.2f} measured")
     del opt, tb
     free(torch)
 
@@ -2949,9 +2998,17 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
         finally:
             attn.plain_attention, attn.chunked_attention = keep
 
-    def gaps(step, p_, batch):
+    plain_peak = {}
+
+    def gaps(step, p_, batch, name=None):
         fn = lambda: step(p_, batch)[0]     # noqa: E731
-        k_, p_out = fn(), run_as("plain", fn)
+        k_ = fn()
+        free(torch)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        p_out = run_as("plain", fn)
+        if name is not None:
+            plain_peak[name] = (torch.cuda.max_memory_allocated(dev), base)
         check(bool(torch.isfinite(k_.float()).all())
               and bool(torch.isfinite(p_out.float()).all()),
               "non-finite logits")
@@ -2970,7 +3027,7 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
                  "blocks": {"layer0": {n: t[:2] for n, t in
                                        cache["blocks"]["layer0"].items()}},
                  "pos": L - 1}})):
-        e, p_out, fn = gaps(step, p_, batch)
+        e, p_out, fn = gaps(step, p_, batch, name)
         err[name] = e
         if "first" not in name:
             err[name + " (sdpa)"] = rel_err(sdpa_run(fn), p_out, 0)
@@ -2981,12 +3038,27 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     print(f"{tag} (d) the kernel steps against the plain attention, "
           f"|a - b| / (1 + |b|) of the logits: "
           + ", ".join(f"{k} {v:.4g}" for k, v in err.items())
-          + f" (bf16 all layers: {DEPTH25_TOL}, sdpa printed, not held; "
-          f"first 2 layers: 2e-2; fp32: 2e-4) | card {card}", flush=True)
+          + f" (bf16 all layers: {DEPTH25_TOL} and {SDPA25_RATIO} x "
+          f"sdpa's; first 2 layers: 2e-2; fp32: 2e-4) | card {card}",
+          flush=True)
     for name in ("prefill", "serve"):
-        check(err[name] <= DEPTH25_TOL,
+        top, held = plain_peak[name]
+        rec = counted[name]
+        print(f"{tag} (d) {name} step on the plain attention (28 layers, "
+              f"bf16): torch.cuda.max_memory_allocated {gib(top):.2f} GiB "
+              f"({gib(held):.2f} held before it) beside the count's peak "
+              f"{gib(rec['peak_bytes_per_device']):.2f} GiB (arguments "
+              f"{gib(rec['argument_size_in_bytes']):.2f}); above the "
+              f"arguments: counted "
+              f"{gib(rec['peak_bytes_per_device'] - rec['argument_size_in_bytes']):.2f}"
+              f", measured above what was held {gib(top - held):.2f} | card "
+              f"{card}", flush=True)
+        sdpa_gap = err[name + " (sdpa)"]
+        check(err[name] <= DEPTH25_TOL
+              and err[name] <= SDPA25_RATIO * sdpa_gap,
               f"{name} step: the kernels are {err[name]:.4g} from plain "
-              f"(sdpa {err[name + ' (sdpa)']:.4g})")
+              f"(limits {DEPTH25_TOL} and {SDPA25_RATIO} x sdpa's "
+              f"{sdpa_gap:.4g})")
         check(err[name + ", first 2 layers"] <= 2e-2,
               f"{name} step, first 2 layers: {err[name + ', first 2 layers']}"
               f" from plain")
@@ -3017,6 +3089,331 @@ def roofline_phase25(torch, F, dev, fa, dec, card):
     del flush
     free(torch)
     print(f"{tag} {time.monotonic() - t_phase:.1f}s | card {card}",
+          flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 26: MoE models and heads that ``model`` does not divide, on ranks
+# ---------------------------------------------------------------------------
+
+# 8 requests, wave 4, prompt 32, 8 new tokens, fp32, greedy
+SERVE26 = dict(requests=8, wave=4, prompt=32, new=8)
+MODES26 = {"one-shot": {}, "chunked 16": {"prefill_chunk": 16}}
+# name -> (arch, first layers, mesh shape, modes, why this cut)
+RUNS26 = {
+    "granite": ("granite-moe-3b-a800m", 8, (2, 2), ("one-shot", "chunked 16"),
+                "40 experts over model 2: expert parallel"),
+    "mixtral": ("mixtral-8x7b", 1, (2, 2), ("one-shot",),
+                "8 experts: tensor parallel on the experts' FFN"),
+    "phi3": ("phi3-medium-14b", 2, (1, 4), ("one-shot",),
+             "model 4 divides the 40 query heads, not the 10 KV heads"),
+}
+# the scans on DTensors at per-rank shapes of a 2x2 mesh: phase 3's
+# batch and prompt (16 x 256) over data 2; rwkv6-3b's 40 heads and
+# Jamba's d_inner 16384 over model 2
+SCAN26 = dict(B=16, S=256)
+
+
+def serve26_run(torch, device, name, mesh=None):
+    """``RUNS26[name]``'s cut through ``genserve.generate`` (on ``mesh``
+    when given) in each of its modes: rollout, wall seconds and the two
+    attention kernels' launches inside the call."""
+    import numpy as np
+    from repro_torch.configs import archs
+    from repro_torch.genserve import adapter
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.rl.rollout import SamplerConfig
+    arch, layers, _, modes, _ = RUNS26[name]
+    cfg = dataclasses.replace(first_layers(archs.get(arch), layers),
+                              dtype="float32")
+    t = SERVE26
+    prompts = torch.as_tensor(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (t["requests"], t["prompt"])), device=device)
+    params = T.init_params(cfg, seed=0, device=device)
+    out = {}
+    for mode in modes:
+        _zero_counts(fa, dec)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ro, _ = adapter.generate(
+            params, cfg, prompts, None,
+            SamplerConfig(max_new_tokens=t["new"], greedy=True),
+            wave=t["wave"], fast_path=False, device=device, mesh=mesh,
+            **MODES26[mode])
+        torch.cuda.synchronize()
+        out[mode] = dict(
+            rollout={k: ro[k].cpu() for k in ("gen_tokens", "mask",
+                                              "logprobs")},
+            wall=time.monotonic() - t0, flash=fa.launches,
+            decode=dec.launches)
+    del params
+    return out
+
+
+def scans26(torch, device, mesh):
+    """``rwkv6_scan`` and ``mamba_scan`` on DTensors (rows over ``data``,
+    heads or channels over ``model``: each rank launches the kernel on
+    its shard) against their plain versions on the full inputs, every
+    rank's alike: {kernel: (allclose ratio, max abs err, the local
+    input shape, launches)}."""
+    import torch.nn.functional as F
+    from repro_torch.configs import archs
+    from repro_torch.kernels.mamba_scan import ops as mb
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    from repro_torch.parallel import sharding as sh
+    g = torch.Generator(device=device).manual_seed(26)
+    n = lambda *shape: torch.randn(shape, generator=g, device=device)
+    B, S = SCAN26["B"], SCAN26["S"]
+    rc, jc = archs.get(RWKV_ARCH), archs.get(JAMBA_ARCH)
+    H, N = rc.rwkv_n_heads, rc.rwkv_head_dim
+    heads, chan = sh.P("data", None, "model", None), sh.P("data", None,
+                                                          "model")
+    out = {}
+    r, k, v = n(B, S, H, N), n(B, S, H, N), n(B, S, H, N)
+    logw = -torch.exp(n(B, S, H, N) * 0.5 - 1.0)
+    u = n(H, N) * 0.5
+    _zero_counts(rw)
+    got = rw.rwkv6_scan(*(sh.distribute(x, mesh, heads)
+                          for x in (r, k, v, logw)), u)
+    want = rw.rwkv6_scan_plain(r, k, v, logw, u)
+    full = [x.full_tensor() for x in got]
+    out["rwkv6_scan"] = (
+        max(rel_err(a, b, 2e-3) for a, b in zip(full, want)),
+        max(max_err(a, b) for a, b in zip(full, want)),
+        list(got[0].to_local().shape), rw.launches)
+    del r, k, v, logw, got, want, full
+    di, ds = jc.mamba_d_inner, jc.mamba_d_state
+    dt, x = F.softplus(n(B, S, di) - 1), n(B, S, di)
+    Bm, Cm, A = n(B, S, ds), n(B, S, ds), -torch.exp(n(di, ds) * 0.3)
+    _zero_counts(mb)
+    got = mb.mamba_scan(sh.distribute(dt, mesh, chan),
+                        sh.distribute(x, mesh, chan), Bm, Cm, A)
+    want = mb.mamba_scan_plain(dt, x, Bm, Cm, A)
+    full = [y.full_tensor() for y in got]
+    out["mamba_scan"] = (
+        max(rel_err(a, b, 1e-3) for a, b in zip(full, want)),
+        max(max_err(a, b) for a, b in zip(full, want)),
+        list(got[0].to_local().shape), mb.launches)
+    return out
+
+
+def serve26_rank(device):
+    """One of 4 ranks sharing the card: each ``RUNS26`` cut through
+    ``serve26_run`` on a ("data", "model") mesh of its shape over the 4
+    ranks, then both attention kernels as that mesh calls them at the
+    engine's per-rank shapes against their plain versions; the rank's
+    peak memory per cut; then ``scans26`` on the 2x2 mesh."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import archs
+    from repro_torch.launch import sharded_exec as sx
+    from repro_torch.parallel import dist
+    from repro_torch.parallel import sharding as sh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {shape: DeviceMesh(device.type,
+                                torch.arange(4).reshape(shape),
+                                mesh_dim_names=sh.AXES)
+              for shape in {r[2] for r in RUNS26.values()}}
+    out = {"rank": dist.rank(), "runs": {}}
+    t = SERVE26
+    for name, (arch, _, shape, _, _) in RUNS26.items():
+        free(torch)
+        torch.cuda.reset_peak_memory_stats(device)
+        modes = serve26_run(torch, device, name, meshes[shape])
+        c = archs.get(arch)
+        kern = sx.mesh_attention(
+            meshes[shape], device, "float32", c.n_heads, c.n_kv_heads,
+            c.resolved_head_dim, t["wave"], t["prompt"],
+            t["prompt"] + t["new"])
+        out["runs"][name] = dict(
+            modes=modes, kernels=kern,
+            peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    free(torch)
+    out["scans"] = scans26(torch, device, meshes[(2, 2)])
+    return out
+
+
+def mesh_phase26(torch, dev, card):
+    """MoE models and heads that ``model`` does not divide, served on
+    ranks sharing the card.  Each cut is full width, cut only in depth,
+    fp32, greedy, seeded weights, through ``genserve.generate(mesh=)`` on
+    4 ranks (gloo) against the world of one on the card, token for
+    token: granite-moe-3b-a800m's first 8 layers on a 2x2 mesh (expert
+    parallel: 40 experts over ``model``), one-shot and ``prefill_chunk``
+    16; mixtral-8x7b's first layer on a 2x2 mesh (8 experts: tensor
+    parallel on the experts' FFN), one-shot; phi3-medium-14b's first 2
+    layers on a 1x4 mesh (``model`` 4 does not divide the 10 KV heads:
+    the heads stay whole and the rows split over ``model``), one-shot.
+    Both attention kernels launch on every rank, and hold within 2e-4 of
+    plain at the engine's per-rank shapes; ``rwkv6_scan`` and
+    ``mamba_scan`` on DTensors at rwkv6-3b's and Jamba's per-rank shapes
+    on a 2x2 mesh hold within phase 3's tolerances.  Then every per-rank
+    shape timed in this process (kernel, plain, sdpa, bound).  Returns
+    the kernels line's rows at the per-rank attention shapes."""
+    import torch.nn.functional as F
+    from repro_torch.configs import archs
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as mb
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    from repro_torch.parallel import dist
+    t_phase = time.monotonic()
+    tag = "[26 mesh]"
+    t = SERVE26
+    one = {}
+    for name in RUNS26:
+        one[name] = serve26_run(torch, dev, name)
+        free(torch)
+    t0 = time.monotonic()
+    res = dist.spawn(serve26_rank, 4, "cuda", timeout=600)
+    wall = time.monotonic() - t0
+    want_local = {}
+    for name, (arch, layers, shape, modes, why) in RUNS26.items():
+        c = archs.get(arch)
+        H, KV, hd = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        data, model = shape
+        even = math.gcd(H, KV) % model == 0
+        rows = t["wave"] // (data if even else data * model)
+        heads = H // model if even else H
+        want_local[name] = (rows, heads, KV // model if even else KV)
+        want = {"prefill": [rows, t["prompt"], heads, hd],
+                "decode": [rows, heads, hd]}
+        for mode in modes:
+            w1 = one[name][mode]
+            lp = 0.0
+            for r in res:
+                m = r["runs"][name]["modes"][mode]
+                same, d = _same_rollout(m["rollout"], w1["rollout"])
+                lp = max(lp, d)
+                check(same, f"{name} {mode}: rank {r['rank']}'s tokens "
+                            f"differ from the world of one's")
+                check(d <= 1e-3, f"{name} {mode}: rank {r['rank']} "
+                                 f"log-probs {d:.3g} from the world of one's")
+                check(m["decode"] > 0, f"{name} {mode}: rank {r['rank']} "
+                                       f"launched no decode_attention")
+                if "prefill_chunk" not in MODES26[mode]:
+                    check(m["flash"] > 0, f"{name} {mode}: rank "
+                                          f"{r['rank']} launched no "
+                                          f"flash_attention")
+            m0 = res[0]["runs"][name]["modes"][mode]
+            print(f"{tag} {name} {mode}: {arch} first {layers} layers at "
+                  f"full width (d {c.d_model}, {H}:{KV} heads of {hd}, "
+                  f"{c.n_experts} experts top-{c.top_k}, vocab "
+                  f"{c.vocab_size}; {why}), fp32, {t['requests']} requests"
+                  f", wave {t['wave']}, prompt {t['prompt']}, {t['new']} "
+                  f"new, on a {data}x{model} mesh of 4 ranks sharing "
+                  f"cuda:0: tokens and masks identical to the world of one "
+                  f"on every rank, log-prob diff {lp:.3g}; launches per "
+                  f"rank (flash, decode) "
+                  f"{[(r['runs'][name]['modes'][mode]['flash'], r['runs'][name]['modes'][mode]['decode']) for r in res]}"
+                  f"; {m0['wall']:.2f} s on the mesh (rank 0) against "
+                  f"{w1['wall']:.2f} s for the world of one | card {card}",
+                  flush=True)
+        for r in res:
+            for label, (err, local) in r["runs"][name]["kernels"].items():
+                check(local == want[label] and err <= tol(torch.float32,
+                                                          torch),
+                      f"{name} rank {r['rank']} {label}: local q {local} "
+                      f"(the engine's {want[label]}), kernel vs plain "
+                      f"{err:.3g}")
+        print(f"{tag} {name}: kernels on DTensors at the engine's per-rank "
+              f"shapes vs plain, fp32: prefill {want['prefill']} "
+              f"{max(r['runs'][name]['kernels']['prefill'][0] for r in res):.3g}"
+              f", decode {want['decode']} over a {t['prompt'] + t['new']}"
+              f"-slot cache "
+              f"{max(r['runs'][name]['kernels']['decode'][0] for r in res):.3g}"
+              f" (tol 2e-4); peak GiB per rank "
+              f"{[round(r['runs'][name]['peak_gib'], 2) for r in res]}",
+              flush=True)
+    rc, jc = archs.get(RWKV_ARCH), archs.get(JAMBA_ARCH)
+    B, S = SCAN26["B"], SCAN26["S"]
+    scan_local = {"rwkv6_scan": [B // 2, S, rc.rwkv_n_heads // 2,
+                                 rc.rwkv_head_dim],
+                  "mamba_scan": [B // 2, S, jc.mamba_d_inner // 2]}
+    scan_tol = {"rwkv6_scan": 2e-3, "mamba_scan": 1e-3}
+    for kname, want in scan_local.items():
+        for r in res:
+            ratio, err, local, n = r["scans"][kname]
+            check(local == want and ratio <= scan_tol[kname] and n == 1,
+                  f"{kname} on DTensors, rank {r['rank']}: local {local} "
+                  f"(want {want}), allclose ratio {ratio:.3g} (tol "
+                  f"{scan_tol[kname]}), launches {n}")
+        print(f"{tag} {kname} on DTensors (2x2 mesh, rows over data, "
+              f"{'heads' if kname == 'rwkv6_scan' else 'channels'} over "
+              f"model) vs plain on the full inputs: local {want} on every "
+              f"rank, one launch each, allclose ratio "
+              f"{max(r['scans'][kname][0] for r in res):.3g} (tol "
+              f"{scan_tol[kname]}), max abs err "
+              f"{max(r['scans'][kname][1] for r in res):.3g}", flush=True)
+    print(f"{tag} 4 ranks: {wall:.0f}s with the ranks' start", flush=True)
+    # -- every per-rank shape timed in this process -----------------------
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    ktag = "[26 kernels]"
+    rows = {}
+    for name, (arch, _, shape, modes, _) in RUNS26.items():
+        c = archs.get(arch)
+        nr, hl, kl = want_local[name]
+        hd = c.resolved_head_dim
+        launches = [(r["runs"][name]["modes"]["one-shot"]["flash"],
+                     r["runs"][name]["modes"]["one-shot"]["decode"])
+                    for r in res]
+        base = dict(route="cuda")
+        rows[f"flash_attention/{name}_mesh_per_rank"] = dict(
+            name=f"flash_attention/{name}_mesh_per_rank",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:26",
+            launches=launches[0][0], **base,
+            **attn_row(torch, F, fa, flush, nr, t["prompt"], hl, kl, hd,
+                       torch.float32, True, card,
+                       f"{name} one-shot, per rank", ktag))
+        rows[f"decode_attention/{name}_mesh_per_rank"] = dict(
+            name=f"decode_attention/{name}_mesh_per_rank",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:21",
+            launches=launches[0][1], **base,
+            **decode_row(torch, F, dec, flush, nr, t["prompt"] + t["new"],
+                         hl, kl, hd, card, f"{name} one-shot, per rank",
+                         ktag))
+    g = torch.Generator(device=dev).manual_seed(26)
+    n = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    bl, _, rh, rn = scan_local["rwkv6_scan"]
+    ins = (n(bl, S, rh, rn), n(bl, S, rh, rn), n(bl, S, rh, rn),
+           -torch.exp(n(bl, S, rh, rn) * 0.5 - 1.0), n(rh, rn) * 0.5)
+    ms = time_ms(lambda: rw.rwkv6_scan(*ins), torch, flush)
+    plain = time_ms(lambda: rw.rwkv6_scan_plain(*ins), torch, flush,
+                    iters=5, warmup=1)
+    nbytes, flops, exps = rwkv_work(bl, S, rh, rn, 64)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = (flops + exps) / PEAK_FLOPS["torch.float32"] * 1e3
+    print(f"{ktag} rwkv6_scan (rwkv6-3b on a 2x2 mesh, per rank) "
+          f"r{tuple(ins[0].shape)} fp32 chunk 64: kernel {spread(ms)}, plain "
+          f"(per-token recurrence) {spread(plain)}, no library call, bound "
+          f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB = "
+          f"{b_bytes:.4f} ms; {(flops + exps) / 1e9:.2f} G operations = "
+          f"{b_ops:.4f} ms at 67 TFLOP/s fp32) | card {card}", flush=True)
+    del ins
+    bl, _, di = scan_local["mamba_scan"]
+    ds = jc.mamba_d_state
+    ins = (F.softplus(n(bl, S, di) - 1), n(bl, S, di), n(bl, S, ds),
+           n(bl, S, ds), -torch.exp(n(di, ds) * 0.3))
+    ms = time_ms(lambda: mb.mamba_scan(*ins), torch, flush)
+    plain = time_ms(lambda: mb.mamba_scan_plain(*ins), torch, flush,
+                    iters=5, warmup=1)
+    nbytes, ops = mamba_work(bl, S, di, ds)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / PEAK_FLOPS["torch.float32"] * 1e3
+    print(f"{ktag} mamba_scan (Jamba on a 2x2 mesh, per rank) "
+          f"x{tuple(ins[1].shape)} ds {ds} fp32: kernel {spread(ms)}, plain "
+          f"(per-token recurrence) {spread(plain)}, no library call, bound "
+          f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB = "
+          f"{b_bytes:.4f} ms; {ops / 1e9:.2f} G operations = {b_ops:.4f} "
+          f"ms) | card {card}", flush=True)
+    del ins, flush
+    free(torch)
+    print(f"[26 mesh] {time.monotonic() - t_phase:.1f}s | card {card}",
           flush=True)
     return rows
 
@@ -3742,6 +4139,9 @@ def main() -> None:
 
     # ---- 25. full-width steps against the dry-run's roofline ---------------
     results.update(roofline_phase25(torch, F, dev, fa, dec, card))
+
+    # ---- 26. MoE models and uneven heads on a mesh of ranks ----------------
+    results.update(mesh_phase26(torch, dev, card))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

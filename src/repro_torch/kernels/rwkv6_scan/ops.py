@@ -92,7 +92,7 @@ def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
     ``data``, heads over ``model``)."""
     global launches
     if sh.is_dtensor(r):
-        b, m = sh.kernel_specs(r.device_mesh, r.shape[0], r.shape[2])
+        b, m = sh.head_specs(r.device_mesh, r.shape[0], r.shape[2])
         heads = sh.P(b, None, m, None)
         return sh.local_call(rwkv6_scan, (r, k, v, logw, u),
                              (heads,) * 4 + (sh.P(m, None),),

@@ -13,20 +13,23 @@ the production mesh on a fake process group (``launch.mesh``), under
 Writes one JSON per combination, with the reference's record keys where
 a counterpart exists: ``n_devices``, ``flops_per_device``,
 ``bytes_per_device``, ``collective_bytes_per_device``, ``params``,
-``active_params``, ``seq_len``, ``global_batch``, ``phase``, and
-``argument_size_in_bytes`` / ``output_size_in_bytes`` from the local
-shard sizes.  ``counted_by`` is ``"torch dispatch"``; keys with no
-meaning here (``flops_xla_raw``, ``compile_s``,
-``generated_code_size_in_bytes``) are left out, as is a peak
-(``temp_size_in_bytes``): torch's ``MemTracker`` gives one on fake
-tensors, but a peak does not follow the depth extrapolation below (6%
-off on a 5-layer train smoke).  ``bytes_per_device`` counts every aten op as its own kernel,
-so it bounds the reference's fused count from above.  The residual
+``active_params``, ``seq_len``, ``global_batch``, ``phase``,
+``argument_size_in_bytes`` / ``output_size_in_bytes`` /
+``alias_size_in_bytes`` from the local shard sizes, and the peak:
+``peak_bytes_per_device``, the most memory live at once on a device over
+the step (``op_analysis``), and ``temp_size_in_bytes``, XLA's field, that
+peak less the arguments and the outputs that are not the arguments'
+storage (the in-place cache of a decode step).  ``counted_by`` is
+``"torch dispatch"``; keys with no meaning here (``flops_xla_raw``,
+``compile_s``, ``generated_code_size_in_bytes``) are left out.
+``bytes_per_device`` counts every aten op as its own kernel, so it bounds
+the reference's fused count from above; the peak is an eager step's,
+each op's output live until its last reference goes.  The residual
 stream is not sequence-parallel in a train step (``_rules``).  Attention
-runs
-the plain path (full QK^T and PV, ``attn_impl="plain"``), as the
+runs the plain path (full QK^T and PV, ``attn_impl="plain"``), as the
 reference's dry-run counts its jnp attention; so do the RWKV6 and Mamba
-scans (the chunk form and the per-token recurrence).  This is the count,
+scans (their chunk forms; Mamba's chunks of associative scans, as the
+reference's).  This is the count,
 not the card's path.  ``repro_torch.launch.roofline`` reads the JSONs.
 """
 from __future__ import annotations
@@ -36,6 +39,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Dict
 
@@ -54,6 +58,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adam
 from repro_torch.parallel import sharding as sh
 from repro_torch.tree import tree_leaves
+
+# the line ``main`` writes to stderr when a count raises (``dryrun_all``
+# reports it)
+FAILED = "dry-run failed: "
 
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16",
                 torch.float32: "f32"}
@@ -130,38 +138,66 @@ def _count_once(cfg: ModelConfig, shape: InputShape, mesh) -> Dict:
             stack.enter_context(sh.use_hints(_rules(mesh, shape)))
             stack.enter_context(implicit_replication())
         out, cost = op_analysis.analyze(step, *args)
+    held = {op_analysis.storage_key(t)
+            for t in op_analysis.local_tensors(args)}
     return {"flops_per_device": float(cost.flops),
             "bytes_per_device": float(cost.bytes),
             "collective_bytes_per_device": {k: float(v) for k, v in
                                             cost.collectives.items()},
             "argument_size_in_bytes": _local_bytes(args),
             "output_size_in_bytes": _local_bytes(out),
+            "alias_size_in_bytes": sum(
+                t.numel() * t.element_size()
+                for t in op_analysis.local_tensors(out)
+                if op_analysis.storage_key(t) in held),
+            "peak_bytes_per_device": cost.peak_bytes,
+            "_peak_op": cost.peak_op,
             "_rows": cost.rows}
 
 
+# the repeat counts a deep model is counted at (``count_step``)
+CUTS = (2, 3, 4)
+
+
 def _extrapolate(f1, f2, f3, n: int):
-    """Counts at one, two and three repeats -> the count at ``n``
-    (number by number through dicts of the same keys): the quadratic
-    through the three points, exact for work linear in the repeats and
-    for autograd's accumulation of a stacked ``[R, ...]`` leaf's
-    gradient (R slices of R x leaf: quadratic)."""
+    """Counts at ``CUTS`` repeats -> the count at ``n`` (number by number
+    through dicts of the same keys): the quadratic through the three
+    points, exact for work linear in the repeats and for autograd's
+    accumulation of a stacked ``[R, ...]`` leaf's gradient (R slices of
+    R x leaf: quadratic)."""
     if isinstance(f1, dict):
         return {k: _extrapolate(f1[k], f2[k], f3[k], n) for k in f1}
     d1, d2 = f2 - f1, f3 - 2 * f2 + f1
-    return type(f1)(f1 + (n - 1) * d1 + (n - 1) * (n - 2) // 2 * d2)
+    m = n - CUTS[0]
+    return type(f1)(f1 + m * d1 + m * (m - 1) // 2 * d2)
 
 
 def _extrapolate_rows(r1, r2, r3, n: int):
     """Per-op rows at ``n`` repeats, for ranking (``op_profile``).  A row
     whose output shape carries the repeat count (an op on a stacked
-    ``[R, ...]`` leaf) is in the one-repeat count alone: its counts are
-    taken times ``n``."""
+    ``[R, ...]`` leaf) is in the first cut's count alone: its counts are
+    scaled to ``n`` repeats."""
     out = {k: [_extrapolate(a, b, c, n) for a, b, c in
                zip(r1[k], r2[k], r3[k])]
            for k in r1 if k in r2 and k in r3}
-    out.update({k: [n * x for x in v[:3]] + [v[3]]
+    out.update({k: [n / CUTS[0] * x for x in v[:3]] + [v[3]]
                 for k, v in r1.items() if k not in out})
     return out
+
+
+def _peak(cuts, R: int, full) -> int:
+    """The peak at ``R`` repeats from the counts at ``CUTS`` repeats:
+    affine in the repeats when both the peak and the op at which it is
+    first reached step by the same amount from one cut to the next
+    (every repeat then adds the same live bytes before the same point
+    of the step: its parameters, state and saved activations); else
+    ``full()``'s, a count at the whole depth.  The cuts start at two
+    repeats: at one, a train step's peak sits elsewhere."""
+    p = [c["peak_bytes_per_device"] for c in cuts]
+    n = [c["_peak_op"] for c in cuts]
+    if p[2] - p[1] == p[1] - p[0] and n[2] - n[1] == n[1] - n[0]:
+        return p[2] + (R - CUTS[2]) * (p[2] - p[1]), "affine in depth"
+    return full()["peak_bytes_per_device"], "whole depth"
 
 
 def count_step(cfg: ModelConfig, shape: InputShape, mesh=None) -> Dict:
@@ -170,19 +206,33 @@ def count_step(cfg: ModelConfig, shape: InputShape, mesh=None) -> Dict:
 
     Loop-aware, as the reference's HLO analysis multiplies a scanned
     body by its trip count: every repeat of the layer pattern does the
-    same work, so a model of R > 3 repeats is counted at one, two and
-    three repeats and the counts extrapolate to R (``_extrapolate``:
-    exact for every count here, arguments and outputs included)."""
+    same work, so a model of more repeats than ``CUTS`` holds is counted
+    at those and the counts extrapolate to R (``_extrapolate``: exact
+    for every count here, arguments and outputs included).  The
+    peak extrapolates by ``_peak``'s affine rule, checked on the three
+    counts, or is counted at the whole depth where the rule does not
+    hold.  ``temp_size_in_bytes`` is XLA's: the peak less the arguments
+    and the outputs that are not the arguments' storage."""
     R = cfg.n_pattern_repeats
-    if R <= 3:
+    if R <= CUTS[-1]:
         rec = _count_once(cfg, shape, mesh)
+        del rec["_peak_op"]
+        peak_by = "whole depth"
     else:
         cuts = [_count_once(dataclasses.replace(
             cfg, n_layers=r * len(cfg.pattern)), shape, mesh)
-            for r in (1, 2, 3)]
+            for r in CUTS]
         rows = _extrapolate_rows(*[c.pop("_rows") for c in cuts], R)
-        rec = {**_extrapolate(*cuts, R), "_rows": rows}
+        peak, peak_by = _peak(cuts, R,
+                              lambda: _count_once(cfg, shape, mesh))
+        for c in cuts:
+            del c["_peak_op"], c["peak_bytes_per_device"]
+        rec = {**_extrapolate(*cuts, R), "peak_bytes_per_device": peak,
+               "_rows": rows}
     n_dev = 1 if mesh is None else sh.mesh_size(mesh)
+    peak = rec["peak_bytes_per_device"]
+    temp = peak - rec["argument_size_in_bytes"] - (
+        rec["output_size_in_bytes"] - rec["alias_size_in_bytes"])
     return {
         "n_devices": int(n_dev),
         "flops_per_device": rec["flops_per_device"],
@@ -194,6 +244,10 @@ def count_step(cfg: ModelConfig, shape: InputShape, mesh=None) -> Dict:
         "phase": shape.phase,
         "argument_size_in_bytes": rec["argument_size_in_bytes"],
         "output_size_in_bytes": rec["output_size_in_bytes"],
+        "alias_size_in_bytes": rec["alias_size_in_bytes"],
+        "peak_bytes_per_device": int(peak),
+        "temp_size_in_bytes": int(temp),
+        "peak_counted": peak_by,
         "dtype": _DTYPE_NAMES.get(resolve_dtype(cfg.dtype), cfg.dtype),
         "counted_by": "torch dispatch",
         "attention": "plain",
@@ -242,7 +296,13 @@ def main(argv=None):
     ap.add_argument("--out", default="results/dryrun_torch")
     args = ap.parse_args(argv)
 
-    result = dryrun_one(args.arch, args.shape, args.multi_pod)
+    try:
+        result = dryrun_one(args.arch, args.shape, args.multi_pod)
+    except Exception as e:
+        first = (str(e).splitlines() or [""])[0]
+        print(FAILED + type(e).__name__ + (f": {first}" if first else ""),
+              file=sys.stderr, flush=True)
+        raise
     os.makedirs(args.out, exist_ok=True)
     path = record_path(args.out, args.arch, args.shape, args.multi_pod)
     with open(path, "w") as f:

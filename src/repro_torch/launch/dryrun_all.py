@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from repro_torch.configs import archs
 from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch.dryrun import FAILED
 
 
 def combos(single_only: bool = False):
@@ -46,11 +47,21 @@ def run_one(arch: str, shape: str, multi: bool, out: str) -> str:
                        timeout=3600)
     dt = time.time() - t0
     if r.returncode != 0:
-        tail = "\n".join(r.stderr.splitlines()[-12:])
         with open(os.path.join(out, tag + ".err"), "w") as f:
             f.write(r.stdout + "\n==== STDERR ====\n" + r.stderr)
-        return f"FAIL {tag} ({dt:.0f}s)\n{tail}"
+        return f"FAIL {tag} ({dt:.0f}s): {failure(r.stderr)}"
     return f"OK   {tag} ({dt:.0f}s)"
+
+
+def failure(stderr: str) -> str:
+    """The exception a failed count raised, as ``dryrun.main`` reports
+    it (its type and its message's first line, so that an exception
+    with no message still names itself), else stderr's last line."""
+    lines = [ln for ln in stderr.splitlines() if ln.strip()]
+    for ln in reversed(lines):
+        if ln.startswith(FAILED):
+            return ln[len(FAILED):]
+    return lines[-1] if lines else "no output"
 
 
 def main(argv=None):

@@ -20,7 +20,13 @@ and lowers to no HLO, so here the step itself runs, on fake tensors
                    the reference charges once at the fusion's boundary,
                    so this count is an upper bound;
   * collectives -- operand bytes per kind, in the reference's five kinds
-                   (a collective's start counts, its wait does not).
+                   (a collective's start counts, its wait does not);
+  * peak bytes  -- the most device memory live at once: the bytes of
+                   every storage from the step's arguments and the ops'
+                   outputs, each counted from its first appearance
+                   until the last reference to it goes (XLA's
+                   ``memory_analysis`` for an eager step; each storage
+                   once, whatever views share it).
 
 Per device: a step on DTensors runs each op on every rank's local shard
 (DTensor unwraps them), and the mode counts those local ops, not the
@@ -36,6 +42,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import sys
+import weakref
 from typing import Dict, List, Tuple
 
 import torch
@@ -141,16 +148,30 @@ class OpCost:
     collectives: Dict[str, float]
     rows: Dict[Tuple[str, str], List[float]] = dataclasses.field(
         default_factory=dict)
+    peak_bytes: int = 0
+    peak_op: int = 0            # ops run when the peak was first reached
 
     @property
     def collective_total(self) -> float:
         return sum(self.collectives.values())
 
 
-class OpCounter(TorchDispatchMode):
-    """``with OpCounter() as c: step(...)``; then ``c.cost()``."""
+def local_tensors(tree) -> List[torch.Tensor]:
+    """The tensors of ``tree`` as this device holds them (a DTensor's
+    local shard)."""
+    return [t.to_local() if _is_dtensor(t) else t
+            for t in tree_flatten(tree)[0] if torch.is_tensor(t)]
 
-    def __init__(self):
+
+def storage_key(t) -> int:
+    return t.untyped_storage()._cdata
+
+
+class OpCounter(TorchDispatchMode):
+    """``with OpCounter(held) as c: step(*held)``; then ``c.cost()``.
+    ``held``: the step's arguments, live from the start."""
+
+    def __init__(self, held=()):
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
@@ -158,6 +179,28 @@ class OpCounter(TorchDispatchMode):
         # (op, output shape) -> [flops, bytes, collective bytes, count]
         self.rows = collections.defaultdict(lambda: [0.0, 0.0, 0.0, 0])
         self._dtensor = False
+        self._live_keys = set()
+        self.live = self.peak = self.peak_op = self.n_ops = 0
+        for t in local_tensors(held):
+            self._hold(t)
+
+    def _hold(self, t) -> None:
+        if t.device.type == "meta":         # no memory behind it
+            return
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._live_keys:
+            return
+        n = st.nbytes()
+        self._live_keys.add(key)
+        self.live += n
+        weakref.finalize(st, self._free, key, n)
+        if self.live > self.peak:
+            self.peak, self.peak_op = self.live, self.n_ops
+
+    def _free(self, key: int, n: int) -> None:
+        self._live_keys.discard(key)
+        self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -167,6 +210,10 @@ class OpCounter(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         if not (self._dtensor and _in_sharding_propagation()):
+            self.n_ops += 1
+            for t in tree_flatten(out)[0]:
+                if torch.is_tensor(t):
+                    self._hold(t)
             self._count(func, args, kwargs, flat, out)
         return out
 
@@ -207,12 +254,13 @@ class OpCounter(TorchDispatchMode):
 
     def cost(self) -> OpCost:
         return OpCost(self.flops, self.bytes, dict(self.coll),
-                      {k: list(v) for k, v in self.rows.items()})
+                      {k: list(v) for k, v in self.rows.items()},
+                      int(self.peak), int(self.peak_op))
 
 
 def analyze(fn, *args, **kwargs) -> Tuple[object, OpCost]:
-    """Run ``fn(*args, **kwargs)`` under an ``OpCounter``; returns (its
-    output, the per-device ``OpCost``)."""
-    with OpCounter() as c:
+    """Run ``fn(*args, **kwargs)`` under an ``OpCounter`` that holds the
+    arguments; returns (its output, the per-device ``OpCost``)."""
+    with OpCounter((args, kwargs)) as c:
         out = fn(*args, **kwargs)
     return out, c.cost()

@@ -16,8 +16,10 @@ unfused upper bound ``op_analysis`` counts, so the memory term bounds
 the fused step's from above.
 
 Also reports MODEL_FLOPS = 6·N·D for train and 2·N·D otherwise
-(N_active for MoE) and the usefulness ratio MODEL_FLOPS / counted
-global FLOPs.
+(N_active for MoE), the usefulness ratio MODEL_FLOPS / counted global
+FLOPs, and each device's peak memory (``peak_bytes_per_device``) beside
+the H100's 80 GB: a combination whose peak exceeds it is marked
+``NO FIT``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ PEAK_FLOPS = 989e12      # dense bf16 tensor-core FLOP/s (H100 SXM data sheet)
 PEAK_FLOPS_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores (same sheet)
 HBM_BW = 3.35e12         # B/s of HBM3 (same sheet)
 LINK_BW = 50e9           # B/s: one 400 Gb/s NDR port (1 link charged)
+HBM_BYTES = 80e9         # B of HBM3 on one H100 SXM (same sheet)
 
 
 def peak_flops(rec: Dict) -> float:
@@ -68,6 +71,9 @@ def roofline_terms(rec: Dict) -> Optional[Dict]:
         "useful_ratio": model_flops / counted_global if counted_global
         else 0.0,
         "bound_est_s": max(terms.values()),
+        "peak_bytes": rec.get("peak_bytes_per_device"),
+        "fits": (None if rec.get("peak_bytes_per_device") is None
+                 else rec["peak_bytes_per_device"] <= HBM_BYTES),
     }
 
 
@@ -81,7 +87,7 @@ def load_results(result_dir: str) -> List[Dict]:
 
 HEADER = (f"{'arch':26s} {'shape':12s} {'mesh':6s} {'comp(s)':>9s} "
           f"{'mem(s)':>9s} {'coll(s)':>9s} {'dominant':>10s} "
-          f"{'useful':>7s}")
+          f"{'useful':>7s} {'peak(GB)/80':>12s}")
 
 
 def row(rec: Dict) -> str:
@@ -94,7 +100,14 @@ def row(rec: Dict) -> str:
     return (f"{rec['arch']:26s} {rec['shape']:12s} {mesh:6s} "
             f"{t['compute_s']:9.4f} {t['memory_s']:9.4f} "
             f"{t['collective_s']:9.4f} {t['dominant']:>10s} "
-            f"{t['useful_ratio']:7.3f}")
+            f"{t['useful_ratio']:7.3f} {_peak(t):>12s}")
+
+
+def _peak(t: Dict) -> str:
+    if t["peak_bytes"] is None:
+        return "-"
+    return f"{t['peak_bytes'] / 1e9:.2f}" + ("" if t["fits"] else
+                                              " NO FIT")
 
 
 def table(result_dir: str = "results/dryrun_torch") -> str:

@@ -45,6 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 from typing import Any, Dict, List, Optional
 
@@ -356,14 +357,16 @@ def mesh_attention(mesh, dev, dtype: str, H: int, KV: int, hd: int,
                    seed: int = 11) -> Dict[str, Any]:
     """``multihead_attention`` on DTensors as a sharded step calls it
     (each rank of ``mesh`` launches the kernel on its local rows, over
-    ``data``, and heads, over ``model``): a causal pass over ``S``
-    positions ("prefill", the flash kernel) and, with ``L``, one decode
-    step against an ``L``-slot cache whose last slot is not yet valid
+    ``data``, and heads, over ``model``; heads that ``model`` does not
+    divide stay whole and the rows split over it too,
+    ``sharding.head_specs``): a causal pass over ``S`` positions
+    ("prefill", the flash kernel) and, with ``L``, one decode step
+    against an ``L``-slot cache whose last slot is not yet valid
     ("decode", the flash-decode kernel); seeded inputs in ``dtype``,
     held against the plain versions on the full tensors.  {label: (max
-    abs error, the local q shape)}; every rank of the mesh calls it.
-    With ``mesh`` None, the same calls on plain tensors (a placement of
-    one rank)."""
+    abs error, the q shape the kernel takes on this rank)}; every rank
+    of the mesh calls it.  With ``mesh`` None, the same calls on plain
+    tensors (a placement of one rank)."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import attention
@@ -375,8 +378,12 @@ def mesh_attention(mesh, dev, dtype: str, H: int, KV: int, hd: int,
         return torch.randn(shape, generator=g).to(dev, dt)
 
     def local(x):
-        return list(x.to_local().shape) if mesh is not None \
-            else list(x.shape)
+        if mesh is None:
+            return list(x.shape)
+        b, m = sh.head_specs(mesh, rows, math.gcd(H, KV))
+        return list(sh.local_block(torch.empty(x.shape, device="meta"),
+                                   mesh, sh.placements(sh.P(b, None, m),
+                                                       mesh)).shape)
 
     def full(x):
         return x.full_tensor() if mesh is not None else x

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.configs.shapes import InputShape
 from repro_torch.kernels.guard import TRAIN_ATTN
-from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.mesh import batch_spec, data_axes
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adam
@@ -59,14 +59,39 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     logits = out["logits"].float()
     labels = batch["labels"]
     mask = batch.get("loss_mask")
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if sh.is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     if mask is not None:
         nll = nll * mask
         denom = torch.clamp(mask.sum(), min=1.0)
     else:
         denom = float(nll.numel())
     return nll.sum() / denom + out["aux_loss"]
+
+
+def _vocab_parallel_nll(logits, labels):
+    """The NLL of DTensor ``logits`` [B, S, V], the vocabulary left where
+    the ``logits`` hint split it (over ``model``): a log-sum-exp whose
+    max and sum reduce across the shards, and the label's logit picked in
+    its shard (Megatron's vocab-parallel cross-entropy).  A log-softmax
+    over a split vocabulary gathers it whole on every device, and the
+    gather's backward allocates its zeros at the global batch's shape
+    (DTensor's ``new_zeros`` of a replicated output): 637 GB a device for
+    qwen3-0.6b's train_4k on the production mesh."""
+    mesh = logits.device_mesh
+    rows = sh.tensor_placements(batch_spec(mesh), tuple(logits.shape[:2]),
+                                mesh)
+
+    def reduced(x):
+        # the sums over the vocabulary shards, split by rows as the batch
+        # is (DTensor would otherwise reduce-scatter them over the tokens)
+        return x.redistribute(mesh, rows)
+    m = reduced(logits.detach().amax(dim=-1, keepdim=True)[..., 0])
+    lse = torch.log(reduced(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    return lse + m - reduced(sh.vocab_parallel_pick(logits, labels))
 
 
 # ---------------------------------------------------------------------------

@@ -86,8 +86,10 @@ def qkv_project(params, cfg: ModelConfig, x, positions):
     roped)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
-    kv = (x @ params["wkv"]).reshape(B, S, 2 * cfg.n_kv_heads, hd)
+    q = sh.even_heads(x @ params["wq"], cfg.n_heads)
+    kv = sh.even_heads(x @ params["wkv"], 2 * cfg.n_kv_heads)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    kv = kv.reshape(B, S, 2 * cfg.n_kv_heads, hd)
     k, v = kv[:, :, :cfg.n_kv_heads], kv[:, :, cfg.n_kv_heads:]
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
@@ -266,8 +268,8 @@ def _local_attention(q, k, v, q_pos, k_pos, *, k_valid, bias, **kw):
     """``multihead_attention`` on DTensor q/k/v, each rank on its local
     rows and heads.  Per-row operands ([B, ...] positions, validity,
     the decode bias) follow the rows; shared ones pass through."""
-    b, m = sh.kernel_specs(q.device_mesh, q.shape[0],
-                           math.gcd(q.shape[2], k.shape[2]))
+    b, m = sh.head_specs(q.device_mesh, q.shape[0],
+                         math.gcd(q.shape[2], k.shape[2]))
     heads = sh.P(b, None, m, None)
 
     def rows(x):

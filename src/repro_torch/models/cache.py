@@ -94,20 +94,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     return {"blocks": blocks, "pos": 0}
 
 
-def distribute_cache(blocks, mesh):
+def distribute_cache(blocks, mesh, device=None):
     """A fresh cache's leaves as DTensors on ``mesh`` (every rank holds
     the same zeros, so no communication): attention k/v ``[R, B, L, KV,
     hd]`` under the ``kv_cache`` rule (slots over the data axes, kv
     heads over ``model``), recurrent state and ``cm_shift`` with slots
     over the data axes.  The in-place writers then write each rank's
-    shard."""
+    shard.  Leaves on the meta device become each rank's own zeros on
+    ``device``, allocated at the shard's size: a cache need not fit one
+    device whole."""
+    from torch.distributed.tensor import DTensor
     data = tuple(a for a in (sh.POD, sh.DATA) if a in mesh.mesh_dim_names)
     kv = sh.P(None, *sh.default_activation_rules(
         data_axes=data, seq_shard=False)["kv_cache"])
     rows = sh.P(None, data if len(data) > 1 else data[0])
-    return {name: {n: sh.distribute(t, mesh, kv if n in ("k", "v")
-                                    else rows)
-                   for n, t in leaves.items()}
+
+    def put(name, t):
+        d = sh.distribute(t, mesh, kv if name in ("k", "v") else rows)
+        if t.device.type != "meta":
+            return d
+        return DTensor.from_local(
+            torch.zeros_like(d.to_local(), device=device), mesh,
+            d.placements, run_check=False, shape=d.shape, stride=d.stride())
+    return {name: {n: put(n, t) for n, t in leaves.items()}
             for name, leaves in blocks.items()}
 
 

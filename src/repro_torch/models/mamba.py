@@ -6,11 +6,12 @@ with input-dependent dt, B, C (selectivity) after a depthwise causal
 convolution.  Decode keeps per-layer ``conv`` (the last d_conv - 1
 inputs) and ``ssm`` (h) states and takes one recurrence step.
 
-The JAX package's ``ssm_scan`` runs the recurrence as an associative
-scan inside chunks of 64 tokens; PyTorch has no associative scan, so
-the port's ``ssm_scan`` walks the tokens one by one through the kernel's
-plain version (the same recurrence, summed in another order: fp32
-agrees to rounding).
+``ssm_scan`` runs the recurrence as the JAX package's does: an
+associative scan inside chunks of 64 tokens (``lax.associative_scan``'s
+odd/even recursion, written out), the state carried across chunks.  The
+kernel's plain version (``kernels.mamba_scan.ops.mamba_scan_plain``)
+walks the tokens one by one: the same recurrence, summed in another
+order (fp32 agrees to rounding).
 
 Which calls reach the CUDA kernel: under the ``"kernel"`` implementation
 (``models.attention.set_attention_impl``), ``apply_mamba`` sends the scan
@@ -30,10 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.mamba_scan.ops import mamba_scan_plain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import sharding as sh
+
+_CHUNK = 64
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -99,12 +102,73 @@ def _ssm_params(params, cfg: ModelConfig, u):
     return dt, Bm, Cm, A
 
 
-def ssm_scan(dt, Bm, Cm, x, A, D, h0):
-    """Selective scan, token by token in fp32. dt, x [B,S,di]; Bm, Cm
-    [B,S,ds]; A [di,ds]; D [di]; h0 [B,di,ds] or None (zeros).  Returns
-    (y [B,S,di] with the D x skip, h_end [B,di,ds])."""
-    y, h_end = mamba_scan_plain(dt, x, Bm, Cm, A, h0)
-    return y + x.float() * D, h_end
+def _assoc_scan(a, b):
+    """Inclusive scan along dim 1 of the affine steps h -> a h + b (the
+    composition of an earlier (a1, b1) and a later (a2, b2) is (a1 a2,
+    a2 b1 + b2)), by ``lax.associative_scan``'s odd/even recursion:
+    combine adjacent pairs, scan the pairs, fill in the even positions."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a_p = a[:, 0:n - 1:2] * a[:, 1::2]
+    b_p = a[:, 1::2] * b[:, 0:n - 1:2] + b[:, 1::2]
+    a_odd, b_odd = _assoc_scan(a_p, b_p)            # prefixes at 1, 3, ...
+    m = (n - 1) // 2                                # even positions >= 2
+    a_ev = torch.cat([a[:, :1], a_odd[:, :m] * a[:, 2::2]], dim=1)
+    b_ev = torch.cat([b[:, :1], a[:, 2::2] * b_odd[:, :m] + b[:, 2::2]],
+                     dim=1)
+
+    def weave(ev, odd):
+        k = odd.shape[1]
+        out = torch.stack([ev[:, :k], odd], dim=2).flatten(1, 2)
+        return torch.cat([out, ev[:, k:]], dim=1) if ev.shape[1] > k \
+            else out
+    return weave(a_ev, a_odd), weave(b_ev, b_odd)
+
+
+def _chunk_scan(dt_c, B_c, x_c, A, h0):
+    """One chunk of the recurrence by associative scan: dt_c, x_c
+    [B,c,di], B_c [B,c,ds], h0 [B,di,ds] -> (hidden states [B,c,di,ds],
+    the last)."""
+    da = torch.exp(dt_c[..., None] * A)                     # [B,c,di,ds]
+    dbx = (dt_c * x_c)[..., None] * B_c[:, :, None, :]      # [B,c,di,ds]
+    # h0 folds into the first step's additive term
+    dbx = torch.cat([dbx[:, :1] + da[:, :1] * h0[:, None], dbx[:, 1:]],
+                    dim=1)
+    _, hs = _assoc_scan(da, dbx)
+    return hs, hs[:, -1]
+
+
+def ssm_scan(dt, Bm, Cm, x, A, D, h0, chunk=_CHUNK):
+    """Selective scan in fp32, as the JAX package's: chunks of ``chunk``
+    tokens, each an associative scan, the state carried from chunk to
+    chunk.  dt, x [B,S,di]; Bm, Cm [B,S,ds]; A [di,ds]; D [di]; h0
+    [B,di,ds] or None (zeros).  Returns (y [B,S,di] with the D x skip,
+    h_end [B,di,ds]).  On DTensors each rank scans its local rows and
+    channels (as ``kernels.ops.mamba_scan``: the recurrence is elementwise
+    in di)."""
+    if sh.is_dtensor(x):
+        b, m = sh.kernel_specs(x.device_mesh, x.shape[0], x.shape[2])
+        chan, st, state = sh.P(b, None, m), sh.P(b, None, None), \
+            sh.P(b, m, None)
+        return sh.local_call(ssm_scan, (dt, Bm, Cm, x, A, D, h0),
+                             (chan, st, st, chan, sh.P(m, None), sh.P(m),
+                              None if h0 is None else state),
+                             (chan, state), chunk=chunk)
+    B, S, di = x.shape
+    pad = (-S) % chunk
+    # padded steps have dt 0: decay 1, input 0, so the state passes
+    pad3 = lambda t: F.pad(t.float(), (0, 0, 0, pad))  # noqa: E731
+    dt_p, B_p, C_p, x_p = pad3(dt), pad3(Bm), pad3(Cm), pad3(x)
+    h = (torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        hs, h = _chunk_scan(dt_p[:, sl], B_p[:, sl], x_p[:, sl], A, h)
+        ys.append(torch.einsum("bcds,bcs->bcd", hs, C_p[:, sl]))
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y + x.float() * D, h
 
 
 def apply_mamba(params, cfg: ModelConfig, x, state: Optional[dict] = None,
@@ -135,7 +199,8 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[dict] = None,
         y = y + u.float() * D
     else:
         y, h_end = ssm_scan(dt, Bm, Cm, u, A, D,
-                            None if state is None else state["ssm"])
+                            None if state is None else state["ssm"],
+                            chunk=min(_CHUNK, x.shape[1]))
     y = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
     if return_state:
         return y, {"conv": new_conv, "ssm": h_end}

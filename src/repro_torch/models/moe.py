@@ -19,7 +19,10 @@ top-k keeps ``jax.lax.top_k``'s order on ties (lower expert first)
 through a stable sort.  The JAX package's sharding hints sit at its
 points (``parallel.sharding.hint``: the identity on plain tensors); the
 expert-major buffers take the reference's group-major rules through a
-transposed view.
+transposed view.  On DTensors (a mesh) the routing runs on each rank's
+local groups (``sharding.local_call``), the dispatch and combine
+products flatten the (expert, slot) pairs expert-major, and the decode
+step's gate mask is a sum of one-hots: DTensor propagates all three.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import FFN, ModelConfig
 from repro_torch.models.layers import dense_init
-from repro_torch.parallel.sharding import hint, is_dtensor
+from repro_torch.parallel.sharding import (P, hint, is_dtensor,
+                                          kernel_specs, local_call,
+                                          tensor_placements)
 
 _GROUP = 512
 
@@ -83,7 +88,12 @@ def _expert_ffn(experts, kind: FFN, h, groups=None, sfx: str = ""):
 def _route(x, router, K: int):
     """Softmax gates [..., E] (fp32) and the top-K renormalised weights
     and experts [..., K], ties to the lower expert as ``lax.top_k``."""
-    gates = torch.softmax((x @ router).float(), dim=-1)
+    return _top_k(x @ router, K)
+
+
+def _top_k(logits, K: int):
+    """``_route`` of router ``logits`` [..., E]."""
+    gates = torch.softmax(logits.float(), dim=-1)
     top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
     top_w, top_e = top_w[..., :K], top_e[..., :K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
@@ -97,12 +107,40 @@ def _dense_decode_moe(params, cfg: ModelConfig, kind: FFN, x):
     E = cfg.n_experts
     xt = x.reshape(B, d)
     _, top_w, top_e = _route(xt, params["router"], cfg.top_k)
-    w_mask = torch.zeros((B, E), dtype=torch.float32, device=x.device)
-    w_mask.scatter_add_(1, top_e, top_w)
+    w_mask = sum(top_w[:, k, None] * F.one_hot(top_e[:, k], E).float()
+                 for k in range(cfg.top_k))
     out = _expert_ffn(params["experts"], kind, xt.expand(E, B, d))
     y = torch.einsum("ebd,be->bd", out, w_mask.to(out.dtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def _dispatch_tensors(logits, *, K: int, C: int, dtype):
+    """Router logits [Gn, g, E] -> (gates [Gn, g, E] fp32, first choices
+    [Gn, g], dispatch [Gn, g, E, C] in ``dtype``, combine [Gn, g, E, C]
+    fp32): each token's position in its experts' capacity buffers by
+    cumulative counting over the K slots, tokens past C dropped."""
+    E = logits.shape[-1]
+    gates, top_w, top_e = _top_k(logits, K)
+    dispatch = combine = counts = None
+    for k in range(K):
+        oh = F.one_hot(top_e[..., k], E).float()                # [Gn,g,E]
+        pos = torch.cumsum(oh, dim=1) - oh
+        if counts is not None:
+            pos = pos + counts[:, None, :]
+        within = (pos < C).float() * oh
+        # positions past capacity are dropped by `within`; clamp them so
+        # one_hot takes them (jax.nn.one_hot gives zeros there)
+        pos_oh = F.one_hot(torch.clamp(pos, max=C - 1).long(), C).float()
+        sel = within[..., None] * pos_oh                        # [Gn,g,E,C]
+        wsel = top_w[..., k, None, None] * sel
+        if counts is None:
+            dispatch, combine, counts = sel.to(dtype), wsel, oh.sum(dim=1)
+        else:
+            dispatch = dispatch + sel.to(dtype)
+            combine = combine + wsel
+            counts = counts + oh.sum(dim=1)
+    return gates, top_e[..., 0], dispatch, combine
 
 
 def apply_moe(params, cfg: ModelConfig, kind: FFN, x):
@@ -118,24 +156,21 @@ def apply_moe(params, cfg: ModelConfig, kind: FFN, x):
     Gn = B * S // g
     C = _capacity(g, cfg)
     xg = x.reshape(Gn, g, d)
-    gates, top_w, top_e = _route(xg, params["router"], K)   # [Gn, g, K]
-
-    # position-in-expert by cumulative counting over the K slots
-    dispatch = torch.zeros((Gn, g, E, C), dtype=x.dtype, device=x.device)
-    combine = torch.zeros((Gn, g, E, C), dtype=torch.float32,
-                          device=x.device)
-    counts = torch.zeros((Gn, E), dtype=torch.float32, device=x.device)
-    for k in range(K):
-        oh = F.one_hot(top_e[..., k], E).float()                # [Gn,g,E]
-        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
-        within = (pos < C).float() * oh
-        # positions past capacity are dropped by `within`; clamp them so
-        # one_hot takes them (jax.nn.one_hot gives zeros there)
-        pos_oh = F.one_hot(torch.clamp(pos, max=C - 1).long(), C).float()
-        sel = within[..., None] * pos_oh                        # [Gn,g,E,C]
-        dispatch += sel.to(x.dtype)
-        combine += top_w[..., k, None, None] * sel
-        counts += oh.sum(dim=1)
+    logits = xg @ params["router"]                           # [Gn, g, E]
+    rows = None
+    if is_dtensor(logits):
+        # per group on each rank's local groups: the routing is
+        # independent per group, and the one-hots' cumulative counts
+        # and the top-k's backward stay off DTensor's propagation
+        b, _ = kernel_specs(logits.device_mesh, Gn, 1)
+        rows = P(b, None, None)
+        gates, top_e0, dispatch, combine = local_call(
+            _dispatch_tensors, (logits,), (rows,),
+            (rows, P(b, None), P(b, None, None, None),
+             P(b, None, None, None)), K=K, C=C, dtype=x.dtype)
+    else:
+        gates, top_e0, dispatch, combine = _dispatch_tensors(
+            logits, K=K, C=C, dtype=x.dtype)
 
     # expert-parallel when E can cover the model axis; TP-on-ffn otherwise
     sfx = "_ep" if E >= 16 else ""
@@ -145,15 +180,26 @@ def apply_moe(params, cfg: ModelConfig, kind: FFN, x):
     if sfx:
         dispatch = hint(dispatch, "moe_onehot_ep")
         combine = hint(combine, "moe_onehot_ep")
-    buf = torch.einsum("zgec,zgd->ezcd", dispatch, xg)       # [E,Gn,C,d]
+    # the einsums 'zgec,zgd->ezcd' and 'zgec,ezcd->zgd' as products over
+    # the flattened (e, c) pairs, e outermost: expert-sharded operands
+    # flatten to plain shards (an einsum may flatten (c, e), whose strided
+    # shard DTensor cannot multiply on fake tensors)
+    buf = (dispatch.reshape(Gn, g, E * C).transpose(1, 2) @ xg)
+    buf = buf.reshape(Gn, E, C, d).transpose(0, 1)           # [E,Gn,C,d]
     buf = _hint_ez(buf, "moe_buffer" + sfx)
     out = _expert_ffn(experts, kind, buf.reshape(E, Gn * C, d), (Gn, C),
                       sfx)
-    y = torch.einsum("zgec,ezcd->zgd", combine.to(x.dtype),
-                     out.reshape(E, Gn, C, d))
+    out = out.reshape(E, Gn, C, d).transpose(0, 1).reshape(Gn, E * C, d)
+    y = combine.to(x.dtype).reshape(Gn, g, E * C) @ out
+    if rows is not None:
+        # groups over the data axes only, as the rows they unflatten to
+        # (DTensor may split them over ``model`` too, more ways than the
+        # rows divide)
+        y = y.redistribute(y.device_mesh, tensor_placements(
+            rows, tuple(y.shape), y.device_mesh))
 
     # aux load-balancing loss (Switch-style)
     me = gates.reshape(-1, E).mean(dim=0)
-    ce = F.one_hot(top_e[..., 0].reshape(-1), E).float().mean(dim=0)
+    ce = F.one_hot(top_e0.reshape(-1), E).float().mean(dim=0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
     return y.reshape(B, S, d), aux

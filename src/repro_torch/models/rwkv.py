@@ -32,6 +32,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, take_rows, token_shift
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import hint
 
 _CHUNK = 64
@@ -64,12 +65,13 @@ def _project(params, cfg: ModelConfig, x, shifted):
     H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_dim
     mu = params["mu"]
     mix = lambda i: x + (shifted - x) * mu[i]
-    heads = lambda t: t.reshape(B, S, H, hd)
+    heads = lambda t: sh.even_heads(t, H).reshape(B, S, H, hd)
     r = heads(mix(0) @ params["w_r"])
     k = heads(mix(1) @ params["w_k"])
     v = heads(mix(2) @ params["w_v"])
     g = F.silu(mix(3) @ params["w_g"])
-    dlora = torch.tanh(mix(4) @ params["decay_w1"]) @ params["decay_w2"]
+    dlora = torch.tanh(sh.replicated_over(mix(4) @ params["decay_w1"])) \
+        @ params["decay_w2"]
     logw = -torch.exp((params["decay_base"] + dlora).float())  # [B,S,d] < 0
     return r, k, v, g, heads(logw)
 
@@ -125,6 +127,18 @@ def rwkv_scan(r, k, v, logw, u, state0, chunk=_CHUNK):
     return torch.cat(ys, dim=1)[:, :S], S_c
 
 
+def _local_scan(r, k, v, logw, u, state0, *, chunk):
+    """``rwkv_scan`` on DTensors, each rank on its local rows and heads
+    (as ``kernels.ops.rwkv6_scan``): the chunk form's products then
+    never meet a split DTensor cannot multiply on fake tensors."""
+    b, m = sh.head_specs(r.device_mesh, r.shape[0], r.shape[2])
+    heads, state = sh.P(b, None, m, None), sh.P(b, m, None, None)
+    return sh.local_call(rwkv_scan, (r, k, v, logw, u, state0),
+                         (heads,) * 4 + (sh.P(m, None),
+                                         None if state0 is None else state),
+                         (heads, state), chunk=chunk)
+
+
 def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
                return_state: bool = False, valid=None):
     """x: [B,S,d]. state: {"tm_shift": [B,d], "wkv": [B,H,N,N]}.
@@ -156,13 +170,16 @@ def apply_rwkv(params, cfg: ModelConfig, x, state: Optional[dict] = None,
         y, wkv_end = kernel_ops.rwkv6_scan(r.float(), k.float(), v.float(),
                                            logw, u)
     else:
-        y, wkv_end = rwkv_scan(r.float(), k.float(), v.float(), logw, u,
-                               wkv0, chunk=min(_CHUNK, S))
+        args = (r.float(), k.float(), v.float(), logw, u, wkv0)
+        y, wkv_end = (_local_scan(*args, chunk=min(_CHUNK, S))
+                      if sh.is_dtensor(r) else
+                      rwkv_scan(*args, chunk=min(_CHUNK, S)))
     # per-head group norm (population variance, as jnp.var)
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(B, S, d) * params["out_norm"]["scale"].to(y.dtype)
+    y = sh.grad_in_place(y.reshape(B, S, d)) \
+        * params["out_norm"]["scale"].to(y.dtype)
     y = (y.to(x.dtype) * g) @ params["w_o"]
     if return_state:
         if valid is None:

@@ -44,7 +44,7 @@ from repro_torch.models.layers import (apply_ffn, embed_features,
                                        sinusoidal_positions, take_rows,
                                        token_shift, unembed)
 from repro_torch.parallel import sharding as sh
-from repro_torch.parallel.sharding import hint, is_dtensor
+from repro_torch.parallel.sharding import grad_in_place, hint, is_dtensor
 from repro_torch.tree import tree_leaves
 
 
@@ -158,7 +158,7 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
     {"tm_shift", "wkv", "cm_shift"} or {"conv", "ssm"}) the layer's
     decode state is written into it.  ``attn_impl`` is passed to
     ``multihead_attention(force_impl=...)`` (None: the module default)."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = grad_in_place(rmsnorm(p["norm1"], x, cfg.norm_eps))
     if spec.mixer == Mixer.ATTENTION:
         window = cache_mod.effective_window(cfg, spec, long_mode)
         q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
@@ -168,7 +168,10 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
             q, k, v, positions, positions, causal=cfg.causal, window=window,
             cap=cfg.attn_softcap, force_impl=attn_impl)
         B, S = h.shape[:2]
-        x = hint(x + y.reshape(B, S, -1) @ p["attn"]["wo"], "residual")
+        # the gradient of the flat heads back in the heads' placements
+        # before the unflatten (heads that ``model`` does not divide)
+        y = grad_in_place(y.reshape(B, S, -1))
+        x = hint(x + y @ p["attn"]["wo"], "residual")
         if cache_entry is not None:
             cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k, v,
                                  window)
@@ -179,7 +182,7 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
         if cache_entry is not None:
             for name, t in st.items():
                 _masked_copy(cache_entry[name], t, None)
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    h = grad_in_place(rmsnorm(p["norm2"], x, cfg.norm_eps))
     if spec.moe:
         y, aux = moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)
         return hint(x + y, "residual"), aux
@@ -220,13 +223,15 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
     max_cache_len = max_cache_len or S
     cache = None
     if return_cache:
+        # on a mesh each rank allocates its own shard only
         cache = cache_mod.init_cache(cfg, B, max_cache_len,
                                      long_mode=long_mode,
                                      dtype=params["final_norm"]["scale"].dtype,
-                                     device=x.device)
+                                     device="meta" if is_dtensor(x)
+                                     else x.device)
         if is_dtensor(x):
-            cache["blocks"] = cache_mod.distribute_cache(cache["blocks"],
-                                                         x.device_mesh)
+            cache["blocks"] = cache_mod.distribute_cache(
+                cache["blocks"], x.device_mesh, device=x.device)
     def repeat(x, aux, r):
         bp = _tree_index(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
@@ -249,7 +254,7 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
             x, aux = repeat(x, aux, r)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = grad_in_place(rmsnorm(params["final_norm"], x, cfg.norm_eps))
     out = {"logits": hint(unembed(params["embed"], cfg, x), "logits"),
            "aux_loss": aux, "hidden": x}
     if cache is not None:

@@ -27,6 +27,12 @@ a rank its block of an operand laid out as the DTensor it writes into
 rank's rows over the mesh dimensions that split them, and
 ``local_rows`` views one local row of every shard as a DTensor.
 
+Heads that ``model`` does not divide: ``even_heads`` gathers a fused
+head projection before its unflatten, and ``head_specs`` splits the
+rows of an attention or scan call over ``model`` in place of the heads.
+``grad_in_place`` returns a normed residual's gradient to its
+placements (Megatron's ``f``).
+
 Storage and use: a parameter is stored under its spec (FSDP over
 ``data`` as the reference), and a step redistributes it to its use
 placements (``use_spec``: the spec without ``data``, the all-gather
@@ -260,6 +266,76 @@ def sanitize_spec(spec: P, shape, mesh) -> P:
         else:
             out.append(tuple(kept))
     return P(*out)
+
+
+def even_heads(x, n_heads: int):
+    """A DTensor ``x`` [..., n_heads * hd] (a fused head projection) with
+    each mesh dimension that splits its last dim unevenly across the
+    heads replicated (an all-gather), so that the head unflatten meets
+    whole heads only; DTensor refuses an uneven one.  Plain tensors and
+    splits that divide the heads pass through.  The heads then take the
+    sanitized ``attn_q`` / ``attn_kv`` / ``rwkv_heads`` hint: replicated
+    over ``model`` when it does not divide them."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, last = x.device_mesh, x.ndim - 1
+    want, prod = [], 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == last:
+            if n_heads % (prod * mesh.size(i)):
+                p = Replicate()
+            else:
+                prod *= mesh.size(i)
+        want.append(p)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, tuple(want))
+
+
+def replicated_over(x, axis: str = MODEL):
+    """DTensor ``x`` with mesh axis ``axis`` replicated (a partial sum
+    all-reduced, a shard all-gathered), its other mesh dims as they are;
+    plain tensors pass through.  For a small product that is a partial
+    sum over ``model`` ahead of a nonlinearity: DTensor would otherwise
+    reduce-scatter it along the flattened tokens, a strided shard it
+    cannot multiply on fake tensors."""
+    if not is_dtensor(x) or axis not in x.device_mesh.mesh_dim_names:
+        return x
+    from torch.distributed.tensor import Replicate
+    i = x.device_mesh.mesh_dim_names.index(axis)
+    want = tuple(Replicate() if j == i else p
+                 for j, p in enumerate(x.placements))
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+class _GradInPlace(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    input's placements (a partial sum all-reduced or reduce-scattered)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_in_place(x):
+    """``x`` unchanged, its gradient redistributed to ``x``'s placements
+    (DTensor only; the identity on plain tensors).  Megatron's ``f``
+    before the products that read a normed residual: the gradients of
+    those products are partial sums over ``model``, and left partial
+    they would reach every earlier layer's weight products, which then
+    gather their activations over ``model`` (the reference's GSPMD
+    reduces them there)."""
+    return _GradInPlace.apply(x) if is_dtensor(x) else x
 
 
 def use_spec(spec: P) -> P:
@@ -511,6 +587,18 @@ def kernel_specs(mesh, batch: int, parts: int) -> Tuple:
             _axis_if(mesh, MODEL, parts))
 
 
+def head_specs(mesh, batch: int, heads: int) -> Tuple:
+    """``kernel_specs`` of an attention call: where ``model`` does not
+    divide the heads, the rows split over it too (after the data axes,
+    where it divides them), so that each rank attends its own rows with
+    every head instead of every rank attending all of them."""
+    b, m = kernel_specs(mesh, batch, heads)
+    if m is not None or MODEL not in _mesh_sizes(mesh):
+        return b, m
+    axes = () if b is None else b if isinstance(b, tuple) else (b,)
+    return sanitize_spec(P(axes + (MODEL,)), (batch,), mesh)[0], None
+
+
 def _on(entry, axis: str) -> bool:
     """Whether spec entry ``entry`` names mesh axis ``axis``."""
     return axis in (entry if isinstance(entry, tuple) else (entry,))
@@ -550,3 +638,30 @@ def vocab_parallel_embedding(table, ids):
     return local_call(lookup, (ids, table), (P(b), P(m, None)), out,
                       in_grad=(P(b), grad))
 
+
+def vocab_parallel_pick(logits, labels):
+    """``logits[..., labels]`` for DTensor ``logits`` [B, S, V]: each rank
+    picks its rows' labels (rows over the data axes) in its vocab shard
+    (over ``model``), zero where a label lies in another shard, so the
+    output [B, S] is a sum over ``model``; the gradient reaches the
+    logits in their own shards.  The counterpart of
+    ``vocab_parallel_embedding`` for the loss: a gather over a split
+    vocabulary would gather it whole, and its backward would allocate
+    zeros at the global batch's shape on every device."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    B, V = logits.shape[0], logits.shape[-1]
+    b, m = kernel_specs(mesh, B, V)
+
+    def pick(x, ids):
+        n = x.shape[-1]
+        lo = mesh.get_local_rank(MODEL) * n if m else 0
+        local = ids.long() - lo
+        ok = (local >= 0) & (local < n)
+        got = x.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+        return got * ok.to(got.dtype)
+    names = mesh.mesh_dim_names
+    out = tuple((Partial() if m else Replicate()) if a == MODEL
+                else Shard(0) if _on(b, a) else Replicate() for a in names)
+    return local_call(pick, (logits, labels), (P(b, None, m), P(b, None)),
+                      out)

@@ -456,9 +456,9 @@ def _mamba_inputs(rng, B, S, di, ds):
 
 @pytest.mark.parametrize("carried", [False, True])
 def test_ssm_scan_vs_jax(carried):
-    """The token-by-token scan against the JAX chunked associative scan
-    (S 40 in ragged chunks of 16), from a zero or a carried state, with
-    the D x skip, and one decode step (S 1)."""
+    """The port's scan (chunks of 64, one here) against the JAX chunked
+    associative scan (S 40 in ragged chunks of 16), from a zero or a
+    carried state, with the D x skip, and one decode step (S 1)."""
     rng = np.random.default_rng(14)
     B, di, ds = 2, 48, 16
     D = rng.standard_normal(di).astype(np.float32)

@@ -1,6 +1,6 @@
 """Rank functions of the sharded CPU tests (``test_torch_sharded.py``,
-``test_torch_sharded_exec.py``, ``test_torch_sharded_genserve.py``) and
-the subprocess that spawns them.
+``test_torch_sharded_exec.py``, ``test_torch_sharded_genserve.py``,
+``test_torch_moe_mesh.py``) and the subprocess that spawns them.
 
 The tests run ``python tests/torch_sharded_ranks.py IN OUT`` with a
 timeout of their own: ``IN`` is a pickle of the job (its kind and
@@ -266,8 +266,9 @@ def serve_modes(device, job, mesh=None):
     from repro_torch.rl.rollout import SamplerConfig
     params = {a: bridge.from_numpy_params(p, job["cfgs"][a], device)
               for a, p in job["params"].items()}
-    dcfg = job["draft_cfg"]
-    draft = bridge.from_numpy_params(job["draft"], dcfg, device)
+    dcfg = job.get("draft_cfg")
+    draft = None if dcfg is None else bridge.from_numpy_params(
+        job["draft"], dcfg, device)
     out = {}
     init_state = decoder._init_state
     for name, m in job["modes"].items():
@@ -352,6 +353,113 @@ def gen_rl_world1(job):
             tr, *sharded_exec.run(tr, job["iters"], job["batch"]))
         out[label]["eval"] = sharded_exec.evaluate_batch(tr)
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE models and heads that ``model`` does not divide (test_torch_moe_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _kernel_spy():
+    """Record the shape of the main operand each kernel wrapper's plain
+    version takes (on the CPU, where a wrapper would launch its kernel):
+    {kernel: [shapes]}, undo."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as mb
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    seen, saved = {}, []
+    for name, mod, attr, arg in (
+            ("flash_attention", fa, "flash_attention_plain", 0),
+            ("decode_attention", dec, "decode_attention_plain", 0),
+            ("mamba_scan", mb, "mamba_scan_plain", 1),
+            ("rwkv6_scan", rw, "rwkv6_scan_plain", 0)):
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def spy(*a, _fn=fn, _name=name, _arg=arg, **k):
+            seen.setdefault(_name, []).append(tuple(a[_arg].shape))
+            return _fn(*a, **k)
+        setattr(mod, attr, spy)
+
+    def undo():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return seen, undo
+
+
+def train_steps(device, job, mesh=None):
+    """``launch.steps``' LM train step (remat on, fp32 Adam) for each of
+    the job's ``train`` configs, from the job's weights and batch; on
+    ``mesh`` as DTensors laid out by the step's sharding trees, under
+    its activation rules: the loss, the stepped parameters and Adam's
+    first moments, full."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    out = {}
+    for name in job["train"]:
+        cfg = job["cfgs"][name]
+        params = bridge.from_numpy_params(job["params"][name], cfg, device)
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in job["train_batch"].items()}
+        B, S = batch["tokens"].shape
+        shape = InputShape("smoke", S, B, "train")
+        opt_cfg = adam.AdamConfig()
+        opt = adam.init_adam_state(params, opt_cfg)
+        step = steps.make_train_step(cfg, opt_cfg, remat=True)
+        if mesh is None:
+            p, o, m = step(params, opt, batch)
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            params = steps.distribute_tree(
+                params, mesh, steps.param_shardings(mesh, params))
+            opt = steps.distribute_tree(
+                opt, mesh, steps.opt_shardings(mesh, params))
+            batch = steps.distribute_tree(
+                batch, mesh, steps.batch_shardings(mesh, batch, shape))
+            with sh.use_hints(steps.activation_rules(mesh, shape)), \
+                    implicit_replication():
+                p, o, m = step(params, opt, batch)
+            p, o = sh.full_tree(p), sh.full_tree(o)
+        out[name] = {"loss": float(sh.full(m["loss"])), "params": _np(p),
+                     "m": _np(o["m"])}
+    return out
+
+
+def moe_mesh_run(device, job, meshes=None):
+    """``serve_modes`` with the kernel wrappers spied on (each config on
+    the mesh of its shape in ``job["mesh_shapes"]``, 2x2 by default;
+    ``meshes``: shape -> mesh, None for the world of one), then
+    ``train_steps`` on the 2x2 mesh."""
+    shapes = job.get("mesh_shapes", {})
+    served, seen = {}, {}
+    for shape in sorted({tuple(shapes.get(m["arch"], (2, 2)))
+                         for m in job["modes"].values()}):
+        sub = {k: m for k, m in job["modes"].items()
+               if tuple(shapes.get(m["arch"], (2, 2))) == shape}
+        spied, undo = _kernel_spy()
+        try:
+            served.update(serve_modes(device, {**job, "modes": sub},
+                                      None if meshes is None
+                                      else meshes[shape]))
+        finally:
+            undo()
+        for k, v in spied.items():
+            seen.setdefault(str(shape), {})[k] = v
+    return {"served": served, "kernels": seen,
+            "train": train_steps(device, job, None if meshes is None
+                                 else meshes[(2, 2)])}
+
+
+def moe_mesh_rank(device, job):
+    """``moe_mesh_run`` on ("data", "model") meshes of this world's 4
+    ranks: 2x2 and 1x4."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return moe_mesh_run(device, job, {
+        shape: DeviceMesh(device.type, torch.arange(4).reshape(shape),
+                          mesh_dim_names=sh.AXES)
+        for shape in ((2, 2), (1, 4))})
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +684,10 @@ def main(inp: str, out: str) -> None:
         res = {"ranks": dist.spawn(me.genserve_rank, job["world"], "cpu",
                                    job, timeout=job["timeout"]),
                "world1": me.serve_modes(torch.device("cpu"), job)}
+    elif job["kind"] == "moe_mesh":
+        res = {"ranks": dist.spawn(me.moe_mesh_rank, job["world"], "cpu",
+                                   job, timeout=job["timeout"]),
+               "world1": me.moe_mesh_run(torch.device("cpu"), job)}
     elif job["kind"] == "gen_rl":
         res = {"ranks": dist.spawn(me.gen_rl_rank, job["world"], "cpu", job,
                                    timeout=job["timeout"]),
