@@ -13,8 +13,9 @@ checkpoints, the elastic plan swaps and fault recovery, and the rest of
 genserve (chunked admission, the paged cache with prefix reuse,
 speculative decoding, slot failures and cancels), then the rest of the
 model zoo (hubert-xlarge's encoder and pixtral-12b at full width),
-speculative GEN in the RL engine and the plan sharded over ranks that
-share the card, and exits non-zero on any failure.
+speculative GEN in the RL engine, the plan sharded over ranks that
+share the card, and the example scripts (``repro_torch.examples``), and
+exits non-zero on any failure.
 Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
@@ -31,9 +32,9 @@ Phases, each printing its result:
              and one library call where one exists; kernel and library
              times as median (min-max) of 30 calls, and each kernel's
              own device time (torch.profiler) over 30 more.
-             Attention: GQA/MQA, hd 64/80/128, window, softcap, ragged S
-             and L, fp32 and bf16; tolerance 2e-4 fp32 with TF32 off,
-             2e-2 bf16.  RWKV6 scan: N 32/64/128, S 1/63/65/100/256, B 1
+             Attention: GQA/MQA, hd 16/64/80/128 (16: trace_obs's
+             actor), window, softcap, ragged S and L, fp32 and bf16;
+             tolerance 2e-4 fp32 with TF32 off, 2e-2 bf16.  RWKV6 scan: N 32/64/128, S 1/63/65/100/256, B 1
              and 3, and strong decay (logw about -20) at chunks 16/32/64
              with S 150 and 77; tolerance 2e-3 (rtol and atol).  Mamba
              scan: ds 8/16, S 1/32/48/63/64/65/100 and 2048, ragged
@@ -83,9 +84,14 @@ Phases, each printing its result:
              through ``run_rl``: GRPO 3 steps, GRPO --async 3 steps, PPO
              2 steps (plan, predicted and measured ms/iter, each task's
              ms from the Event timeline, peak memory, launches per stage);
-             then the e2e actor (d 192, 4 layers) for 30 GRPO iterations,
-             its reward printed.  The RL rows of the kernels line take
-             their launches from the GRPO run.
+             then ``python -m repro_torch.examples.train_rl_e2e --iters 30
+             --batch 16 --ckpt-every 10``: the e2e actor (d 192, 4 layers,
+             4:2 heads of 48) for 30 GRPO iterations of 16 prompts x 8
+             rollouts (128 GEN rows in waves of 32 on genserve), its
+             rewards at iterations 0, 10, 20, 29, final accuracy,
+             measured vs predicted ms/iter and wave occupancy; TRAIN
+             launches nothing.  The RL rows of the kernels line take
+             their launches from the GRPO run, the e2e rows from this.
  12. lm      ``repro_torch.launch.train --arch qwen3-0.6b --steps 5 --batch
              4 --seq 64``: the LM mode at full width in bf16 (vocab
              151,936); losses and grad norms finite, the step-0 loss within
@@ -231,8 +237,8 @@ Phases, each printing its result:
              (c) ``launch.steps``' prefill [4, 4096], serve (batch 32,
              a cache of 8192) and train (the largest batch of 8, 4, 2, 1
              that fits at S 4096) steps on the card: CUDA-event ms
-             (median, min, max of 10 calls after 2; the train step 3
-             after 1), peak memory, kernel launches per step (train
+             (median, min, max of 10 calls after 2; the train step one
+             call after 1), peak memory, kernel launches per step (train
              none), the MFU (model FLOPs 2 N D, 6 N D to train, over ms
              x 989 TFLOP/s), beside the world-of-one count of the same
              shape on the plain path (full S^2 attention, unfused bytes:
@@ -267,9 +273,25 @@ Phases, each printing its result:
              shapes of a 2x2 mesh vs plain (2e-3, 1e-3); then every
              per-rank shape timed in this process (kernel, plain, sdpa,
              bound).
+ 27. examples ``repro_torch.examples`` on the card: ``serve_batched`` with
+             its defaults (the mixtral-8x7b smoke), with
+             ``--prefill-chunk 16``, ``--arch rwkv6-3b`` and ``--arch
+             jamba-1.5-large-398b``, each against the same run under
+             ``attention.set_attention_impl("plain")``: tokens identical,
+             the kernels of its path launched (one-shot: flash and decode,
+             plus rwkv6_scan or mamba_scan; chunked: decode), the plain run
+             none; ``trace_obs`` (a 1-layer actor of 2 heads of 16): both
+             attention kernels at head dim 16 in GEN, flash in INF, none
+             in TRAIN, its Chrome trace valid; ``train_rl_elastic
+             --require-switch`` (drop_tail swaps the plan; TRAIN launches
+             nothing); then both attention kernels at the e2e actor's and
+             trace_obs's GEN prefill, GEN decode and INF shapes (fp32)
+             against plain and timed (kernel, plain, sdpa, bound).
 
-Then one JSON line with every kernel's numbers, the card line, and the
-last line ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed as it ends (``[time] phase N``) and
+together before the kernels line.  Then one JSON line with every
+kernel's numbers, the card line, and the last line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -342,8 +364,8 @@ def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3):
     return times[len(times) // 2], times[0], times[-1]
 
 
-PROFILE_ATTEMPTS = 4     # profiling sessions before device_ms fails
-PROFILE_SPARE = 2        # calls a session makes beyond the ones it times
+PROFILE_ATTEMPTS = 6     # profiling sessions before device_ms fails
+PROFILE_SPARE = 10       # calls a session makes beyond the ones it times
 
 
 def device_ms(fn, torch, flush, kernel: str, iters: int = 30):
@@ -356,10 +378,10 @@ def device_ms(fn, torch, flush, kernel: str, iters: int = 30):
     acts = [torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(PROFILE_ATTEMPTS):
         # a profiling session now and then returns no device activity at
-        # all, or misses a launch or two (seen on the card in phases 3,
-        # 20 and 24: 0, 10, 28 or 29 of 30): the spare calls absorb a
-        # missed launch, and a session that still sees fewer than
-        # ``iters`` is printed and profiled again
+        # all, or misses some launches (seen on the card in phases 3, 20,
+        # 24 and 26: 0, 10, 23, 26, 28 or 29 of 30 or 32): the spare calls
+        # absorb missed launches, and a session that still sees fewer
+        # than ``iters`` is printed and profiled again
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters + PROFILE_SPARE):
                 flush.zero_()
@@ -683,10 +705,12 @@ def rl_phase10(torch, dev, cfg, attn, fa, dec, card):
 def rl_phase11(torch, dev, fa, dec, card):
     """``repro_torch.launch.train`` at qwen3-0.6b's full width through
     ``run_rl``: GRPO 3 steps, GRPO --async 3 steps, PPO 2 steps, batch 16;
-    then the e2e actor for 30 GRPO iterations.  Returns the launches at
-    each RL-path shape in the first run (GRPO, the searched plan)."""
+    then the e2e actor for 30 GRPO iterations through
+    ``repro_torch.examples.train_rl_e2e``.  Returns the launches at each
+    RL-path shape in the first run (GRPO, the searched plan) and at each
+    of the e2e actor's shapes in its run."""
+    from repro_torch.examples import train_rl_e2e
     from repro_torch.launch import train as train_mod
-    from repro_torch.models.config import ModelConfig
     from repro_torch.rl.trainer import RLTrainer
     hook = StageLaunches(fa, dec)
     restore = hook.install(RLTrainer)
@@ -760,26 +784,50 @@ def rl_phase11(torch, dev, fa, dec, card):
                   flush=True)
             del out, tr, eng
             torch.cuda.empty_cache()
-        e2e = ModelConfig(name="rl-actor", n_layers=4, d_model=192,
-                          n_heads=4, n_kv_heads=2, head_dim=48, d_ff=576,
-                          vocab_size=16, dtype="float32")
+        # the e2e actor through its example: 16 prompts x 8 rollouts =
+        # 128 GEN rows in waves of 32 on genserve
+        argv = ["--iters", "30", "--batch", "16", "--ckpt-every", "10"]
         hook.iters.clear()
         t0 = time.monotonic()
-        out = train_mod.run_rl(train_mod.parse_args(
-            ["--arch", ARCH, "--rl", "grpo", "--steps", "30", "--batch",
-             "16"]), cfg=e2e)
+        print(f"[11 train] python -m repro_torch.examples.train_rl_e2e "
+              f"{' '.join(argv)}", flush=True)
+        out = train_rl_e2e.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
         rewards = [m["reward_mean"] for m in out["metrics"]]
-        check(all(math.isfinite(r) for r in rewards),
-              "non-finite e2e rewards")
-        print(f"[11 train] e2e actor (d 192, 4 layers, hd 48, 4:2 heads, "
-              f"fp32), GRPO 30 iterations of 16 prompts x 4: reward "
+        check(len(rewards) == 30 and all(
+            math.isfinite(r) and 0.0 <= r <= 1.0 for r in rewards),
+            f"e2e rewards {rewards}")
+        launches = [hook.by_kind(i) for i in range(len(hook.iters))]
+        check(all(lk.get("TRAIN", (0, 0)) == (0, 0) for lk in launches),
+              f"e2e TRAIN launched kernels: {launches}")
+        e2e = {key: sum(lk.get(kind, (0, 0))[i] for lk in launches)
+               for key, kind, i in (
+                   ("flash_attention/e2e_gen_prefill", "GEN", 0),
+                   ("flash_attention/e2e_inf", "INF", 0),
+                   ("decode_attention/e2e_gen_decode", "GEN", 1))}
+        check(all(n > 0 for n in e2e.values()),
+              f"the e2e run did not launch both kernels: {e2e}")
+        cmp, occ = out["compare"], out["occupancy"]
+        check(occ["measured_occupancy"] > 0,
+              "e2e GEN recorded no genserve wave")
+        c = out["trainer"].cfg
+        print(f"[11 train] e2e actor ({c.n_layers} layers, d {c.d_model}, "
+              f"{c.n_heads}:{c.n_kv_heads} heads of {c.resolved_head_dim}, "
+              f"fp32), GRPO 30 iterations of 16 prompts x 8: reward "
               + ", ".join(f"iter {i} {rewards[i]:.3f}"
                           for i in (0, 10, 20, 29))
-              + f" (printed, not a gate); "
-              f"{time.monotonic() - t0:.1f}s | card {card}", flush=True)
+              + f" (printed, not a gate); final greedy accuracy "
+              f"{out['accuracy']:.2f}; measured "
+              f"{cmp['measured_iter_s'] * 1e3:.1f} ms/iter vs cost-model "
+              f"{cmp['predicted_iter_s'] * 1e3:.3f} (ratio "
+              f"{cmp['ratio']:.2f}); genserve occupancy measured "
+              f"{occ['measured_occupancy']:.2f} vs predicted "
+              f"{occ.get('predicted_occupancy', 0):.2f}; launches {e2e}; "
+              f"{wall:.1f}s | card {card}", flush=True)
     finally:
         restore()
-    return totals
+    return totals, e2e, c
 
 
 def gib(n: float) -> float:
@@ -1660,11 +1708,12 @@ def rl_phase19(torch, dev, cfg, fa, dec, card, ref):
 
 
 def attn_row(torch, F, fa, flush, B, S, H, KV, hd, dtype, causal, card,
-             label, tag="[20 zoo]"):
+             label, tag="[20 zoo]", device_time=True):
     """One flash_attention row of the kernels line, timed as phase 3
-    times its rows: error against the plain version, kernel (event and
-    device time), plain and sdpa times, and the bound recounted from
-    these inputs (every (query, key) pair of the mask is computed)."""
+    times its rows: error against the plain version, kernel (event and,
+    with ``device_time``, device time), plain and sdpa times, and the
+    bound recounted from these inputs (every (query, key) pair of the
+    mask is computed)."""
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = (torch.randn((B, S, n, hd), generator=g, device="cuda")
                .to(dtype) for n in (H, KV, KV))
@@ -1677,8 +1726,8 @@ def attn_row(torch, F, fa, flush, B, S, H, KV, hd, dtype, causal, card,
           f"flash_attention {label}: max abs err {err}")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     ms = time_ms(run, torch, flush)
-    dev_ms = device_ms(run, torch, flush,
-                       "flash_tc" if dtype == torch.bfloat16 else "flash_fwd")
+    dev_ms = device_ms(run, torch, flush, "flash_tc" if dtype == torch.bfloat16
+                       else "flash_fwd") if device_time else None
     plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
                     torch, flush)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1692,7 +1741,8 @@ def attn_row(torch, F, fa, flush, B, S, H, KV, hd, dtype, causal, card,
     print(f"{tag} flash_attention ({label}) q{tuple(q.shape)} "
           f"k{tuple(k.shape)} {name} causal={causal}: err {err:.3g} (tol "
           f"{tol(dtype, torch):g}) | kernel {spread(ms)}, device "
-          f"{spread(dev_ms)}, plain {spread(plain)}, sdpa {spread(lib)}, "
+          f"{spread(dev_ms) if dev_ms else 'not measured'}, plain "
+          f"{spread(plain)}, sdpa {spread(lib)}, "
           f"kernel/sdpa {ms[0] / lib[0]:.2f}, bound "
           f"{max(b_bytes, b_ops):.4f} ms ({nbytes / 1e6:.1f} MB = "
           f"{b_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP = {b_ops:.4f} ms) | "
@@ -2741,7 +2791,7 @@ DECODE25 = (32, 8192)       # decode_32k [128, 32768]: its KV cache 481 GB
 TRAIN25_SEQ = 4096          # train_4k's sequence; the largest batch that fits
 TRAIN25_BATCHES = (8, 4, 2, 1)
 STEP_ITERS, STEP_WARMUP = 10, 2
-TRAIN25_ITERS = 3           # the train step (7.3 s a call): 3 after 1
+TRAIN25_ITERS = 1           # the train step (7.3 s a call): 1 after 1
 # phase 25's bf16 limits at all 28 layers, |a - b| / (1 + |b|) of the
 # logits against the plain attention: within DEPTH25_TOL, and within
 # SDPA25_RATIO times the gap of torch's sdpa in the plain attention's
@@ -3418,6 +3468,168 @@ def mesh_phase26(torch, dev, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the example scripts on the card
+# ---------------------------------------------------------------------------
+
+# serve_batched's runs: extra flags -> the kernels its path launches
+# (chunked admission runs the prefill attention and the scans plain, as
+# the JAX package does; the rwkv6 smoke has no attention layer)
+SERVE27 = (((), ("flash_attention", "decode_attention")),
+           (("--prefill-chunk", "16"), ("decode_attention",)),
+           (("--arch", RWKV_ARCH), ("rwkv6_scan",)),
+           (("--arch", JAMBA_ARCH),
+            ("flash_attention", "decode_attention", "mamba_scan")))
+
+
+def rl_shapes(rows: int, wave: int, cfg, prompt: int, new: int):
+    """The attention shapes of one GRPO iteration of ``cfg`` over
+    ``rows`` rollouts decoded in waves of ``wave``: GEN's prefill of one
+    wave, GEN's decode step of it over prompt + new cache slots, INF's
+    forward over every rollout."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"gen_prefill": (wave, prompt, H, KV, hd),
+            "gen_decode": (wave, prompt + new, H, KV, hd),
+            "inf": (rows, prompt + new, H, KV, hd)}
+
+
+def examples_phase27(torch, F, fa, dec, rw, mb, attn, flush, card, e2e_cfg,
+                     e2e_launches):
+    """The examples on the card (``repro_torch.examples``):
+    ``serve_batched`` four ways, each against the same run on the plain
+    attention (tokens identical; the kernels of its path launched, the
+    plain run none); ``trace_obs`` (head dim 16: both attention kernels
+    in GEN, flash in INF, none in TRAIN; its Chrome trace valid);
+    ``train_rl_elastic --require-switch``; then both attention kernels
+    against plain and timed at the e2e actor's (phase 11) and trace_obs's
+    shapes.  Returns those kernel rows."""
+    from repro_torch.data.synthetic import AdditionTask
+    from repro_torch.examples import (serve_batched, trace_obs,
+                                      train_rl_elastic)
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.rl.trainer import RLTrainer
+    mods = {"flash_attention": fa, "decode_attention": dec,
+            "rwkv6_scan": rw, "mamba_scan": mb}
+    tag = "[27 examples]"
+    for extra, want in SERVE27:
+        argv = list(extra)
+        runs = {}
+        try:
+            for impl in ("kernel", "plain"):
+                attn.set_attention_impl(impl)
+                _zero_counts(*mods.values())
+                t0 = time.monotonic()
+                out = serve_batched.main(argv)
+                torch.cuda.synchronize()
+                runs[impl] = (out, {k: m.launches for k, m in mods.items()},
+                              time.monotonic() - t0)
+        finally:
+            attn.set_attention_impl("kernel")
+        (ko, kn, kt), (po, pn, pt) = runs["kernel"], runs["plain"]
+        same = torch.equal(ko["rollout"]["sequences"],
+                           po["rollout"]["sequences"])
+        print(f"{tag} python -m repro_torch.examples.serve_batched "
+              f"{' '.join(argv)}: {ko['cfg'].name}, tokens identical to the "
+              f"plain attention's={same}; launches {kn} (plain run {pn}); "
+              f"{kt:.1f}s (plain {pt:.1f}s) | card {card}", flush=True)
+        check(same, f"serve_batched {argv}: kernel and plain tokens differ")
+        check(all(kn[k] > 0 for k in want),
+              f"serve_batched {argv} did not launch {want}: {kn}")
+        check(not any(pn.values()), f"the plain run launched {pn}")
+
+    hook = StageLaunches(fa, dec)
+    restore = hook.install(RLTrainer)
+    try:
+        t0 = time.monotonic()
+        print(f"{tag} python -m repro_torch.examples.trace_obs", flush=True)
+        out = trace_obs.main([])
+        torch.cuda.synchronize()
+        obs_launches = [hook.by_kind(i) for i in range(len(hook.iters))]
+        trace_errors = obs_trace.validate_file(out["trace"])
+        obs_wall = time.monotonic() - t0
+        obs_cfg = out["trainer"].cfg
+        print(f"{tag} trace_obs (head dim {obs_cfg.resolved_head_dim}): "
+              f"rewards {out['rewards']}; launches per iteration (flash, "
+              f"decode) by stage {obs_launches}; trace {out['trace']} "
+              f"errors {trace_errors}; {obs_wall:.1f}s | card {card}",
+              flush=True)
+        check(all(math.isfinite(r) and 0.0 <= r <= 1.0
+                  for r in out["rewards"]), f"trace_obs rewards "
+              f"{out['rewards']}")
+        check(not trace_errors and not out["trace_errors"],
+              f"trace_obs's trace is invalid: {trace_errors}")
+        check(len(obs_launches) == 4 and all(
+            lk["GEN"][0] > 0 and lk["GEN"][1] > 0 and lk["INF"][0] > 0
+            and lk["TRAIN"] == (0, 0) for lk in obs_launches),
+            f"trace_obs launches {obs_launches}")
+        obs_run = {"flash_attention/obs_gen_prefill": sum(
+                       lk["GEN"][0] for lk in obs_launches),
+                   "flash_attention/obs_inf": sum(
+                       lk["INF"][0] for lk in obs_launches),
+                   "decode_attention/obs_gen_decode": sum(
+                       lk["GEN"][1] for lk in obs_launches)}
+        del out
+
+        hook.iters.clear()
+        t0 = time.monotonic()
+        print(f"{tag} python -m repro_torch.examples.train_rl_elastic "
+              f"--require-switch", flush=True)
+        try:
+            out = train_rl_elastic.main(["--require-switch"])
+        except SystemExit as e:
+            fail(f"train_rl_elastic --require-switch exited {e.code}")
+        torch.cuda.synchronize()
+        el_launches = [hook.by_kind(i) for i in range(len(hook.iters))]
+        swaps = out["controller"].swaps
+        print(f"{tag} train_rl_elastic: {len(swaps)} applied swap(s) at "
+              f"iteration(s) {[r.iteration for r in swaps]}, weight "
+              f"versions {out['wv_trace']}, epochs "
+              + "; ".join(f"{r['epoch']}: {r['iterations']} iters "
+                          f"measured {r['measured_iter_s'] * 1e3:.1f} ms/iter"
+                          f" predicted {r['predicted_iter_s'] * 1e3:.3f}"
+                          for r in out["epoch_report"])
+              + f"; {time.monotonic() - t0:.1f}s | card {card}", flush=True)
+        check(len(swaps) >= 1, "train_rl_elastic applied no swap")
+        check(all(lk["TRAIN"] == (0, 0) and lk["GEN"][0] > 0
+                  and lk["GEN"][1] > 0 for lk in el_launches),
+              f"train_rl_elastic launches {el_launches}")
+        del out
+    finally:
+        restore()
+        obs_trace.disable()
+        obs_trace.reset()
+
+    # the kernels at the two actors' shapes: e2e (16 prompts x 8 rollouts,
+    # waves of 32) and trace_obs (2 prompts x 2 rollouts, one wave of 4)
+    task = AdditionTask(max_operand=9)
+    P, N = task.prompt_len, task.max_answer_len
+    rows = {}
+    for who, cfg, shapes, launches in (
+            ("e2e", e2e_cfg, rl_shapes(128, 32, e2e_cfg, P, N),
+             e2e_launches),
+            ("obs", obs_cfg, rl_shapes(4, 4, obs_cfg, P, N), obs_run)):
+        for part, (B, S, H, KV, hd) in shapes.items():
+            kname = "decode_attention" if part == "gen_decode" \
+                else "flash_attention"
+            key = f"{kname}/{who}_{part}"
+            label = f"{who} actor, {part}, hd {hd}"
+            if kname == "flash_attention":
+                row = attn_row(torch, F, fa, flush, B, S, H, KV, hd,
+                               torch.float32, True, card, label, tag=tag,
+                               device_time=False)
+            else:
+                row = decode_row(torch, F, dec, flush, B, S, H, KV, hd,
+                                 card, label, tag)
+            rows[key] = dict(
+                name=key, route="cuda",
+                source=f"src/repro_torch/csrc/{kname}.cu",
+                replaces=("src/repro/kernels/flash_attention/kernel.py:26"
+                          if kname == "flash_attention" else
+                          "src/repro/kernels/decode_attention/kernel.py:21"),
+                launches=launches[key], **row)
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3442,6 +3654,13 @@ def main() -> None:
     from repro_torch.rl.rollout import SamplerConfig
 
     t_all = time.monotonic()
+    laps = []
+
+    def lap(phase: str) -> None:
+        """Print the seconds since the previous phase ended."""
+        now = time.monotonic()
+        laps.append((phase, now - (t_all + sum(t for _, t in laps))))
+        print(f"[time] phase {phase}: {laps[-1][1]:.1f}s", flush=True)
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3459,6 +3678,7 @@ def main() -> None:
         for line in build.resources(name):
             print(f"[2 build] ptxas {name}: {line}", flush=True)
 
+    lap("1-2")
     # ---- 3. kernels vs plain versions -----------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
@@ -3595,7 +3815,9 @@ def main() -> None:
                 (2, 200, 4, 2, 80, True, None, 50.0),
                 (1, 77, 8, 8, 128, False, None, None),
                 (1, 130, 4, 2, 64, True, 64, 30.0),
-                (2, 1000, 16, 16, 80, False, None, None)]:   # hubert
+                (2, 1000, 16, 16, 80, False, None, None),    # hubert
+                (4, 70, 2, 2, 16, True, None, None),         # trace_obs
+                (3, 130, 4, 2, 16, True, 64, None)]:         # hd 16
             q, k, v = (randn(B, S, n, d_, dtype=dtype) for n in (h_, kv_, kv_))
             out = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      cap=cap)
@@ -3611,7 +3833,9 @@ def main() -> None:
                 (1, 4, 1, 80, 200, 30.0, None),
                 (3, 8, 2, 128, 1000, 50.0, None),
                 (4, 4, 4, 64, 77, None, None),
-                (2, 4, 2, 128, 64, 30.0, 64)]:
+                (2, 4, 2, 128, 64, 30.0, 64),
+                (4, 2, 2, 16, 8, None, None),                # trace_obs
+                (3, 4, 2, 16, 300, None, 64)]:
             q = randn(B, h_, d_, dtype=dtype)
             k, v = (randn(B, L_, kv_, d_, dtype=dtype) for _ in range(2))
             p_ = torch.randint(0, 3 * L_, (B,), generator=g, device=dev)
@@ -3856,6 +4080,7 @@ def main() -> None:
     print(f"[3 kernels] mamba_scan small matrix: {n_cases} cases agree with "
           f"the per-token recurrence (1e-3)", flush=True)
 
+    lap("3")
     # ---- 4. whole-path parity, fp32, full width -------------------------
     params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     prompts = torch.randint(0, cfg.vocab_size, (12, 64),
@@ -3893,6 +4118,7 @@ def main() -> None:
     del params, runs, rk, rp
     torch.cuda.empty_cache()
 
+    lap("4")
     # ---- 5. the serving path, bf16, full width ---------------------------
     argv = ["--arch", ARCH, "--batch", "48", "--wave", str(W),
             "--prompt-len", str(P), "--new-tokens", str(N),
@@ -3933,6 +4159,7 @@ def main() -> None:
     del rep
     torch.cuda.empty_cache()
 
+    lap("5")
     # ---- 6. RWKV6 whole-path parity, fp32, full width --------------------
     params = T.init_params(rcfg, seed=0, device=dev, dtype=torch.float32)
     prompts = torch.randint(0, rcfg.vocab_size, (12, 64),
@@ -3966,6 +4193,7 @@ def main() -> None:
     del params, runs, rk, rp
     torch.cuda.empty_cache()
 
+    lap("6")
     # ---- 7. the RWKV6 serving path, bf16, full width ---------------------
     argv[1] = RWKV_ARCH
     fa.launches = dec.launches = rw.launches = 0
@@ -3996,6 +4224,7 @@ def main() -> None:
     del rep
     torch.cuda.empty_cache()
 
+    lap("7")
     # ---- 8. Jamba whole-path parity, fp32, first 2 layers at full width --
     cut2 = first_layers(jcfg, 2)
     params = T.init_params(cut2, seed=0, device=dev, dtype=torch.float32)
@@ -4035,6 +4264,7 @@ def main() -> None:
     del params, runs, rk, rp
     torch.cuda.empty_cache()
 
+    lap("8")
     # ---- 9. the Jamba serving path, bf16, first 4 layers at full width ---
     cut4 = first_layers(jcfg, 4)
     argv[1] = JAMBA_ARCH
@@ -4079,44 +4309,57 @@ def main() -> None:
     del rep
     torch.cuda.empty_cache()
 
+    lap("9")
     # ---- 10. RL parity: one greedy PPO iteration, kernels against plain --
     rl_ref = rl_phase10(torch, dev, cfg, attn, fa, dec, card)
     torch.cuda.empty_cache()
 
+    lap("10")
     # ---- 11. the RL launcher at full width, then the e2e actor -----------
     # the RL rows' launches: the launcher's GRPO run (3 iterations)
-    for key, n in rl_phase11(torch, dev, fa, dec, card).items():
+    rl_launches, e2e_launches, e2e_cfg = rl_phase11(torch, dev, fa, dec,
+                                                    card)
+    for key, n in rl_launches.items():
         results[key]["launches"] = n
     torch.cuda.empty_cache()
 
+    lap("11")
     # ---- 12. the LM mode at full width; one step card against CPU --------
     lm_params = lm_phase12(torch, dev, card)
 
+    lap("12")
     # ---- 13. checkpoints on the card --------------------------------------
     ckpt_phase13(torch, dev, card, lm_params)
     del lm_params
     torch.cuda.empty_cache()
 
+    lap("13")
     # ---- 14. elastic plan swaps and faults at full width -------------------
     after = elastic_phase14(torch, dev, fa, dec, card)
     print(f"[14 elastic] launches in the first iteration after the swap "
           f"(flash, decode): {after}", flush=True)
 
+    lap("14")
     # ---- 15. the launcher's drift and checkpoint faults, 4-layer cut -------
     launcher_phase15(torch, dev, fa, dec, card)
 
+    lap("15")
     # ---- 16. no-fault control: spurious fires of the monitor and deadlines -
     control_phase16(torch, dev, fa, dec, card)
 
+    lap("16")
     # ---- 17. the rest of genserve, fp32, held against one-shot -------------
     genserve_phase17(torch, dev, fa, dec, rw, mb, card)
 
+    lap("17")
     # ---- 18. chunked, prefix-cache and speculative serving, bf16 -----------
     serving_phase18(torch, dev, fa, dec, card)
 
+    lap("18")
     # ---- 19. RL GEN on chunked admission -----------------------------------
     rl_phase19(torch, dev, cfg, fa, dec, card, rl_ref)
 
+    lap("19")
     # ---- 20. the model zoo: hubert-xlarge and pixtral-12b ------------------
     zoo_rows, zoo_launches = zoo_phase20(torch, dev, fa, dec, card)
     results.update(zoo_rows)
@@ -4124,24 +4367,39 @@ def main() -> None:
                 "decode_attention/pixtral_decode"):
         results[key]["launches"] = zoo_launches[key]
 
+    lap("20")
     # ---- 21. RL GEN with speculative decoding --------------------------------
     rl_spec_phase21(torch, dev, cfg, fa, dec, card, rl_ref)
     free(torch)
 
+    lap("21")
     # ---- 22. sharded plan execution on ranks sharing the card --------------
     sharded_phase22(torch, dev, card)
 
+    lap("22")
     # ---- 23. the genserve engine on a mesh of ranks ------------------------
     sharded_genserve_phase23(torch, dev, card)
 
+    lap("23")
     # ---- 24. the launcher's drift and faults on ranks ----------------------
     elastic_ranks_phase24(torch, dev, card)
 
+    lap("24")
     # ---- 25. full-width steps against the dry-run's roofline ---------------
     results.update(roofline_phase25(torch, F, dev, fa, dec, card))
 
+    lap("25")
     # ---- 26. MoE models and uneven heads on a mesh of ranks ----------------
     results.update(mesh_phase26(torch, dev, card))
+
+    lap("26")
+    # ---- 27. the example scripts on the card --------------------------------
+    results.update(examples_phase27(torch, F, fa, dec, rw, mb, attn, flush,
+                                    card, e2e_cfg, e2e_launches))
+
+    lap("27")
+    print("[time] by phase: " + ", ".join(f"{p} {t:.1f}s" for p, t in laps),
+          flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -413,6 +413,7 @@ int by_head_dim(int hd, int g, const void* q, const void* k, const void* v,
     return by_group<T, D>(g, q, k, v, bias, out, scratch, tickets, B, H, KV, \
                           L, chunk, n_splits, n_hg, cap, st);
   switch (hd) {
+    REPRO_DECODE_HD(16)
     REPRO_DECODE_HD(32)
     REPRO_DECODE_HD(48)
     REPRO_DECODE_HD(64)

@@ -44,7 +44,8 @@
 // skipped (a masked entry's weight ex2(-1e30 - m) is exactly 0 once a real
 // score has set the running max, and a row whose first tiles are all
 // masked is wiped by the 0 correction when one arrives).  Shared memory:
-// 96 KB at hd 80-128, 48 KB at hd 32-64.
+// 96 KB at hd 80-128, 48 KB at hd 16-64 (hd 16: the 16 real columns of a
+// 64-column panel, the other 48 zero-filled by TMA).
 //
 // fp32 -> `flash_fwd`, the first CUDA-core kernel, unchanged: TF32 would
 // break the 2e-4 fp32 parity the full-width token-identity checks rest on.
@@ -778,7 +779,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (hd) {
-      case 32: case 48: case 64:
+      case 16: case 32: case 48: case 64:
         return tc::launch<1>(q, k, v, out, B, S, H, KV, hd, causal, window,
                              cap, st, tensor_cores);
       case 80: case 96: case 128:
@@ -788,6 +789,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     }
   }
   switch (hd) {
+    case 16: return launch<float, 16>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
     case 32: return launch<float, 32>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
     case 48: return launch<float, 48>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
     case 64: return launch<float, 64>(q, k, v, out, B, S, H, KV, causal, window, cap, st);

@@ -34,7 +34,7 @@ from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
 TILE = 32            # keys per split come in multiples of this (one bf16
                      # shared-memory tile, two fp32 ones)
 GROUP = 4            # query heads per block at most

@@ -36,7 +36,7 @@ from repro_torch.kernels.guard import refuse_grad
 from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0        # kernel launches since the last reset (chip_smoke reads)

@@ -172,6 +172,49 @@ def test_decode_attention_cuda_many_splits(dtype):
                                    ref.float().cpu().numpy(), **tol(dtype))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_head_dim_16_cuda(dtype):
+    """Head dim 16 (``examples/trace_obs.py``'s actor: d 32, 2 heads): the
+    flash kernel causal, windowed and non-causal at trace_obs's GEN
+    prefill and INF shapes and at a tile-crossing S, and the decode
+    kernel with one and many splits, each against its plain version; a
+    head dim the source lacks (24) still raises on a CUDA tensor."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(16)
+    dt = DT[dtype]
+    for B, S, H, KV, causal, window in [(4, 5, 2, 2, True, None),
+                                        (4, 8, 2, 2, True, None),
+                                        (3, 130, 4, 2, True, 64),
+                                        (2, 77, 2, 2, False, None)]:
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt) for s in
+                   ((B, S, H, 16), (B, S, KV, 16), (B, S, KV, 16)))
+        out = t_flash.flash_attention(q, k, v, causal=causal, window=window)
+        ref = t_flash.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol(dtype))
+    for B, H, KV, L in [(4, 2, 2, 8), (3, 4, 2, 300), (1, 8, 1, 4096)]:
+        q = torch.randn((B, H, 16), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, L, KV, 16), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        keep = torch.rand((B, L), generator=g, device=dev) < 0.75
+        keep[:, 0] = True
+        bias = torch.where(keep, 0.0, -1e30).float()
+        out = t_decode.decode_attention(q, k, v, bias)
+        ref = t_decode.decode_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol(dtype))
+    q = torch.zeros((1, 8, 2, 24), device=dev, dtype=dt)
+    with pytest.raises(ValueError, match="head dim"):
+        t_flash.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        t_decode.decode_attention(q[:, 0], q, q,
+                                  torch.zeros((1, 8), device=dev))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """Checks run before any build or launch (so they hold on the CPU
     too, through the wrappers' validators)."""
