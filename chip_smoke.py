@@ -14,8 +14,9 @@ genserve (chunked admission, the paged cache with prefix reuse,
 speculative decoding, slot failures and cancels), then the rest of the
 model zoo (hubert-xlarge's encoder and pixtral-12b at full width),
 speculative GEN in the RL engine, the plan sharded over ranks that
-share the card, and the example scripts (``repro_torch.examples``), and
-exits non-zero on any failure.
+share the card, the example scripts (``repro_torch.examples``), and
+every kernel size to the wrappers' limits with Gemma 2 9B's widths
+served, and exits non-zero on any failure.
 Phases, each printing its result:
 
   1. card    nvidia-smi name and power limit, torch's device name/count;
@@ -124,8 +125,10 @@ Phases, each printing its result:
              each fires (printed, not a gate); the local microbench of
              ``core.profiler``.
  17. genserve the rest of the engine at qwen3-0.6b's full width in fp32
-             (batch 48, wave 16, prompt 256 with 128 shared tokens, 64
-             new, greedy), each run against one-shot admission: chunked
+             on its first 14 layers (a depth cut for the script's time:
+             every mode's parity holds at any depth; batch 48, wave 16,
+             prompt 256 with 128 shared tokens, 64 new, greedy), each
+             run against one-shot admission: chunked
              (C=64), paged (page 16, identity block table), paged with
              prefix reuse (hit rate > 0, no leaked page under
              REPRO_OBS_STRICT=1), speculative k=4 with a 2-layer draft of
@@ -156,9 +159,11 @@ Phases, each printing its result:
              decode_attention; the same in bf16 at [4, 1024] (48
              tensor-core launches); ``launch.train --arch hubert-xlarge
              --steps 3 --batch 4 --seq 1024`` (bf16); ``launch.serve --arch
-             pixtral-12b`` at full width in bf16 with phase 5's traffic
-             (flash_attention once per layer per admit, all on the tensor
-             cores, decode_attention once per layer per decode step);
+             pixtral-12b`` at full width on its first 20 of 40 layers (a
+             depth cut for the script's time), in bf16 with phase 5's
+             traffic (flash_attention once per layer per admit, all on
+             the tensor cores, decode_attention once per layer per
+             decode step);
              ``launch.train --arch pixtral-12b --steps 3 --seq 256`` on its
              first 8 of 40 layers (128 feature positions, 128 tokens);
              then hubert's non-causal attention at [4, 1024, 16, 80] in
@@ -287,6 +292,32 @@ Phases, each printing its result:
              nothing); then both attention kernels at the e2e actor's and
              trace_obs's GEN prefill, GEN decode and INF shapes (fp32)
              against plain and timed (kernel, plain, sdpa, bound).
+ 28. sizes   every size the JAX package's kernel wrappers take, up to the
+             port's limits: (b) both attention kernels at head dims 8,
+             24, 40, 72, 112, 136, 160, 192, 200, 256 in fp32 and bf16,
+             and at rows that are no multiple of 16 bytes: 7, 130, 255
+             in fp32, 12 and 201 in bf16 (decode copies them element by
+             element; flash pads the bf16 ones to 16 and 208: the padded
+             counter reads 1 a call there, elsewhere 0), flash causal,
+             windowed and softcapped, decode over 1, 10 and 63 splits,
+             against plain (2e-4 fp32, 2e-2 bf16); (c)
+             rwkv6_scan at head sizes 16, 48, 96 and mamba_scan at state
+             sizes 4, 12, 24, 32 against plain (2e-3, 1e-3); (a) Gemma
+             2 9B's widths (d 3584, 16:8 heads of 256, GeGLU 14336,
+             window 4096, softcaps 50 and 30, its first 4 layers, 1.71 B
+             parameters with the 256000-token embedding), seeded bf16
+             weights, served through ``genserve`` (6 requests, wave 4,
+             prompt 256, 12 new, greedy) with the kernels and under
+             ``set_attention_impl("plain")``: tokens identical, flash
+             once per layer per admit, decode once per layer per step,
+             none padded, the plain run none; then the final hidden
+             states of the first wave's prefill, kernel against plain,
+             within 1e-2 (|a - b| / |b|), where a flash attention at the
+             scale of hd 128 and one that drops Q.K's last 64-column
+             panel must land beyond it; (d) flash at [4, 256, 16:8, 256]
+             and decode at [16, 16, 256] over 320 slots and at the
+             served wave's last step ([4, 16, 256] over 268) in bf16
+             timed (kernel, plain, sdpa, bound).
 
 Each phase's seconds are printed as it ends (``[time] phase N``) and
 together before the kernels line.  Then one JSON line with every
@@ -320,6 +351,8 @@ RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
 HUBERT_ARCH = "hubert-xlarge"
 PIXTRAL_ARCH = "pixtral-12b"
+LAYERS17 = 14                      # phase 17's depth cut of qwen3-0.6b
+LAYERS20 = 20                      # phase 20's of pixtral-12b's serving run
 LAYERS22 = 8                       # phase 22's depth cut of qwen3-0.6b
 
 
@@ -1347,7 +1380,7 @@ def control_phase16(torch, dev, fa, dec, card):
 def _zero_counts(*mods):
     for m in mods:
         m.launches = 0
-        for extra in ("launches_tc", "launches_noncausal"):
+        for extra in ("launches_tc", "launches_noncausal", "launches_padded"):
             if hasattr(m, extra):
                 setattr(m, extra, 0)
 
@@ -1364,7 +1397,8 @@ def _same_rollout(a, b, rows=None):
 
 def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
     """The rest of genserve at full width in fp32, held against one-shot
-    admission on the same weights and prompts (qwen3-0.6b, batch 48, wave
+    admission on the same weights and prompts (qwen3-0.6b's first
+    LAYERS17 layers, batch 48, wave
     16, prompt 256 with the first 128 tokens shared, 64 new, greedy):
     chunked admission, the paged cache (identity block table), radix
     prefix reuse, speculative decoding (a 2-layer draft of the target's
@@ -1379,7 +1413,7 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
     from repro_torch.rl.rollout import SamplerConfig
     from repro_torch.tree import tree_map
     t_phase = time.monotonic()
-    cfg = archs.get(ARCH)
+    cfg = first_layers(archs.get(ARCH), LAYERS17)
     params = T.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     B, W, P, N = 48, 16, 256, 64
     prompts = torch.randint(0, cfg.vocab_size, (B, P),
@@ -1415,7 +1449,8 @@ def genserve_phase17(torch, dev, fa, dec, rw, mb, card):
         base = runs["one-shot"][0]
         for m, (ro, st, n, sec) in runs.items():
             same, lp = _same_rollout(base, ro)
-            print(f"[17 genserve] {ARCH} fp32 full width, {m}: tokens and "
+            print(f"[17 genserve] {ARCH} fp32 full width, first "
+                  f"{LAYERS17} layers, {m}: tokens and "
                   f"masks identical to one-shot={same}, logprob max diff "
                   f"{lp:.3g} (tol 1e-3); {st['decode_steps']} decode "
                   f"rounds, {st['prefill_rounds']} prefill-chunk rounds, "
@@ -1845,14 +1880,14 @@ def zoo_phase20(torch, dev, fa, dec, card):
           "LM training launched an attention kernel")
 
     # (iii) pixtral-12b served at full width, bf16, phase 5's traffic
-    pcfg = archs.get(PIXTRAL_ARCH)
+    pcfg = first_layers(archs.get(PIXTRAL_ARCH), LAYERS20)
     W, P, N = 16, 256, 64
     argv = ["--arch", PIXTRAL_ARCH, "--batch", "48", "--wave", str(W),
             "--prompt-len", str(P), "--new-tokens", str(N),
             "--decode-chunk", "4", "--seed", "0"]
     _zero_counts(fa, dec)
     t0 = time.monotonic()
-    rep = serve_mod.main(argv)
+    rep = serve_mod.run(serve_mod.parse_args(argv), cfg=pcfg)
     torch.cuda.synchronize()
     passes = 3                          # warm-up, timed, TTFT
     got = {"flash_attention": fa.launches, "decode_attention": dec.launches}
@@ -1868,7 +1903,8 @@ def zoo_phase20(torch, dev, fa, dec, card):
           "pixtral: non-finite or positive logprobs")
     check(float(rep["mask"].sum()) == 48 * N,
           "pixtral: budgets not fully served")
-    print(f"[20 zoo] {PIXTRAL_ARCH} bf16 full width ({pcfg.n_layers} layers, "
+    print(f"[20 zoo] {PIXTRAL_ARCH} bf16 full width (first {pcfg.n_layers} "
+          f"of {archs.get(PIXTRAL_ARCH).n_layers} layers, "
           f"d {pcfg.d_model}, {pcfg.param_count() / 1e9:.2f} B parameters), "
           f"batch 48 wave {W} prompt {P} new {N}: {rep['tok_s']:.1f} valid "
           f"tok/s ({rep['valid_tokens']:.0f} tokens in {rep['seconds']:.3f} "
@@ -1893,7 +1929,8 @@ def zoo_phase20(torch, dev, fa, dec, card):
     cut = first_layers(pcfg, 8)
     n = cut.param_count()
     print(f"[20 zoo] {PIXTRAL_ARCH} LM mode, first {cut.n_layers} of "
-          f"{pcfg.n_layers} layers at full width: {n / 1e9:.3f} B "
+          f"{archs.get(PIXTRAL_ARCH).n_layers} layers at full width: "
+          f"{n / 1e9:.3f} B "
           f"parameters = {n * 2 / 1e9:.1f} GB bf16 weights, "
           f"{n * 2 / 1e9:.1f} GB gradients, {n * 8 / 1e9:.1f} GB fp32 Adam "
           f"moments (overwritten in place by the launcher's step)",
@@ -3630,6 +3667,251 @@ def examples_phase27(torch, F, fa, dec, rw, mb, attn, flush, card, e2e_cfg,
     return rows
 
 
+SWEEP28 = (8, 24, 40, 72, 112, 136, 160, 192, 200, 256)   # head dims
+# rows that are no multiple of 16 bytes, which decode copies element by
+# element (fp32 above 128: two vectors a lane) and flash pads in bf16
+ODD28 = {"float32": (7, 130, 255), "bfloat16": (12, 201)}
+HIDDEN28_TOL = 1e-2  # |kernel - plain| / |plain| of Gemma's final hidden
+DECODE28 = ((64, 16, 8, 300), (4, 4, 2, 300), (1, 8, 1, 2000))  # B H KV L
+
+
+def gemma9b_widths(cfg):
+    """Gemma 2 9B's widths (arXiv:2408.00118, Table 1: d_model 3584, 16
+    heads over 8 KV heads of 256, GeGLU 14336, window 4096, softcaps 50
+    and 30) on the zoo's gemma2-27b family, cut to 4 layers (two
+    local/global pairs); its queries are scaled by 1/sqrt(256), the head
+    size, as the model's 1/sqrt(hd) scales them."""
+    return dataclasses.replace(cfg, name="gemma2-9b-widths", d_model=3584,
+                               n_heads=16, n_kv_heads=8, head_dim=256,
+                               d_ff=14336, n_layers=4)
+
+
+def sizes_phase28(torch, F, dev, fa, dec, rw, mb, attn, flush, card):
+    """Every head dim to 256, RWKV6 head size to 128 and Mamba state size
+    to 32: (b) both attention kernels at SWEEP28 and ODD28, both dtypes,
+    against plain (flash causal, windowed, softcapped; decode over one
+    split and many), the padded launches counted; (c) the scans at sizes
+    between their instantiated ones; (a) Gemma 2 9B's widths served
+    through genserve in bf16 with the kernels and with the plain
+    attention, tokens identical, the launches per layer per admit and
+    step, none padded; then the prefill's final hidden states, kernel
+    against plain within HIDDEN28_TOL, where two wrong flash attentions
+    (the scale of hd 128, Q.K's last 64-column panel dropped) must land
+    beyond it; (d) both kernels timed at Gemma's shapes, decode also at
+    the served wave's.  Returns the kernels line's three rows."""
+    from repro_torch.configs import archs
+    from repro_torch.genserve import adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.rl.rollout import SamplerConfig
+    tag = "[28 sizes]"
+    t_phase = time.monotonic()
+    g = torch.Generator(device=dev).manual_seed(28)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # (b) attention at every head-dim class
+    for dtype in (torch.float32, torch.bfloat16):
+        hds = SWEEP28 + ODD28[str(dtype).replace("torch.", "")]
+        for hd in hds:
+            pads = int(fa.read_width(hd, dtype) != hd)
+            errs = []
+            for i, (B, S, H, KV, window, cap) in enumerate((
+                    (2, 150, 4, 2, None, None), (2, 150, 4, 2, 48, None),
+                    (1, 77, 4, 1, None, 50.0))):
+                q, k, v = (randn(B, S, n, hd, dtype=dtype)
+                           for n in (H, KV, KV))
+                fa.launches_padded = 0
+                out = fa.flash_attention(q, k, v, window=window, cap=cap)
+                ref = fa.flash_attention_plain(q, k, v, window=window,
+                                               cap=cap)
+                torch.cuda.synchronize()
+                check(fa.launches_padded == pads, f"flash hd {hd} {dtype}: "
+                      f"padded launches {fa.launches_padded}, want {pads}")
+                check(out.shape == q.shape and bool(
+                    torch.isfinite(out).all()), f"flash hd {hd} {dtype}")
+                errs.append(max_err(out, ref))
+            for B, H, KV, L in DECODE28:
+                q = randn(B, H, hd, dtype=dtype)
+                k, v = (randn(B, L, KV, hd, dtype=dtype) for _ in range(2))
+                keep = torch.rand((B, L), generator=g, device=dev) < 0.75
+                keep[:, 0] = True
+                bias = torch.where(keep, 0.0, -1e30).float()
+                cap = 30.0 if L == 300 else None
+                out = dec.decode_attention(q, k, v, bias, cap=cap)
+                ref = dec.decode_attention_plain(q, k, v, bias, cap=cap)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out).all()),
+                      f"decode hd {hd} {dtype}")
+                errs.append(max_err(out, ref))
+            name = str(dtype).replace("torch.", "")
+            splits = [dec.plan(*shape[:3], shape[3], hd, sms).splits
+                      for shape in DECODE28]
+            print(f"{tag} hd {hd} {name}: flash causal / windowed / capped "
+                  f"max abs err {errs[0]:.3g} / {errs[1]:.3g} / "
+                  f"{errs[2]:.3g}, padded launches {pads} a call; decode "
+                  f"over {' / '.join(map(str, splits))} splits "
+                  f"{errs[3]:.3g} / {errs[4]:.3g} / {errs[5]:.3g} (tol "
+                  f"{tol(dtype, torch):g})", flush=True)
+            check(max(errs) <= tol(dtype, torch),
+                  f"hd {hd} {name}: max abs err {max(errs)} over tol")
+
+    # (c) the scans between their instantiated sizes
+    for N in (16, 48, 96):
+        r, k, v = (randn(2, 100, 3, N) for _ in range(3))
+        logw = -torch.exp(randn(2, 100, 3, N) * 0.5 - 1.0)
+        u = randn(3, N) * 0.5
+        rw.launches_padded = 0
+        y, st = rw.rwkv6_scan(r, k, v, logw, u)
+        yr, sr = rw.rwkv6_scan_plain(r, k, v, logw, u)
+        torch.cuda.synchronize()
+        err = max(rel_err(y, yr, 2e-3), rel_err(st, sr, 2e-3))
+        print(f"{tag} rwkv6_scan N {N} (on the kernel's "
+              f"{rw.head_size_width(N)}): allclose ratio {err / 2e-3:.3g} "
+              f"(2e-3), padded launches {rw.launches_padded}", flush=True)
+        check(err <= 2e-3 and rw.launches_padded == 1,
+              f"rwkv6_scan N {N}: err {err}, padded {rw.launches_padded}")
+    for ds in (4, 12, 24, 32):
+        dt = F.softplus(randn(2, 100, 200) - 1)
+        x, Bm, Cm = randn(2, 100, 200), randn(2, 100, ds), randn(2, 100, ds)
+        A = -torch.exp(randn(200, ds) * 0.3)
+        mb.launches_padded = 0
+        y, h = mb.mamba_scan(dt, x, Bm, Cm, A)
+        yr, hr = mb.mamba_scan_plain(dt, x, Bm, Cm, A)
+        torch.cuda.synchronize()
+        err = max(rel_err(y, yr, 1e-3), rel_err(h, hr, 1e-3))
+        want = int(ds not in mb.STATE_DIMS)
+        print(f"{tag} mamba_scan ds {ds} (on the kernel's "
+              f"{mb.state_width(ds)}): allclose ratio {err / 1e-3:.3g} "
+              f"(1e-3), padded launches {mb.launches_padded}", flush=True)
+        check(err <= 1e-3 and mb.launches_padded == want,
+              f"mamba_scan ds {ds}: err {err}, padded {mb.launches_padded}")
+
+    # (a) Gemma 2 9B's widths served, kernels against plain attention
+    cfg = gemma9b_widths(archs.get("gemma2-27b"))
+    params = T.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    n_req, wave, prompt, new = 6, 4, 256, 12
+    prompts = torch.randint(0, cfg.vocab_size, (n_req, prompt),
+                            generator=torch.Generator().manual_seed(28))
+    sampler = SamplerConfig(max_new_tokens=new, greedy=True)
+    runs = {}
+    try:
+        for impl in ("kernel", "plain"):
+            attn.set_attention_impl(impl)
+            _zero_counts(fa, dec)
+            t0 = time.monotonic()
+            ro, st = adapter.generate(params, cfg, prompts, None, sampler,
+                                      wave=wave, decode_chunk=4,
+                                      fast_path=False, device=dev)
+            torch.cuda.synchronize()
+            runs[impl] = (ro, st, (fa.launches, dec.launches,
+                                   fa.launches_padded, fa.launches_tc),
+                          time.monotonic() - t0)
+    finally:
+        attn.set_attention_impl("kernel")
+    (rk, sk, nk, tk), (rp, sp, npl, tp) = runs["kernel"], runs["plain"]
+    same, lp_err = _same_rollout(rk, rp)
+    L = cfg.n_layers
+    want = (L * sk["prefills"], L * sk["decode_steps"], 0, L * sk["prefills"])
+    print(f"{tag} {cfg.name} (d {cfg.d_model}, {cfg.n_heads}:"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, GeGLU "
+          f"{cfg.d_ff}, window {cfg.pattern[0].window}, softcaps "
+          f"{cfg.attn_softcap} / {cfg.final_softcap}, vocab "
+          f"{cfg.vocab_size}, first {L} layers: "
+          f"{cfg.param_count() / 1e9:.2f} B parameters) bf16, {n_req} "
+          f"requests, wave {wave}, prompt {prompt}, {new} new, greedy: "
+          f"tokens identical to the plain attention's={same}, log-prob max "
+          f"diff {lp_err:.3g}; launches (flash, decode, flash padded, "
+          f"flash on the tensor cores) {nk}, expected {want} ({L} layers x "
+          f"{sk['prefills']} admits, x {sk['decode_steps']} decode steps); "
+          f"plain run {npl}; {tk:.1f}s (plain {tp:.1f}s) | card {card}",
+          flush=True)
+    check(same, f"{cfg.name}: kernel and plain tokens differ")
+    check(nk == want, f"{cfg.name} launches {nk}, expected {want}")
+    check(npl[:3] == (0, 0, 0), f"the plain run launched {npl}")
+    check(sk["occupancy_trace"] == sp["occupancy_trace"],
+          f"{cfg.name}: the runs disagree on the occupancy trace")
+    del runs, rk, rp
+
+    # the greedy picks of seeded weights have probabilities near 1, so
+    # equal tokens would not tell a wrong attention apart: the prefill's
+    # final hidden states would
+    from repro_torch.kernels import ops as kops
+    toks = {"tokens": prompts[:wave].to(dev)}
+    real = kops._flash
+
+    def hidden(impl):
+        with torch.no_grad():
+            return T.forward(params, cfg, toks,
+                             attn_impl=impl)["hidden"].float()
+
+    def scaled_128(q, k, v, **kw):       # 1/sqrt(128) for 1/sqrt(256)
+        return real(q * 2 ** 0.5, k, v, **kw)
+
+    def panel_dropped(q, k, v, **kw):    # Q.K over the first 192 columns
+        q = q.clone()
+        q[..., 192:] = 0
+        return real(q, k, v, **kw)
+
+    ref_h = hidden("plain")
+    gaps = {}
+    try:
+        for name, fn in (("kernel", real), ("scale of hd 128", scaled_128),
+                         ("last panel dropped", panel_dropped)):
+            kops._flash = fn
+            h = hidden("kernel")
+            gaps[name] = (float((h - ref_h).norm() / ref_h.norm()),
+                          max_err(h, ref_h))
+    finally:
+        kops._flash = real
+    print(f"{tag} {cfg.name} prefill [{wave}, {prompt}], final hidden "
+          f"states against plain attention, |a - b| / |b| (max abs err): "
+          + ", ".join(f"{n} {r:.3g} ({m:.3g})" for n, (r, m) in gaps.items())
+          + f"; bound {HIDDEN28_TOL:g}, the kernel within, the two wrong "
+          f"attentions beyond | card {card}", flush=True)
+    check(gaps["kernel"][0] <= HIDDEN28_TOL,
+          f"{cfg.name}: hidden states {gaps['kernel'][0]} from plain")
+    check(all(r > HIDDEN28_TOL for n, (r, _) in gaps.items()
+              if n != "kernel"), f"{cfg.name}: a wrong attention within "
+          f"the bound: {gaps}")
+    del params, ref_h
+    free(torch)
+
+    # (d) both kernels at Gemma's serving shapes
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = {
+        "flash_attention/gemma2_9b_prefill": dict(
+            name="flash_attention/gemma2_9b_prefill", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:26",
+            launches=nk[0],
+            **attn_row(torch, F, fa, flush, 4, 256, H, KV, hd,
+                       torch.bfloat16, True, card,
+                       f"{cfg.name} prefill, hd {hd}", tag=tag,
+                       device_time=False)),
+        "decode_attention/gemma2_9b_decode": dict(
+            name="decode_attention/gemma2_9b_decode", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:21",
+            launches=nk[1],
+            **decode_row(torch, F, dec, flush, 16, 320, H, KV, hd, card,
+                         f"{cfg.name} decode, hd {hd}", tag,
+                         dtype=torch.bfloat16)),
+        "decode_attention/gemma2_9b_served": dict(
+            name="decode_attention/gemma2_9b_served", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:21",
+            launches=nk[1],
+            **decode_row(torch, F, dec, flush, wave, prompt + new, H, KV,
+                         hd, card, f"{cfg.name} served wave's last step, "
+                         f"hd {hd}", tag, dtype=torch.bfloat16)),
+    }
+    print(f"{tag} {time.monotonic() - t_phase:.1f}s | card {card}",
+          flush=True)
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4398,6 +4680,11 @@ def main() -> None:
                                     card, e2e_cfg, e2e_launches))
 
     lap("27")
+    # ---- 28. every head dim to 256; Gemma 2 9B's widths served ----------
+    results.update(sizes_phase28(torch, F, dev, fa, dec, rw, mb, attn,
+                                 flush, card))
+
+    lap("28")
     print("[time] by phase: " + ", ".join(f"{p} {t:.1f}s" for p, t in laps),
           flush=True)
 

@@ -23,12 +23,14 @@
 //
 // bf16 -> `flash_tc`, on the tensor cores.  A work item is a 64-row query
 // tile of one (b, h); one warpgroup (128 threads) per block runs items in
-// a persistent grid of two blocks per SM, heaviest (last) query tiles
+// a persistent grid (two blocks per SM up to hd 128, one above: the
+// shared memory of hd 136-256 holds one), heaviest (last) query tiles
 // first.  TMA brings each item's Q tile and a 2-stage ring of 64-key K/V
-// tiles into shared memory as bf16, each head dim padded to 64 or 128
-// columns in 64-column panels with the 128-byte swizzle; TMA fills the
-// columns past hd and the rows past S with zeros, so the padded products
-// are unchanged and Python pads nothing.  The K/V tiles of a block's items
+// tiles into shared memory as bf16, each head dim padded to NP = 1-4
+// panels of 64 columns with the 128-byte swizzle; TMA fills the columns
+// past hd and the rows past S with zeros, so the padded products are
+// unchanged and Python pads nothing where TMA can read the row (hd a
+// multiple of 8: rows of 16 bytes).  The K/V tiles of a block's items
 // form one stream: the next tile lands while this one is consumed (an
 // mbarrier per stage), across item boundaries, and the next item's Q
 // lands in a second buffer, so an item's first loads do not wait behind
@@ -38,20 +40,27 @@
 // with shuffles, `ex2.approx` on scores pre-scaled by scale*log2(e)),
 // masking only on the diagonal, ragged and window-edge tiles; P is packed
 // to bf16 in registers as the A operand of O += P.V (`wgmma`
-// m64n{64,128}k16, V from shared memory as the MN-major B operand).  The
-// accumulators never leave registers; the padded output columns are never
-// stored.  Key tiles that causal or window masking leave fully masked are
-// skipped (a masked entry's weight ex2(-1e30 - m) is exactly 0 once a real
-// score has set the running max, and a row whose first tiles are all
-// masked is wiped by the 0 correction when one arrives).  Shared memory:
-// 96 KB at hd 80-128, 48 KB at hd 16-64 (hd 16: the 16 real columns of a
-// 64-column panel, the other 48 zero-filled by TMA).
+// m64n{64,128}k16 per pair of panels, V from shared memory as the
+// MN-major B operand).  The accumulators never leave registers; the
+// padded output columns are never stored.  Key tiles that causal or
+// window masking leave fully masked are skipped (a masked entry's weight
+// ex2(-1e30 - m) is exactly 0 once a real score has set the running max,
+// and a row whose first tiles are all masked is wiped by the 0 correction
+// when one arrives).  Shared memory: 48 KB per panel (Q twice, K and V
+// twice each), so 192 KB at hd 193-256.
 //
-// fp32 -> `flash_fwd`, the first CUDA-core kernel, unchanged: TF32 would
-// break the 2e-4 fp32 parity the full-width token-identity checks rest on.
-// One block of 256 threads owns a 64-row query tile and loops over 64-row
-// key tiles staged in shared memory as fp32 (117 KB at hd 128), products
-// in fp32 FMA.
+// fp32 -> `flash_fwd`, the first CUDA-core kernel: TF32 would break the
+// 2e-4 fp32 parity the full-width token-identity checks rest on.  One
+// block of 256 threads owns a 64-row query tile and loops over 64-row key
+// tiles staged in shared memory as fp32 (117 KB at hd 128, 217 KB at
+// 256), products in fp32 FMA.  It is instantiated at HD = 16, 32, 48, 64,
+// 80, 96, 128, 192 and 256; a head dim runs on the first HD at or above
+// it, its element loads masked past hd (zeros) and its stores too, or on
+// a build without the masks where hd is HD, at every HD but 192 (a width
+// no served configuration has: hd 129-192 all run masked).
+//
+// The softmax scale comes from the caller (1/sqrt of the native head
+// dim), never from a template width.
 //
 // The tensor maps are encoded on the host per call by
 // `cuTensorMapEncodeTiled`, whose address the CUDA runtime looks up (no
@@ -84,11 +93,15 @@ constexpr size_t smem_floats() {
          (size_t)BQ * (BK + 1) + 3 * BQ;
 }
 
-template <typename T, int HD>
+// FULL: hd == HD, so the row stride and the column bound are constants
+// (the masked build took 4-12% longer at hd 48 and 128, where the widths
+// agree, on an H100 80GB HBM3 at 700 W).
+template <typename T, int HD, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, int S, int H, int KV,
-          int causal, int window, float cap, float scale) {
+          int hd_arg, int causal, int window, float cap, float scale) {
+  const int hd = FULL ? HD : hd_arg;
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                        // [HD][BQ + PAD]  (transposed)
   float* Kt = Qt + HD * (BQ + PAD);        // [HD][BK + PAD]  (transposed)
@@ -108,7 +121,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = idx / HD, d = idx % HD;
     const int qi = q0 + r;
     float x = 0.f;
-    if (qi < S) x = to_f(q[(((size_t)b * S + qi) * H + h) * HD + d]);
+    if (qi < S && d < hd) x = to_f(q[(((size_t)b * S + qi) * H + h) * hd + d]);
     Qt[d * (BQ + PAD) + r] = x;
   }
   for (int r = tid; r < BQ; r += THREADS) {
@@ -137,8 +150,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / HD, d = idx % HD;
       const int ki = k0 + r;
       float kx = 0.f, vx = 0.f;
-      if (ki < S) {
-        const size_t off = (((size_t)b * S + ki) * KV + kvh) * HD + d;
+      if (ki < S && d < hd) {
+        const size_t off = (((size_t)b * S + ki) * KV + kvh) * hd + d;
         kx = to_f(k[off]);
         vx = to_f(v[off]);
       }
@@ -235,30 +248,31 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r;
     if (qi >= S) continue;
     const float den = fmaxf(l_s[r], 1e-30f);
-    T* o = out + (((size_t)b * S + qi) * H + h) * HD;
+    T* o = out + (((size_t)b * S + qi) * H + h) * hd;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) store(&o[tx + 16 * j], acc[i][j] / den);
+    for (int j = 0; j < CPT; ++j)
+      if (tx + 16 * j < hd) store(&o[tx + 16 * j], acc[i][j] / den);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool FULL>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int causal, int window, float cap,
-           cudaStream_t stream) {
+           int S, int H, int KV, int hd, int causal, int window, float cap,
+           float scale, cudaStream_t stream) {
   const size_t bytes = smem_floats<HD>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd<T, HD, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd<T, HD><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd<T, HD, FULL><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, causal,
-      window, cap, 1.0f / sqrtf((float)HD));
+      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, hd, causal,
+      window, cap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -445,6 +459,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 
+// O[:, 64 P ...] += A . V for the panels from P on: an n128 product per
+// pair of panels (its accumulators the next 64 of o), an n64 one for a
+// last odd panel.
+template <int NP, int P = 0>
+__device__ __forceinline__ void pv_product(float (&o)[NP * 32],
+                                           const uint32_t (&a)[4],
+                                           uint32_t v_addr) {
+  if constexpr (P < NP) {
+    const uint64_t db = sw128_desc(v_addr + P * PANEL, PANEL, 1024);
+    if constexpr (P + 1 < NP) {
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + 32 * P), a, db);
+      pv_product<NP, P + 2>(o, a, v_addr);
+    } else {
+      wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(o + 32 * P), a, db);
+    }
+  }
+}
+
 // One work item: a 64-row query tile of one (b, h) and its key tiles.
 // Items are numbered heaviest first (every head's last query tile, then
 // the one before, ...), and block j of the persistent grid takes items j,
@@ -474,6 +506,10 @@ __device__ __forceinline__ Item item_of(int i, int B, int S, int H, int KV,
   return w;
 }
 
+// Blocks per SM: two while the shared memory of two fits (NP <= 2).
+template <int NP>
+constexpr int blocks_per_sm() { return NP <= 2 ? 2 : 1; }
+
 // NP = padded head dim / 64.  Thread t of the warpgroup holds, for every
 // 64x64 score tile and the 64 x 64*NP output tile, rows r = 16*(t/32) +
 // (t%32)/4 and r + 8, columns 8*c + 2*(t%4) + {0, 1} (the wgmma accumulator
@@ -485,7 +521,7 @@ __device__ __forceinline__ Item item_of(int i, int B, int S, int H, int KV,
 // runs, so an item's first tiles and Q are waiting when its predecessor's
 // epilogue ends.
 template <int NP>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, blocks_per_sm<NP>())
 flash_tc(const __grid_constant__ CUtensorMap qmap,
          const __grid_constant__ CUtensorMap kmap,
          const __grid_constant__ CUtensorMap vmap,
@@ -645,11 +681,7 @@ flash_tc(const __grid_constant__ CUtensorMap qmap,
       for (int kk = 0; kk < 4; ++kk) {
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                pa[4 * kk + 3]};
-        const uint64_t db = sw128_desc(v_addr + kk * 2048, PANEL, 1024);
-        if constexpr (NP == 1)
-          wgmma_rs_n64(o, a, db);
-        else
-          wgmma_rs_n128(o, a, db);
+        pv_product<NP>(o, a, v_addr + kk * 2048);
       }
       wg_commit();
       wg_wait0();
@@ -731,7 +763,7 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
 template <int NP>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KV, int hd, int causal, int window, float cap,
-           cudaStream_t stream, int* launched) {
+           float scale, cudaStream_t stream, int* launched) {
   CUtensorMap qm, km, vm;
   int e = make_map(&qm, q, hd, H, S, B);
   if (e == 0) e = make_map(&km, k, hd, KV, S, B);
@@ -752,10 +784,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (ce != cudaSuccess) return (int)ce;
   const int n_items = B * H * ((S + BM - 1) / BM);
-  const int grid = n_items < 2 * sms ? n_items : 2 * sms;  // 2 per SM
+  const int resident = blocks_per_sm<NP>() * sms;
+  const int grid = n_items < resident ? n_items : resident;
   flash_tc<NP><<<grid, THREADS, bytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), B, S, H, KV, hd, causal,
-      window, cap, 1.0f / sqrtf((float)hd));
+      window, cap, scale);
   *launched = 1;
   return (int)cudaGetLastError();
 }
@@ -764,38 +797,50 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// window <= 0: no window; cap <= 0: no softcap.  bf16 runs the tensor-core
-// kernel, fp32 the CUDA-core one; *tensor_cores is set to 1 where the
-// tensor-core kernel is launched and to 0 otherwise, so the caller counts
-// what ran.  Returns cudaGetLastError().
+// window <= 0: no window; cap <= 0: no softcap; scale: the softmax scale
+// (1/sqrt of the native head dim).  bf16 runs the tensor-core kernel on
+// head dims that are multiples of 8 up to 256 (the caller pads others),
+// fp32 the CUDA-core one on every head dim up to 256; *tensor_cores is set
+// to 1 where the tensor-core kernel is launched and to 0 otherwise, so
+// the caller counts what ran.  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int H, int KV, int hd, int causal,
-                                     int window, float cap, int is_bf16,
-                                     void* stream, int* tensor_cores) {
+                                     int window, float cap, float scale,
+                                     int is_bf16, void* stream,
+                                     int* tensor_cores) {
   *tensor_cores = 0;
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 ||
+      hd > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    switch (hd) {
-      case 16: case 32: case 48: case 64:
-        return tc::launch<1>(q, k, v, out, B, S, H, KV, hd, causal, window,
-                             cap, st, tensor_cores);
-      case 80: case 96: case 128:
-        return tc::launch<2>(q, k, v, out, B, S, H, KV, hd, causal, window,
-                             cap, st, tensor_cores);
-      default: return (int)cudaErrorInvalidValue;
+    if (hd % 8 != 0) return (int)cudaErrorInvalidValue;
+    switch ((hd + 63) / 64) {
+      case 1: return tc::launch<1>(q, k, v, out, B, S, H, KV, hd, causal, window, cap, scale, st, tensor_cores);
+      case 2: return tc::launch<2>(q, k, v, out, B, S, H, KV, hd, causal, window, cap, scale, st, tensor_cores);
+      case 3: return tc::launch<3>(q, k, v, out, B, S, H, KV, hd, causal, window, cap, scale, st, tensor_cores);
+      default: return tc::launch<4>(q, k, v, out, B, S, H, KV, hd, causal, window, cap, scale, st, tensor_cores);
     }
   }
-  switch (hd) {
-    case 16: return launch<float, 16>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    case 32: return launch<float, 32>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    case 48: return launch<float, 48>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    case 64: return launch<float, 64>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    case 80: return launch<float, 80>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    case 96: return launch<float, 96>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    case 128: return launch<float, 128>(q, k, v, out, B, S, H, KV, causal, window, cap, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define REPRO_FLASH_HD(D)                                                     \
+  if (hd == D)                                                                \
+    return launch<float, D, true>(q, k, v, out, B, S, H, KV, hd, causal,     \
+                                  window, cap, scale, st);                    \
+  if (hd < D)                                                                 \
+    return launch<float, D, false>(q, k, v, out, B, S, H, KV, hd, causal,    \
+                                   window, cap, scale, st);
+  REPRO_FLASH_HD(16)
+  REPRO_FLASH_HD(32)
+  REPRO_FLASH_HD(48)
+  REPRO_FLASH_HD(64)
+  REPRO_FLASH_HD(80)
+  REPRO_FLASH_HD(96)
+  REPRO_FLASH_HD(128)
+  if (hd <= 192)
+    return launch<float, 192, false>(q, k, v, out, B, S, H, KV, hd, causal,
+                                     window, cap, scale, st);
+  REPRO_FLASH_HD(256)
+#undef REPRO_FLASH_HD
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,11 @@ only for tensors that lie on the CPU.
 q ``[B, H, hd]``, k/v ``[B, L, KV, hd]``, bias ``[B, L]`` fp32 additive
 (0 = attend, ``NEG_INF`` = masked) -> ``[B, H, hd]`` in q's dtype:
 ``softmax(cap*tanh((q.k/sqrt(hd))/cap) + bias) . v`` over kv head
-``h // (H // KV)``.
+``h // (H // KV)``.  Every head dim from 1 to ``MAX_HEAD_DIM`` (256) is
+read in place at its own row stride (the cache is never copied; rows
+that are no multiple of 16 bytes are copied into shared memory element
+by element), with the scale of the native head dim; a larger one raises
+before any launch.
 
 The kernel splits L across blocks (flash-decoding) and combines the
 splits in the same launch: ``plan`` picks the splits so that the blocks
@@ -34,7 +38,7 @@ from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128)   # instantiated in the CUDA source
+MAX_HEAD_DIM = 256
 TILE = 32            # keys per split come in multiples of this (one bf16
                      # shared-memory tile, two fp32 ones)
 GROUP = 4            # query heads per block at most
@@ -111,7 +115,7 @@ def _kernel():
         from repro_torch.kernels import build
         fn = build.load("decode_attention").repro_decode_attention
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -137,8 +141,9 @@ def _check(q, k, v, bias):
                          f"{(B, k.shape[1])}")
     if H % k.shape[2]:
         raise ValueError(f"H={H} is not a multiple of KV={k.shape[2]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside the kernel's 1-"
+                         f"{MAX_HEAD_DIM}")
     if not all(t.is_contiguous() for t in (q, k, v, bias)):
         raise ValueError("decode_attention takes contiguous q, k, v, bias")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -185,7 +190,8 @@ def decode_attention(q, k, v, bias, *, cap: Optional[float] = None):
                         None if tickets is None else tickets.data_ptr(),
                         B, H, KV, L, hd, p.chunk, p.splits,
                         0.0 if cap is None else float(cap),
-                        int(q.dtype == torch.bfloat16), stream)
+                        1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+                        stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"CUDA error {err}")

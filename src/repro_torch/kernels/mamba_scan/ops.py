@@ -13,7 +13,14 @@ dt, x ``[B, S, di]``, Bm, Cm ``[B, S, ds]`` and A ``[di, ds]``, all fp32
     h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t ;  y_t = h_t . C_t,
     h_0 = 0.
 No ``D x`` skip: ``models.mamba.apply_mamba`` adds it.  Ragged S and di
-are masked in the kernel, so the wrapper pads nothing.
+are masked in the kernel.  The kernel is instantiated at state sizes ds
+8, 16 and 32; any ds up to ``MAX_STATE_DIM`` (32) runs on the first at
+or above it, the wrapper zero-padding a copy of Bm, Cm and A
+(``state_width``, ``pad_state``: A = 0 decays by 1 and B = 0 feeds
+nothing, so the padded state stays 0) and slicing h_end back;
+``launches_padded`` counts those launches.  A larger ds raises before
+any launch (a thread holds its channel's state and A's row in
+registers).
 """
 from __future__ import annotations
 
@@ -24,9 +31,11 @@ import torch
 from repro_torch.kernels.guard import refuse_grad
 from repro_torch.parallel import sharding as sh
 
-STATE_DIMS = (8, 16)               # instantiated in the CUDA source
+STATE_DIMS = (8, 16, 32)           # instantiated in the CUDA source
+MAX_STATE_DIM = STATE_DIMS[-1]
 
 launches = 0        # kernel launches since the last reset (chip_smoke reads)
+launches_padded = 0     # of which on a zero-padded copy
 
 _fn = None
 
@@ -46,6 +55,24 @@ def mamba_scan_plain(dt, x, Bm, Cm, A, h0=None):
         ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(x)
     return y, h
+
+
+def state_width(ds: int) -> int:
+    """The instantiated state size that a state size of ds runs on."""
+    for w in STATE_DIMS:
+        if ds <= w:
+            return w
+    raise ValueError(f"state dim {ds} above the kernel's largest "
+                     f"{MAX_STATE_DIM}: a thread holds its channel's state "
+                     f"and A's row in registers")
+
+
+def pad_state(Bm, Cm, A, width: int):
+    """Bm, Cm ``[B, S, ds]`` and A ``[di, ds]`` with ds zero-padded to
+    ``width``: a padded state element decays by exp(0) = 1 from 0 and is
+    fed B = 0, so it stays 0 and adds nothing to y."""
+    pad = width - A.shape[-1]
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (Bm, Cm, A))
 
 
 def _kernel():
@@ -76,8 +103,7 @@ def _check(dt, x, Bm, Cm, A):
     ds = Bm.shape[2]
     if tuple(A.shape) != (di, ds):
         raise ValueError(f"A {tuple(A.shape)} != [di, ds] = {(di, ds)}")
-    if ds not in STATE_DIMS:
-        raise ValueError(f"state dim {ds} not in the kernel's {STATE_DIMS}")
+    state_width(ds)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("mamba_scan takes contiguous dt, x, Bm, Cm, A")
 
@@ -88,7 +114,7 @@ def mamba_scan(dt, x, Bm, Cm, A):
     rank runs on its local rows and channels (``local_map``: batch over
     ``data``, channels over ``model``; the recurrence is elementwise in
     di)."""
-    global launches
+    global launches, launches_padded
     if sh.is_dtensor(x):
         b, m = sh.kernel_specs(x.device_mesh, x.shape[0], x.shape[2])
         chan, st = sh.P(b, None, m), sh.P(b, None, None)
@@ -103,17 +129,24 @@ def mamba_scan(dt, x, Bm, Cm, A):
     _check(dt, x, Bm, Cm, A)
     B, S, di = x.shape
     ds = Bm.shape[2]
+    width = state_width(ds)
     y = torch.empty_like(x)
-    h_end = torch.empty((B, di, ds), dtype=torch.float32, device=x.device)
     if B * di == 0:
-        return y, h_end
+        return y, torch.empty((B, di, ds), dtype=torch.float32,
+                              device=x.device)
+    if width != ds:
+        Bm, Cm, A = pad_state(Bm, Cm, A, width)
+    h_end = torch.empty((B, di, width), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(dt.data_ptr(), x.data_ptr(), Bm.data_ptr(),
                         Cm.data_ptr(), A.data_ptr(), y.data_ptr(),
-                        h_end.data_ptr(), B, S, di, ds, stream)
+                        h_end.data_ptr(), B, S, di, width, stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
-    return y, h_end
+    if width == ds:
+        return y, h_end
+    launches_padded += 1
+    return y, h_end[..., :ds].contiguous()

@@ -179,7 +179,7 @@ def test_attention_kernels_at_head_dim_16_cuda(dtype):
     flash kernel causal, windowed and non-causal at trace_obs's GEN
     prefill and INF shapes and at a tile-crossing S, and the decode
     kernel with one and many splits, each against its plain version; a
-    head dim the source lacks (24) still raises on a CUDA tensor."""
+    head dim above the kernels' 256 still raises on a CUDA tensor."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(16)
     dt = DT[dtype]
@@ -207,7 +207,7 @@ def test_attention_kernels_at_head_dim_16_cuda(dtype):
         torch.cuda.synchronize()
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    ref.float().cpu().numpy(), **tol(dtype))
-    q = torch.zeros((1, 8, 2, 24), device=dev, dtype=dt)
+    q = torch.zeros((1, 8, 2, 257), device=dev, dtype=dt)
     with pytest.raises(ValueError, match="head dim"):
         t_flash.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
@@ -217,10 +217,18 @@ def test_attention_kernels_at_head_dim_16_cuda(dtype):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """Checks run before any build or launch (so they hold on the CPU
-    too, through the wrappers' validators)."""
-    q = torch.zeros((1, 4, 2, 40))
+    too, through the wrappers' validators): a head dim above 256 (40
+    and 256 pass), a strided or half tensor, a bias of the wrong shape
+    or dtype."""
+    for hd in (40, 256):
+        q = torch.zeros((1, 4, 2, hd))
+        t_flash._check(q, q, q)
+        t_decode._check(q[:, 0], q, q, torch.zeros((1, 4)))
+    q = torch.zeros((1, 4, 2, 257))
     with pytest.raises(ValueError, match="head dim"):
         t_flash._check(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        t_decode._check(q[:, 0], q, q, torch.zeros((1, 4)))
     with pytest.raises(ValueError, match="contiguous"):
         qt = torch.zeros((1, 2, 4, 64)).transpose(1, 2)
         t_flash._check(qt, qt, qt)
@@ -232,6 +240,56 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="bias"):
         t_decode._check(torch.zeros((1, 4, 64)), k, k,
                         torch.zeros((1, 8), dtype=torch.float64))
+
+
+# chip_smoke.py phase 28 (b): head dims of every instantiated width and
+# between them, and rows that are no multiple of 16 bytes (7, 12, 130,
+# 201, 255), which decode copies element by element (fp32 above 128: two
+# vectors a lane) and whose bf16 rows the flash wrapper pads
+SWEEP_HEAD_DIMS = (7, 8, 12, 24, 40, 72, 112, 130, 136, 160, 192, 200, 201,
+                   255, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", SWEEP_HEAD_DIMS)
+def test_attention_kernels_at_every_head_dim_cuda(hd, dtype):
+    """Both attention kernels against their plain versions at head dims
+    from 7 to 256: flash causal, windowed and softcapped, decode with
+    one split and with many; the flash wrapper pads a copy only for bf16
+    rows that are no multiple of 8 (hd 7, 12, 130, 201, 255 here), the
+    decode wrapper never."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(hd)
+    dt = DT[dtype]
+    for B, S, H, KV, window, cap in [(2, 150, 4, 2, None, None),
+                                     (2, 150, 4, 2, 48, None),
+                                     (1, 77, 4, 1, 40, 50.0)]:
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                   .to(dt) for n in (H, KV, KV))
+        n = t_flash.launches_padded
+        out = t_flash.flash_attention(q, k, v, window=window, cap=cap)
+        ref = t_flash.flash_attention_plain(q, k, v, window=window, cap=cap)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.is_contiguous()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol(dtype))
+        assert t_flash.launches_padded - n == int(
+            dtype == "bfloat16" and hd % 8 != 0)
+    for B, H, KV, L in [(4, 4, 2, 300), (1, 8, 1, 2000)]:
+        q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        keep = torch.rand((B, L), generator=g, device=dev) < 0.75
+        keep[:, 0] = True
+        bias = torch.where(keep, 0.0, -1e30).float()
+        for cap in (None, 30.0):
+            out = t_decode.decode_attention(q, k, v, bias, cap=cap)
+            ref = t_decode.decode_attention_plain(q, k, v, bias, cap=cap)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       ref.float().cpu().numpy(),
+                                       **tol(dtype))
 
 
 def _rwkv_inputs(g, dev, B, S, H, N, decay_shift=-1.0):
@@ -296,19 +354,46 @@ def test_rwkv6_scan_cuda_raises_on_what_the_kernel_does_not_take():
         t_rwkv.rwkv6_scan(r.bfloat16(), k, v, logw, u)
     with pytest.raises(ValueError, match="chunk"):
         t_rwkv.rwkv6_scan(r, k, v, logw, u, chunk=48)
+    big = _rwkv_inputs(g, dev, 1, 8, 1, 129)
     n = t_rwkv.launches
+    with pytest.raises(ValueError, match="head dim 129"):
+        t_rwkv.rwkv6_scan(*big)
+    assert t_rwkv.launches == n
     t_rwkv.rwkv6_scan(r, k, v, logw, u)
     assert t_rwkv.launches == n + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 48, 96])
+def test_rwkv6_scan_cuda_padded_head_sizes(N):
+    """Head sizes between the instantiated 32, 64 and 128 (chip_smoke.py
+    phase 28 (c)): the wrapper pads a copy to the next one and slices y
+    and the state back."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(N)
+    ins = _rwkv_inputs(g, dev, 2, 100, 3, N)
+    n = t_rwkv.launches_padded
+    y, st = t_rwkv.rwkv6_scan(*ins)
+    yr, sr = t_rwkv.rwkv6_scan_plain(*ins)
+    torch.cuda.synchronize()
+    assert t_rwkv.launches_padded == n + 1
+    assert y.shape == (2, 100, 3, N) and st.shape == (2, 3, N, N)
+    torch.testing.assert_close(y, yr, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
 def test_rwkv_wrapper_rejects_what_the_kernel_does_not_take():
-    """The wrapper's checks, which run before any build or launch."""
+    """The wrapper's checks, which run before any build or launch: every
+    head size up to 128 passes (48 and 128 here), 129 is refused."""
     x = torch.zeros((1, 8, 2, 64))
     u = torch.zeros((2, 64))
     t_rwkv._check(x, x, x, x, u)
+    for n in (48, 128):
+        y = torch.zeros((1, 8, 2, n))
+        t_rwkv._check(y, y, y, y, torch.zeros((2, n)))
     with pytest.raises(ValueError, match="head dim"):
-        y = torch.zeros((1, 8, 2, 48))
-        t_rwkv._check(y, y, y, y, torch.zeros((2, 48)))
+        y = torch.zeros((1, 8, 2, 129))
+        t_rwkv._check(y, y, y, y, torch.zeros((2, 129)))
     with pytest.raises(ValueError, match="contiguous"):
         xt = torch.zeros((1, 2, 8, 64)).transpose(1, 2)
         t_rwkv._check(xt, x, x, x, u)
@@ -382,20 +467,46 @@ def test_mamba_scan_cuda_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         t_mamba.mamba_scan(dt, x, Bm.transpose(1, 2).contiguous()
                            .transpose(1, 2), Cm, A)
+    big = _mamba_inputs(g, dev, 1, 8, 128, 33)
     n = t_mamba.launches
+    with pytest.raises(ValueError, match="state dim 33"):
+        t_mamba.mamba_scan(*big)
+    assert t_mamba.launches == n
     t_mamba.mamba_scan(dt, x, Bm, Cm, A)
     assert t_mamba.launches == n + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [4, 12, 24, 32])
+def test_mamba_scan_cuda_state_sizes(ds):
+    """State sizes to 32 (chip_smoke.py phase 28 (c)): 32 instantiated,
+    4, 12 and 24 padded to 8, 16 and 32 with h_end sliced back."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(ds)
+    ins = _mamba_inputs(g, dev, 2, 100, 200, ds)
+    n = t_mamba.launches_padded
+    y, h = t_mamba.mamba_scan(*ins)
+    yr, hr = t_mamba.mamba_scan_plain(*ins)
+    torch.cuda.synchronize()
+    assert t_mamba.launches_padded == n + int(ds != 32)
+    assert h.shape == (2, 200, ds)
+    torch.testing.assert_close(y, yr, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(h, hr, rtol=1e-3, atol=1e-3)
+
+
 def test_mamba_wrapper_rejects_what_the_kernel_does_not_take():
-    """The wrapper's checks, which run before any build or launch."""
+    """The wrapper's checks, which run before any build or launch: every
+    state size up to 32 passes (4 and 32 here), 33 is refused."""
     x = torch.zeros((2, 8, 64))
     bc = torch.zeros((2, 8, 16))
     a = torch.zeros((64, 16))
     t_mamba._check(x, x, bc, bc, a)
+    for n in (4, 32):
+        b4 = torch.zeros((2, 8, n))
+        t_mamba._check(x, x, b4, b4, torch.zeros((64, n)))
     with pytest.raises(ValueError, match="state dim"):
-        b4 = torch.zeros((2, 8, 4))
-        t_mamba._check(x, x, b4, b4, torch.zeros((64, 4)))
+        b4 = torch.zeros((2, 8, 33))
+        t_mamba._check(x, x, b4, b4, torch.zeros((64, 33)))
     with pytest.raises(ValueError, match="contiguous"):
         t_mamba._check(torch.zeros((2, 64, 8)).transpose(1, 2), x, bc, bc, a)
     with pytest.raises(TypeError, match="float32"):

@@ -145,16 +145,21 @@ def test_decode_plan(B, H, KV, L, hd, sms):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", list(t_flash.HEAD_DIMS))
+@pytest.mark.parametrize("hd", [1, 12, 16, 40, 72, 136, 200, 255, 256])
 def test_flash_path_and_head_dims(hd, dtype):
     """The dtype alone picks the flash kernel (bf16: tensor cores, fp32:
-    CUDA cores), and the wrapper's checks take every head dim the CUDA
-    source instantiates and refuse any other before a launch."""
+    CUDA cores); the wrapper's checks take every head dim up to
+    ``MAX_HEAD_DIM`` (256) and refuse any above it before a launch; the
+    kernel reads bf16 rows padded to a multiple of 8 and fp32 ones as
+    they are."""
     tdt = DT[dtype][2]
     assert t_flash.tensor_core_path(tdt) == (dtype == "bfloat16")
     q = torch.zeros((1, 3, 2, hd), dtype=tdt)
     t_flash._check(q, q, q)
-    q = torch.zeros((1, 3, 2, hd + 8), dtype=tdt)
+    width = t_flash.read_width(hd, tdt)
+    assert width == (-(-hd // 8) * 8 if dtype == "bfloat16" else hd)
+    assert t_flash.pad_head_dim(q, width).shape == (1, 3, 2, width)
+    q = torch.zeros((1, 3, 2, hd + t_flash.MAX_HEAD_DIM), dtype=tdt)
     with pytest.raises(ValueError, match="head dim"):
         t_flash._check(q, q, q)
     with pytest.raises(TypeError):
