@@ -1,0 +1,9 @@
+"""device.idle_share.rl: 1 - busy / wall over the traced window's whole
+GRPO iterations, in %: busy is the union of the card's kernel, copy and
+memset intervals under ``torch.profiler``."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
