@@ -111,7 +111,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import synchronize
 from repro_torch.genserve.pagepool import PagePool, RadixCache
 from repro_torch.genserve.scheduler import (FREE, Request, RequestQueue,
                                             SlotTable)
@@ -140,8 +139,9 @@ class GenServeConfig:
     prefill_chunk: int = 0           # tokens per mixed-round prefill chunk
     #                                  (0 = one-shot whole-prompt admit)
     measure_ttft: bool = False       # stamp per-request time-to-first-token
-    #                                  (one-shot admission pays a device sync
-    #                                  per admit batch)
+    #                                  (on a CUDA device one-shot admission
+    #                                  records an event per admit batch,
+    #                                  read after the loop)
     page_size: int = 0               # paged KV: tokens per pool page
     #                                  (0 = contiguous per-slot cache)
     prefix_cache: bool = False       # radix prefix reuse across slots
@@ -279,24 +279,25 @@ class _Programs:
         eos = self.gcfg.eos_token
         out = T.forward(params, self.cfg, {"tokens": prompts},
                         return_cache=True, max_cache_len=self.max_seq)
-        tok0, lp0 = self.sample_lp(gen, out["logits"][:, -1])
-        alive0 = sampling.initial_alive(prompts, eos) & admit_mask
-        finished0 = limits <= 1
-        if eos is not None:
-            finished0 |= tok0 == eos
-        buf_rows = torch.where(admit_mask, rows, self.dummy_row)
-        st["gen"][buf_rows, 0] = tok0
-        st["lp"][buf_rows, 0] = lp0
-        st["mask"][buf_rows, 0] = alive0.float()
         cache_mod.scatter_slots(st["cache"], out["cache"]["blocks"],
                                 admit_cpu)
-        st["pos"] = torch.where(admit_mask, self.P, st["pos"])
-        st["tok"] = torch.where(admit_mask, tok0, st["tok"])
-        st["ngen"] = torch.where(admit_mask, 1, st["ngen"])
-        st["req"] = torch.where(admit_mask, rows, st["req"])
-        st["limit"] = torch.where(admit_mask, limits, st["limit"])
-        st["occupied"] = torch.where(admit_mask, alive0 & ~finished0,
-                                     st["occupied"])
+        with obs_trace.span("gen.sample"):
+            tok0, lp0 = self.sample_lp(gen, out["logits"][:, -1])
+            alive0 = sampling.initial_alive(prompts, eos) & admit_mask
+            finished0 = limits <= 1
+            if eos is not None:
+                finished0 |= tok0 == eos
+            buf_rows = torch.where(admit_mask, rows, self.dummy_row)
+            st["gen"][buf_rows, 0] = tok0
+            st["lp"][buf_rows, 0] = lp0
+            st["mask"][buf_rows, 0] = alive0.float()
+            st["pos"] = torch.where(admit_mask, self.P, st["pos"])
+            st["tok"] = torch.where(admit_mask, tok0, st["tok"])
+            st["ngen"] = torch.where(admit_mask, 1, st["ngen"])
+            st["req"] = torch.where(admit_mask, rows, st["req"])
+            st["limit"] = torch.where(admit_mask, limits, st["limit"])
+            st["occupied"] = torch.where(admit_mask, alive0 & ~finished0,
+                                         st["occupied"])
         if self.spec:
             # prime the draft's own cache on the same prompts: its cursor
             # stays the target's
@@ -318,23 +319,25 @@ class _Programs:
         view = self.view_of(st)
         logits = self.wave_decode(params, st["tok"], pos, view,
                                   emit if protect or self.paged else None)
-        nxt, lp = self.sample_lp(gen, logits)
-        buf_rows = torch.where(emit, st["req"], self.dummy_row)
-        cols = torch.where(emit, st["ngen"], 0)
-        alive_after = sampling.next_alive(emit, nxt, eos)
-        finished = emit & (~alive_after | (st["ngen"] + 1 >= st["limit"]))
-        st["gen"][buf_rows, cols] = nxt
-        st["lp"][buf_rows, cols] = lp
-        st["mask"][buf_rows, cols] = emit.float()
         if self.gathered:
             cache_mod.paged_update_decode(
                 self.cfg, st["cache"], view, st["btab"], pos, emit,
                 self.max_seq, page_size=self.ps)
-        st["pos"] = torch.where(emit, pos + 1, pos)
-        st["tok"] = torch.where(emit, nxt, st["tok"])
-        st["ngen"] = torch.where(emit, st["ngen"] + 1, st["ngen"])
-        st["occupied"] = emit & ~finished
-        return (emit.sum(),)
+        with obs_trace.span("gen.sample"):
+            nxt, lp = self.sample_lp(gen, logits)
+            buf_rows = torch.where(emit, st["req"], self.dummy_row)
+            cols = torch.where(emit, st["ngen"], 0)
+            alive_after = sampling.next_alive(emit, nxt, eos)
+            finished = emit & (~alive_after
+                               | (st["ngen"] + 1 >= st["limit"]))
+            st["gen"][buf_rows, cols] = nxt
+            st["lp"][buf_rows, cols] = lp
+            st["mask"][buf_rows, cols] = emit.float()
+            st["pos"] = torch.where(emit, pos + 1, pos)
+            st["tok"] = torch.where(emit, nxt, st["tok"])
+            st["ngen"] = torch.where(emit, st["ngen"] + 1, st["ngen"])
+            st["occupied"] = emit & ~finished
+            return (emit.sum(),)
 
     def _commit_accepted(self, view, deltas, pos, n_valid) -> None:
         """Write the accepted prefix of a verify chunk into the (view of
@@ -782,7 +785,14 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
     # sub-round advances every prefilling slot by exactly one chunk, so
     # landings are known without a device sync
     prefill_left = np.zeros((W,), np.int64)
-    t_start = time.monotonic()
+    # one-shot admission on the card stamps TTFT by an event after the
+    # admit's last launch, read once the loop is over: no sync per admit
+    clock = (obs_trace.DeviceClock(device) if gcfg.measure_ttft
+             and not chunked and device.type == "cuda" else None)
+    ttft_events: List[Tuple[object, List[int]]] = []
+    # TTFT and queue waits count from here on the clock the events are
+    # put on; the rounds keep the executor's ``time.monotonic``
+    t_start = time.perf_counter()
 
     def evict_slot(s: int) -> None:
         """Clear slot ``s``'s device and host residue after a failure or
@@ -804,11 +814,17 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
         for k in ("gen", "lp", "mask"):
             state[k][rid] = 0
 
+    def read(t) -> np.ndarray:
+        """A blocking device-to-host read of the loop, into a host copy
+        (on the CPU too: ``occupied`` must not alias the state)."""
+        with obs_trace.span("gen.read"):
+            return t.to("cpu", copy=True).numpy()
+
     def round_counts(counts) -> np.ndarray:
         """Per-sub-round active counts; speculative engines also add up
         the emitted, proposed and accepted tokens."""
         nonlocal spec_tokens, spec_proposed, spec_accepted
-        c = torch.stack([torch.stack(t) for t in counts]).cpu().numpy()
+        c = read(torch.stack([torch.stack(t) for t in counts]))
         if spec:
             spec_tokens += int(c[:, 1].sum())
             spec_proposed += int(c[:, 2].sum())
@@ -847,12 +863,12 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
                     table.cancel_slot(s)
                     evict_slot(s)
                     zero_request_rows(rid)
-        obs_metrics.gauge("gen.queue_depth").set(len(queue))
         admitted = 0
         may_live = False
         free = table.free_slots()
         if free and len(queue):
-            aspan = obs_trace.span("gen.install" if chunked else "gen.admit")
+            aspan = obs_trace.span("gen.install") if chunked else \
+                obs_trace.device_span("gen.admit", device, rows=W)
             aspan.__enter__()
             reqs = queue.pop(len(free))
             slots = free[:len(reqs)]
@@ -935,9 +951,12 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
                 progs.admit(params, draft_params, state, as_dev(pb),
                             as_dev(admit_mask), admit_cpu, as_dev(rows),
                             as_dev(lim), gen)
-                if gcfg.measure_ttft:
-                    synchronize(device)
-                    now = time.monotonic()
+                if clock is not None:
+                    ttft_events.append((clock.record(),
+                                        [rq.rid for rq in reqs]))
+                elif gcfg.measure_ttft:
+                    # the CPU has run the admit by now
+                    now = time.perf_counter()
                     for rq in reqs:
                         ttft[rq.rid] = now - t_start
                 # host-side liveness bound (no device sync here)
@@ -949,7 +968,7 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
             table.admit(slots, reqs)
             n_prefills += 1
             admitted = len(reqs)
-            now_adm = time.monotonic()
+            now_adm = time.perf_counter()
             for rq in reqs:
                 queue_wait[rq.rid] = now_adm - t_start
             aspan.set("admitted", admitted)
@@ -965,17 +984,17 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
                      for j in range(k_len)]
             decode_from = 0 if occupied.any() else \
                 int(active_left.min())       # first landing + 1
-            with obs_trace.span("gen.mixed", subrounds=k_len,
-                                spec_k=gcfg.spec_k):
+            with obs_trace.device_span("gen.mixed", device,
+                                       subrounds=k_len, spec_k=gcfg.spec_k):
                 d, p = progs.mixed(params, draft_params, state, gen, k_len,
                                    decode_from, lands)
                 counts = round_counts(d)            # device sync
-            table.record_round(counts, torch.stack(p).cpu().numpy())
-            occupied = np.array(state["occupied"].cpu())
+            table.record_round(counts, read(torch.stack(p)))
+            occupied = read(state["occupied"])
             landed = (prefill_left > 0) & (prefill_left <= k_len)
             if gcfg.measure_ttft:
                 # free here: the reads above already synced
-                now = time.monotonic()
+                now = time.perf_counter()
                 for s in np.nonzero(landed)[0]:
                     ttft[table.slot_req[s]] = now - t_start
             if sharing:
@@ -990,11 +1009,12 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
         elif occupied.any() or may_live:
             # decode only when a slot can be occupied: requests that
             # finished at admission never burn wave steps
-            with obs_trace.span("gen.decode", steps=K, spec_k=gcfg.spec_k):
+            with obs_trace.device_span("gen.decode", device, steps=K,
+                                       spec_k=gcfg.spec_k):
                 counts = round_counts(progs.chunk(params, draft_params,
                                                  state, K, gen))
             table.record_step(counts)
-            occupied = np.array(state["occupied"].cpu())
+            occupied = read(state["occupied"])
 
         if sharing:
             prev_slot_req = list(table.slot_req)
@@ -1013,6 +1033,11 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
         rspan.set("occupancy", occ)
         rspan.__exit__(None, None, None)
 
+    for ev, rids in ttft_events:
+        # from the batch's start until the first token is on the card
+        t = clock.at(ev) - t_start
+        for rid in rids:
+            ttft[rid] = t
     prompts_dev = torch.as_tensor(prompts_np, device=device)
     gen_out = state["gen"][:B]
     res = {"sequences": torch.cat([prompts_dev, gen_out], dim=1),

@@ -38,6 +38,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import FFN, Mixer, ModelConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.models.layers import (apply_ffn, embed_features,
                                        embed_tokens, init_embeddings,
                                        init_ffn, init_rmsnorm, rmsnorm,
@@ -157,41 +158,46 @@ def _layer_forward(p, cfg: ModelConfig, spec, x, positions, *, long_mode,
     (this layer's cache views at one repeat: {"k", "v"} [B, L, KV, hd],
     {"tm_shift", "wkv", "cm_shift"} or {"conv", "ssm"}) the layer's
     decode state is written into it.  ``attn_impl`` is passed to
-    ``multihead_attention(force_impl=...)`` (None: the module default)."""
-    h = grad_in_place(rmsnorm(p["norm1"], x, cfg.norm_eps))
-    if spec.mixer == Mixer.ATTENTION:
-        window = cache_mod.effective_window(cfg, spec, long_mode)
-        q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
-        q = hint(q, "attn_q")
-        k = hint(k, "attn_kv")
-        y = attn_mod.multihead_attention(
-            q, k, v, positions, positions, causal=cfg.causal, window=window,
-            cap=cfg.attn_softcap, force_impl=attn_impl)
-        B, S = h.shape[:2]
-        # the gradient of the flat heads back in the heads' placements
-        # before the unflatten (heads that ``model`` does not divide)
-        y = grad_in_place(y.reshape(B, S, -1))
-        x = hint(x + y @ p["attn"]["wo"], "residual")
-        if cache_entry is not None:
-            cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k, v,
-                                 window)
-    else:
-        key, _, apply = _MIXERS[spec.mixer]
-        y, st = apply(p[key], cfg, h, return_state=True)
-        x = hint(x + y, "residual")
-        if cache_entry is not None:
-            for name, t in st.items():
-                _masked_copy(cache_entry[name], t, None)
-    h = grad_in_place(rmsnorm(p["norm2"], x, cfg.norm_eps))
-    if spec.moe:
-        y, aux = moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)
-        return hint(x + y, "residual"), aux
-    if spec.ffn == FFN.RWKV_CHANNEL:
-        y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
-        if cache_entry is not None:
-            _masked_copy(cache_entry["cm_shift"], h[:, -1, :], None)
-        return hint(x + y, "residual"), 0.0
-    return hint(x + apply_ffn(p["ffn"], cfg, spec.ffn, h), "residual"), 0.0
+    ``multihead_attention(force_impl=...)`` (None: the module default).
+    Spans ``model.mixer`` and ``model.ffn``, each with its norm and
+    residual."""
+    with obs_trace.span("model.mixer"):
+        h = grad_in_place(rmsnorm(p["norm1"], x, cfg.norm_eps))
+        if spec.mixer == Mixer.ATTENTION:
+            window = cache_mod.effective_window(cfg, spec, long_mode)
+            q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, positions)
+            q = hint(q, "attn_q")
+            k = hint(k, "attn_kv")
+            y = attn_mod.multihead_attention(
+                q, k, v, positions, positions, causal=cfg.causal,
+                window=window, cap=cfg.attn_softcap, force_impl=attn_impl)
+            B, S = h.shape[:2]
+            # the gradient of the flat heads back in the heads' placements
+            # before the unflatten (heads that ``model`` does not divide)
+            y = grad_in_place(y.reshape(B, S, -1))
+            x = hint(x + y @ p["attn"]["wo"], "residual")
+            if cache_entry is not None:
+                cache_mod.prefill_kv(cache_entry["k"], cache_entry["v"], k,
+                                     v, window)
+        else:
+            key, _, apply = _MIXERS[spec.mixer]
+            y, st = apply(p[key], cfg, h, return_state=True)
+            x = hint(x + y, "residual")
+            if cache_entry is not None:
+                for name, t in st.items():
+                    _masked_copy(cache_entry[name], t, None)
+    with obs_trace.span("model.ffn"):
+        h = grad_in_place(rmsnorm(p["norm2"], x, cfg.norm_eps))
+        if spec.moe:
+            y, aux = moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)
+            return hint(x + y, "residual"), aux
+        if spec.ffn == FFN.RWKV_CHANNEL:
+            y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=token_shift(h))
+            if cache_entry is not None:
+                _masked_copy(cache_entry["cm_shift"], h[:, -1, :], None)
+            return hint(x + y, "residual"), 0.0
+        return hint(x + apply_ffn(p["ffn"], cfg, spec.ffn, h),
+                    "residual"), 0.0
 
 
 def _entry(leaf: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
@@ -254,9 +260,10 @@ def forward(params, cfg: ModelConfig, inputs: Dict[str, Any], *,
             x, aux = repeat(x, aux, r)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = grad_in_place(rmsnorm(params["final_norm"], x, cfg.norm_eps))
-    out = {"logits": hint(unembed(params["embed"], cfg, x), "logits"),
-           "aux_loss": aux, "hidden": x}
+    with obs_trace.span("model.head"):
+        x = grad_in_place(rmsnorm(params["final_norm"], x, cfg.norm_eps))
+        out = {"logits": hint(unembed(params["embed"], cfg, x), "logits"),
+               "aux_loss": aux, "hidden": x}
     if cache is not None:
         cache["pos"] = S
         out["cache"] = cache
@@ -304,35 +311,37 @@ def _layer_decode(p, cfg: ModelConfig, spec, x, entry, pos, q_pos, window,
     ``_decode_mask`` for the layer's cache; RWKV6 advances its
     ``tm_shift`` / ``wkv`` state and Mamba its ``conv`` / ``ssm`` state
     by one token.  With ``write_mask`` [B] only its rows' cache and state
-    change."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if spec.mixer == Mixer.ATTENTION:
-        q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
-        ck, cv = entry["k"], entry["v"]
-        cache_mod.write_kv(ck, cv, k, v, pos, window,
-                           valid=None if write_mask is None
-                           else write_mask[:, None])
-        k_pos, valid, bias = mask
-        y = attn_mod.multihead_attention(
-            q, ck, cv, q_pos, k_pos, causal=True, window=window,
-            cap=cfg.attn_softcap, k_valid=valid, bias=bias)
-        x = hint(x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"],
-                 "decode_residual")
-    else:
-        key, _, apply = _MIXERS[spec.mixer]
-        y, st_new = apply(p[key], cfg, h, state=entry, return_state=True)
-        for name, t in st_new.items():
-            _masked_copy(entry[name], t, write_mask)
-        x = hint(x + y, "decode_residual")
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    if spec.moe:
-        return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
-    if spec.ffn == FFN.RWKV_CHANNEL:
-        shifted = entry["cm_shift"][:, None, :].to(h.dtype)
-        y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
-        _masked_copy(entry["cm_shift"], h[:, -1, :], write_mask)
-        return x + y
-    return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+    change.  Spans ``model.mixer`` and ``model.ffn``."""
+    with obs_trace.span("model.mixer"):
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        if spec.mixer == Mixer.ATTENTION:
+            q, k, v = attn_mod.qkv_project(p["attn"], cfg, h, q_pos)
+            ck, cv = entry["k"], entry["v"]
+            cache_mod.write_kv(ck, cv, k, v, pos, window,
+                               valid=None if write_mask is None
+                               else write_mask[:, None])
+            k_pos, valid, bias = mask
+            y = attn_mod.multihead_attention(
+                q, ck, cv, q_pos, k_pos, causal=True, window=window,
+                cap=cfg.attn_softcap, k_valid=valid, bias=bias)
+            x = hint(x + y.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"],
+                     "decode_residual")
+        else:
+            key, _, apply = _MIXERS[spec.mixer]
+            y, st_new = apply(p[key], cfg, h, state=entry, return_state=True)
+            for name, t in st_new.items():
+                _masked_copy(entry[name], t, write_mask)
+            x = hint(x + y, "decode_residual")
+    with obs_trace.span("model.ffn"):
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        if spec.moe:
+            return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
+        if spec.ffn == FFN.RWKV_CHANNEL:
+            shifted = entry["cm_shift"][:, None, :].to(h.dtype)
+            y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
+            _masked_copy(entry["cm_shift"], h[:, -1, :], write_mask)
+            return x + y
+        return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
@@ -368,8 +377,9 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
             x = hint(_layer_decode(bp[f"layer{j}"], cfg, spec, x, entry,
                                    pos, q_pos, window, mask, write_mask),
                      "decode_residual")
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], cfg, x)[:, 0]
+    with obs_trace.span("model.head"):
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = unembed(params["embed"], cfg, x)[:, 0]
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
 
 
@@ -417,33 +427,36 @@ def _layer_prefill_chunk(p, cfg: ModelConfig, spec, x, entry, pos, valid,
     B, C = x.shape[:2]
     q_pos = pos[:, None] + torch.arange(C, device=x.device)
     live = n_valid > 0
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if spec.mixer == Mixer.ATTENTION:
-        y, k, v, window = _chunk_attention(p, cfg, spec, h, entry, pos,
-                                           q_pos, valid, long_mode)
-        cache_mod.write_kv(entry["k"], entry["v"], k, v, pos, window,
-                           valid=valid)
-        x = hint(x + y @ p["attn"]["wo"], "decode_residual")
-    else:
-        key, _, apply = _MIXERS[spec.mixer]
-        names = (("conv", "ssm") if spec.mixer == Mixer.MAMBA
-                 else ("tm_shift", "wkv"))
-        y, st_new = apply(p[key], cfg, h, state={n: entry[n] for n in names},
-                          return_state=True, valid=valid)
-        for name, t in st_new.items():
-            _masked_copy(entry[name], t, live)
-        x = hint(x + y, "decode_residual")
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    if spec.moe:
-        return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
-    if spec.ffn == FFN.RWKV_CHANNEL:
-        shifted = torch.cat([entry["cm_shift"][:, None, :].to(h.dtype),
-                             h[:, :-1]], dim=1)
-        y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
-        idx = (n_valid - 1).clamp(0, C - 1)
-        _masked_copy(entry["cm_shift"], take_rows(h, idx), live)
-        return x + y
-    return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
+    with obs_trace.span("model.mixer"):
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        if spec.mixer == Mixer.ATTENTION:
+            y, k, v, window = _chunk_attention(p, cfg, spec, h, entry, pos,
+                                               q_pos, valid, long_mode)
+            cache_mod.write_kv(entry["k"], entry["v"], k, v, pos, window,
+                               valid=valid)
+            x = hint(x + y @ p["attn"]["wo"], "decode_residual")
+        else:
+            key, _, apply = _MIXERS[spec.mixer]
+            names = (("conv", "ssm") if spec.mixer == Mixer.MAMBA
+                     else ("tm_shift", "wkv"))
+            y, st_new = apply(p[key], cfg, h,
+                              state={n: entry[n] for n in names},
+                              return_state=True, valid=valid)
+            for name, t in st_new.items():
+                _masked_copy(entry[name], t, live)
+            x = hint(x + y, "decode_residual")
+    with obs_trace.span("model.ffn"):
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        if spec.moe:
+            return x + moe_mod.apply_moe(p["moe"], cfg, spec.ffn, h)[0]
+        if spec.ffn == FFN.RWKV_CHANNEL:
+            shifted = torch.cat([entry["cm_shift"][:, None, :].to(h.dtype),
+                                 h[:, :-1]], dim=1)
+            y = apply_ffn(p["ffn"], cfg, spec.ffn, h, shifted=shifted)
+            idx = (n_valid - 1).clamp(0, C - 1)
+            _masked_copy(entry["cm_shift"], take_rows(h, idx), live)
+            return x + y
+        return x + apply_ffn(p["ffn"], cfg, spec.ffn, h)
 
 
 def prefill_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
@@ -470,10 +483,11 @@ def prefill_chunk_step(params, cfg: ModelConfig, tokens, cache, *,
                 bp[f"layer{j}"], cfg, spec, x,
                 _entry(cache["blocks"][f"layer{j}"], r), pos, valid,
                 n_valid, long_mode), "decode_residual")
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    idx = (n_valid - 1).clamp(0, C - 1)
-    h_last = take_rows(x, idx)
-    logits = unembed(params["embed"], cfg, h_last)
+    with obs_trace.span("model.head"):
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        idx = (n_valid - 1).clamp(0, C - 1)
+        h_last = take_rows(x, idx)
+        logits = unembed(params["embed"], cfg, h_last)
     return logits, {"blocks": cache["blocks"], "pos": pos + n_valid}
 
 

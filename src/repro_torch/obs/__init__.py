@@ -8,9 +8,11 @@ packages share no code), all host-side and cheap enough to leave on:
     records a nestable, exception-safe span on the current thread;
     spans export as Chrome-trace/Perfetto JSON (``export_chrome``) or a
     human summary table (``report``).  Disabled spans cost one attribute
-    read.  ``REPRO_TRACE=<path>`` enables tracing at import and dumps
-    the trace at interpreter exit; ``python -m repro_torch.obs.trace
-    FILE.json`` validates a dump.
+    read.  ``trace.device_span(name, device)`` also times the span on a
+    CUDA device (events read after the caller synchronises, on the
+    host's clock: ``device_spans()``).  ``REPRO_TRACE=<path>`` enables
+    tracing at import and dumps the trace at interpreter exit; ``python
+    -m repro_torch.obs.trace FILE.json`` validates a dump.
 
 ``repro_torch.obs.metrics``
     Process-wide registry of counters / gauges / histograms:
@@ -26,7 +28,8 @@ packages share no code), all host-side and cheap enough to leave on:
     sustained measured/predicted drift per task into the reactive
     elasticity signal.
 
-Span names the port emits (dotted, category = first segment):
+Span names the port emits (dotted, category = first segment; [dev]:
+a device span, timed on the card too):
 
     engine.iteration       one Engine.run_iteration call
     engine.stage           one workflow stage dispatch
@@ -34,10 +37,18 @@ Span names the port emits (dotted, category = first segment):
     engine.sync            post-train weight sync to the GEN replica
     engine.swap            Engine.apply_plan plan transition
     gen.round              one genserve host round (admit+decode)
-    gen.admit              one-shot admission program
+    gen.admit              [dev] one-shot admission program (args
+                           admitted, rows: the rows its prefill ran)
     gen.install            chunked-admission install (+ prefix match)
-    gen.mixed              mixed wave-step (decode + prefill chunk)
-    gen.decode             pure decode steps
+    gen.mixed              [dev] mixed wave-step (decode + prefill chunk)
+    gen.decode             [dev] pure decode steps (arg steps)
+    gen.read               a blocking device-to-host read of the loop
+    gen.sample             sampling and the slot writes after it
+    rollout.prefill        [dev] single-wave GEN: the prompt's forward
+    rollout.step           [dev] single-wave GEN: one decode step
+    model.mixer            one layer's norm, mixer and residual
+    model.ffn              one layer's norm, FFN and residual
+    model.head             the final norm and the LM head
     elastic.poll           ElasticController drift reaction
     elastic.reschedule     scheduler warm-start search
     elastic.checkpoint     pre-swap checkpoint write
@@ -47,7 +58,7 @@ Span names the port emits (dotted, category = first segment):
 Metric names the port emits (dotted namespaces):
 
     gen.*        tokens, requests, prompt_tokens, prefix_hit_tokens,
-                 ttft_s, queue_wait_s, queue_depth, wave_occupancy,
+                 ttft_s, queue_wait_s, wave_occupancy,
                  sjf_skips, sjf_aged_admissions, spec_proposed,
                  spec_accepted, spec_accept_rate, slot_failures,
                  cancelled

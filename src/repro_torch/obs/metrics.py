@@ -5,7 +5,7 @@ launchers with one queryable registry::
 
     from repro_torch.obs import metrics
     metrics.counter("gen.tokens").inc(n)
-    metrics.gauge("gen.queue_depth").set(len(queue))
+    metrics.gauge("pagepool.utilization").set(pool.utilization())
     metrics.histogram("gen.ttft_s").observe(dt)
     snap = metrics.snapshot()
 

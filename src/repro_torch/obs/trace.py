@@ -13,11 +13,21 @@ instrumentation can stay unconditionally in hot host loops.  Enabled
 spans cost two ``perf_counter_ns`` reads and two list appends on a
 per-thread buffer (no lock on the hot path).
 
+``device_span(name, device)`` is a ``span`` that, with tracing on and a
+CUDA ``device``, also records a timing event on the device's current
+stream at enter and at exit: the interval in which the card ran the
+span's work.  The events are read only when ``device_spans()`` (or the
+export) asks, after the caller has synchronised; ``DeviceClock`` puts
+them on the host's ``perf_counter`` clock.  Elsewhere it is a plain
+``span``.  The module imports ``torch`` only when a device span is taken
+with tracing on.
+
 Export formats:
 
 * ``export_chrome(path)`` — Chrome-trace/Perfetto JSON (``ph: B/E``
-  duration events, microsecond timestamps).  Load in
-  ``chrome://tracing`` or https://ui.perfetto.dev.
+  duration events, microsecond timestamps; each device span's device
+  interval an ``X`` event on one track per device, on the same clock).
+  Load in ``chrome://tracing`` or https://ui.perfetto.dev.
 * ``report()`` — human summary table aggregated per span name.
 
 ``validate_chrome`` schema-checks a trace object (required fields,
@@ -38,12 +48,18 @@ import atexit
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["span", "enable", "disable", "reset", "is_enabled",
-           "export_chrome", "report", "validate_chrome", "Tracer"]
+__all__ = ["span", "device_span", "enable", "disable", "reset",
+           "is_enabled", "export_chrome", "report", "validate_chrome",
+           "Tracer", "DeviceClock"]
+
+# Chrome-trace thread id of device ``i``'s track (far from the host
+# threads' ``threading.get_ident()`` values)
+_DEVICE_TID = 2 ** 31 - 1
 
 
 class _NullSpan:
@@ -112,13 +128,72 @@ class Span:
         return False
 
 
+class DeviceClock:
+    """CUDA event times on the host's ``perf_counter`` clock.
+
+    One anchor: a synchronise, a host clock read, and an event recorded
+    right after on the device's current stream, which the idle card
+    passes at once (late by the launch latency, some microseconds).  The
+    anchor event is recorded once before the synchronise too, so that its
+    timed record does no set-up work.
+    ``record()`` marks the current stream; ``at(event)`` reads a marked
+    event as absolute ``perf_counter`` seconds.  Read events only once
+    the work before them has run (``at`` waits for the event, so a read
+    in a hot loop would stall the host)."""
+
+    def __init__(self, device):
+        import torch
+        self._torch = torch
+        self.device = torch.device(device)
+        stream = torch.cuda.current_stream(self.device)
+        self.anchor = torch.cuda.Event(enable_timing=True)
+        self.anchor.record(stream)
+        torch.cuda.synchronize(self.device)
+        self.host = time.perf_counter()
+        self.anchor.record(stream)
+
+    def record(self):
+        ev = self._torch.cuda.Event(enable_timing=True)
+        ev.record(self._torch.cuda.current_stream(self.device))
+        return ev
+
+    def at(self, event) -> float:
+        event.synchronize()
+        return self.host + 1e-3 * self.anchor.elapsed_time(event)
+
+
+class DeviceSpan(Span):
+    """A span that also marks the device's stream at enter and exit."""
+
+    __slots__ = ("_clock", "_ev0")
+
+    def __init__(self, tracer: "Tracer", name: str, args: Dict[str, Any],
+                 clock: DeviceClock):
+        super().__init__(tracer, name, args)
+        self._clock = clock
+
+    def __enter__(self) -> "DeviceSpan":
+        super().__enter__()
+        self._ev0 = self._clock.record()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._buf.device.append([self.id, self._clock.device.index,
+                                 self._clock, self._ev0,
+                                 self._clock.record()])
+        return super().__exit__(exc_type, exc, tb)
+
+
 class _ThreadBuffer:
-    __slots__ = ("tid", "stack", "records")
+    __slots__ = ("tid", "stack", "records", "device")
 
     def __init__(self, tid: int):
         self.tid = tid
         self.stack: List[Span] = []
         self.records: List[tuple] = []
+        # [span id, device index, clock, start event, end event]; the
+        # clock is None and the events are perf_counter seconds once read
+        self.device: List[list] = []
 
 
 class Tracer:
@@ -134,6 +209,7 @@ class Tracer:
         self._local = threading.local()
         self._buffers: List[_ThreadBuffer] = []
         self._epoch_ns = time.perf_counter_ns()
+        self._clocks: Dict[int, DeviceClock] = {}
 
     # -- recording -------------------------------------------------------
     def _thread_buffer(self) -> _ThreadBuffer:
@@ -150,6 +226,37 @@ class Tracer:
             return _NULL_SPAN
         return Span(self, name, args)
 
+    def device_span(self, name: str, device, **args):
+        """``span``, timed on ``device`` too when it is a CUDA device."""
+        if not self.enabled:
+            return _NULL_SPAN
+        kind = device if isinstance(device, str) else device.type
+        if kind.split(":")[0] != "cuda":
+            return Span(self, name, args)
+        return DeviceSpan(self, name, args, self._clock(device))
+
+    def _clock(self, device) -> DeviceClock:
+        """The device's clock: the anchor that ``enable`` or ``reset``
+        took, else one taken now (a synchronise, once)."""
+        import torch
+        dev = torch.device(device)
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        clock = self._clocks.get(index)
+        if clock is None:
+            clock = self._clocks[index] = DeviceClock(
+                torch.device("cuda", index))
+        return clock
+
+    def _anchor(self) -> None:
+        """A clock for the current CUDA device, where CUDA is already
+        initialised (never imports torch, never initialises CUDA)."""
+        torch = sys.modules.get("torch")
+        self._clocks = {}
+        if torch is not None and torch.cuda.is_initialized():
+            index = torch.cuda.current_device()
+            self._clocks[index] = DeviceClock(torch.device("cuda", index))
+
     def current_span_id(self) -> int:
         """Id of the innermost live span on this thread (0 when none)."""
         if not self.enabled:
@@ -161,6 +268,8 @@ class Tracer:
 
     # -- control ---------------------------------------------------------
     def enable(self) -> None:
+        if not self.enabled:
+            self._anchor()
         self.enabled = True
 
     def disable(self) -> None:
@@ -171,7 +280,9 @@ class Tracer:
             for buf in self._buffers:
                 buf.records.clear()
                 buf.stack.clear()
+                buf.device.clear()
         self._epoch_ns = time.perf_counter_ns()
+        self._anchor()
 
     # -- export ----------------------------------------------------------
     def _all_records(self) -> List[Tuple[int, tuple]]:
@@ -182,6 +293,33 @@ class Tracer:
 
     def n_spans(self) -> int:
         return len(self._all_records())
+
+    def _device_records(self) -> List[Tuple[int, int, tuple, float,
+                                            float]]:
+        """(device index, span id, host record, device t0, device t1) of
+        every finished device span; reads each span's events (waiting for
+        them) once."""
+        host = {rec[1]: rec for _, rec in self._all_records()}
+        with self._lock:
+            dev = [d for buf in self._buffers for d in list(buf.device)]
+        out = []
+        for d in dev:
+            sid, index, clock, t0, t1 = d
+            if clock is not None:
+                d[2:] = [None, clock.at(t0), clock.at(t1)]
+            if sid in host:
+                out.append((index, sid, host[sid], d[3], d[4]))
+        return out
+
+    def device_spans(self) -> List[Tuple[str, float, float, float, float,
+                                         Dict[str, Any]]]:
+        """(name, host t0, host t1, device t0, device t1, args) of every
+        finished device span, in absolute ``perf_counter`` seconds.  The
+        device interval runs from the card reaching the span's first work
+        to its finishing the last.  Call after synchronising: reading an
+        event waits for it."""
+        return [(rec[0], rec[3] * 1e-9, rec[4] * 1e-9, t0, t1, dict(rec[7]))
+                for _, _, rec, t0, t1 in self._device_records()]
 
     def chrome_events(self) -> List[Dict[str, Any]]:
         """Chrome-trace B/E duration events.  Events are ordered by the
@@ -210,8 +348,26 @@ class Tracer:
         seq_events.sort(key=lambda p: p[0])
         return [ev for _, ev in seq_events]
 
+    def _device_events(self) -> List[Dict[str, Any]]:
+        """The device intervals as Chrome ``X`` events on one track a
+        device, each track named by an ``M`` thread-name event."""
+        pid = os.getpid()
+        epoch = self._epoch_ns * 1e-9
+        recs = sorted(self._device_records(), key=lambda r: r[3])
+        events: List[Dict[str, Any]] = [
+            {"name": "thread_name", "ph": "M", "pid": pid,
+             "tid": _DEVICE_TID - i, "args": {"name": f"cuda:{i}"}}
+            for i in sorted({r[0] for r in recs})]
+        for index, sid, rec, t0, t1 in recs:
+            events.append({"name": rec[0], "cat": rec[0].split(".")[0],
+                           "ph": "X", "pid": pid, "tid": _DEVICE_TID - index,
+                           "ts": (t0 - epoch) * 1e6,
+                           "dur": max(t1 - t0, 0.0) * 1e6,
+                           "args": {"span_id": sid}})
+        return events
+
     def export_chrome(self, path: str) -> str:
-        obj = {"traceEvents": self.chrome_events(),
+        obj = {"traceEvents": self.chrome_events() + self._device_events(),
                "displayTimeUnit": "ms"}
         d = os.path.dirname(path)
         if d:
@@ -248,6 +404,10 @@ TRACER = Tracer()
 
 def span(name: str, **args):
     return TRACER.span(name, **args)
+
+
+def device_span(name: str, device, **args):
+    return TRACER.device_span(name, device, **args)
 
 
 def current_span_id() -> int:

@@ -20,6 +20,7 @@ import torch
 from repro_torch.models import sampling
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,20 +39,26 @@ def _sample(gen, logits, cfg: SamplerConfig):
 def generate(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
              sampler: SamplerConfig) -> Dict[str, torch.Tensor]:
     """prompts: [B, P] int.  Returns sequences [B, P+N], gen_tokens [B, N],
-    logprobs [B, N] and mask [B, N] (float)."""
+    logprobs [B, N] and mask [B, N] (float).  Spans (device-timed):
+    ``rollout.prefill``, the prompt's forward and first token, then one
+    ``rollout.step`` per decode step."""
     B, P = prompts.shape
     N = sampler.max_new_tokens
-    out = T.forward(params, cfg, {"tokens": prompts}, return_cache=True,
-                    max_cache_len=P + N)
-    cache = out["cache"]
-    tok, lp = _sample(gen, out["logits"][:, -1], sampler)
-    del out
-    alive = sampling.initial_alive(prompts, sampler.eos_token)
+    with obs_trace.device_span("rollout.prefill", prompts.device):
+        out = T.forward(params, cfg, {"tokens": prompts}, return_cache=True,
+                        max_cache_len=P + N)
+        cache = out["cache"]
+        with obs_trace.span("gen.sample"):
+            tok, lp = _sample(gen, out["logits"][:, -1], sampler)
+            alive = sampling.initial_alive(prompts, sampler.eos_token)
+        del out
     toks, lps, alives = [tok], [lp], [alive]
     for _ in range(N - 1):
-        logits, cache = T.decode_step(params, cfg, tok[:, None], cache)
-        nxt, lp = _sample(gen, logits, sampler)
-        alive = sampling.next_alive(alive, tok, sampler.eos_token)
+        with obs_trace.device_span("rollout.step", prompts.device):
+            logits, cache = T.decode_step(params, cfg, tok[:, None], cache)
+            with obs_trace.span("gen.sample"):
+                nxt, lp = _sample(gen, logits, sampler)
+                alive = sampling.next_alive(alive, tok, sampler.eos_token)
         tok = nxt
         toks.append(nxt)
         lps.append(lp)

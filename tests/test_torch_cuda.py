@@ -785,3 +785,77 @@ def test_prefill_and_serve_steps_kernels_against_plain(dtype):
                                **tol(dtype))
     np.testing.assert_allclose(k_logits.float().cpu(),
                                p_logits.float().cpu(), **tol(dtype))
+
+
+@pytest.mark.cuda
+def test_device_spans_and_ttft_events_on_the_card(monkeypatch):
+    """A ``device_span`` around a spin kernel covers the kernel's
+    profiler interval (both on the host's ``perf_counter`` clock, the
+    profiler's by a marker spin as ``bench/harness/devtrace.py`` puts it
+    there) within 50 us at each end.  Then a small one-shot engine batch
+    whose TTFT events are also waited for as they are recorded: each
+    admit's event stamp agrees with the host stamp taken after that
+    wait (the sync-per-admit stamp) within 1 ms."""
+    import time
+    from repro_torch.configs import archs
+    from repro_torch.genserve.decoder import GenServeConfig, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import trace as obs_trace
+    dev = _cuda()
+    torch.cuda.synchronize(dev)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    # the first launches under a fresh profiler may wait on its set-up:
+    # spins before the marker
+    for _ in range(3):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize(dev)
+    mark = time.perf_counter()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize(dev)
+    tr = obs_trace.Tracer()
+    tr.enable()
+    try:
+        with tr.device_span("spin", dev):
+            torch.cuda._sleep(2_000_000)
+        torch.cuda.synchronize(dev)
+    finally:
+        prof.stop()
+    spins = sorted((e for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" in e.name()),
+                   key=lambda e: e.start_ns())
+    assert len(spins) == 5, [e.name() for e in spins]
+    offset = spins[3].start_ns() * 1e-9 - mark
+    k0 = spins[4].start_ns() * 1e-9 - offset
+    k1 = k0 + spins[4].duration_ns() * 1e-9
+    [(name, h0, h1, d0, d1, _)] = tr.device_spans()
+    assert name == "spin" and k1 - k0 > 5e-4
+    assert abs(d0 - k0) <= 50e-6 and abs(d1 - k1) <= 50e-6, \
+        (d0 - k0, d1 - k1)
+
+    stamps = []
+
+    class WaitedClock(obs_trace.DeviceClock):
+        def record(self):
+            ev = super().record()
+            if hasattr(self, "host"):             # an admit's stamp
+                torch.cuda.synchronize(self.device)
+                stamps.append((self, ev, time.perf_counter()))
+            return ev
+    monkeypatch.setattr(obs_trace, "DeviceClock", WaitedClock)
+    cfg = archs.SMOKE["qwen3-0.6b"]
+    params = T.init_params(cfg, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (6, 16), device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    _, stats = serve(params, cfg, prompts, None, GenServeConfig(
+        wave=2, max_new_tokens=8, greedy=True, measure_ttft=True),
+        gen_lens=[8, 2, 5, 8, 3, 6])
+    assert len(stamps) == stats["prefills"] >= 3
+    for clock, ev, host in stamps:
+        assert abs(clock.at(ev) - host) <= 1e-3, clock.at(ev) - host
+    by_admit = sorted(set(stats["ttft"].values()))
+    assert len(by_admit) == len(stamps)
+    for got, (_, _, host) in zip(by_admit, stamps):
+        assert abs((got - by_admit[0]) - (host - stamps[0][2])) <= 1e-3

@@ -119,7 +119,17 @@ def test_trace_obs_greedy_matches_the_reference(tmp_path, capsys,
         rtol=0, atol=1e-4)
     spans = lambda s: sorted(  # noqa: E731
         tuple(ln.split()[:2]) for ln in _section(s, "span report")[1:])
-    assert spans(got) == spans(ref) and len(spans(got)) == 8
+    # the reference's spans, named and counted alike; the port's report
+    # adds its own spans inside GEN, INF and TRAIN, which the reference
+    # does not have
+    ref_names = {n for n, _ in spans(ref)}
+    assert [s for s in spans(got) if s[0] in ref_names] == spans(ref)
+    assert len(spans(ref)) == 8
+    mine = dict(s for s in spans(got) if s[0] not in ref_names)
+    assert set(mine) == {"gen.sample", "model.mixer", "model.ffn",
+                         "model.head", "rollout.prefill", "rollout.step"}
+    assert mine["rollout.prefill"] == dict(spans(ref))[
+        "task.actor_generation"]
     names = lambda s: [ln.split(":")[0]  # noqa: E731
                        for ln in _section(s, "metrics snapshot")]
     assert names(got) == names(ref) == sorted(out["snapshot"])
