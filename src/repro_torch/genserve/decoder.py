@@ -7,14 +7,15 @@ place:
 
   program   inputs (beyond params/state)      what it does
   -------   -------------------------------   ---------------------------
-  admit     prompts [W,P], admit_mask [W],    one-shot path
-            rows [W], limits [W]              (``prefill_chunk == 0``):
-                                              prefill the whole [W, P]
-                                              prompt batch, sample each
-                                              admitted request's first
-                                              token, scatter the fresh
-                                              cache rows of admitted
-                                              slots only.
+  admit     prompts [n,P], slots [n],         one-shot path
+            rows [n], limits [n]              (``prefill_chunk == 0``):
+                                              prefill the n admitted
+                                              prompts (the whole wave on
+                                              a mesh or where MoE groups
+                                              span rows), sample each
+                                              one's first token, write
+                                              the fresh cache rows into
+                                              their slots only.
   install   prompts [W,P], admit_mask [W],    chunked path: stage request
             rows [W], limits [W], plens [W]   metadata and prompt rows,
             (+ pstarts [W], btab [W,MP]       zero the admitted slots'
@@ -81,6 +82,9 @@ What differs from the JAX engine, and why:
     ``decode_step(write_mask=emit)``; ``prefill_chunk_step`` leaves rows
     with ``n_valid == 0`` untouched and ``verify_chunk_step`` writes
     nothing.
+  * One-shot admission prefills only the admitted rows, and samples
+    their first tokens from those rows alone; the JAX program prefills
+    and samples the whole wave.
   * Randomness: one ``torch.Generator`` in event order (greedy decoding
     is token-exact against the JAX engine; sampled modes are held by
     distribution).  A mixed sub-round samples first tokens only when the
@@ -115,7 +119,7 @@ from repro_torch.genserve.pagepool import PagePool, RadixCache
 from repro_torch.genserve.scheduler import (FREE, Request, RequestQueue,
                                             SlotTable)
 from repro_torch.models import cache as cache_mod
-from repro_torch.models import sampling
+from repro_torch.models import moe, sampling
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
@@ -177,6 +181,17 @@ class GenServeConfig:
 # Engine programs
 # ---------------------------------------------------------------------------
 
+def _admit_whole_wave(cfgs, prompt_len: int, mesh) -> bool:
+    """Whether a one-shot admit prefills the whole wave, not only its
+    admitted rows: on a mesh (the rows split evenly over the ranks only
+    at the wave's width), and where an MoE layer's routing groups span
+    rows (a row's output then depends on its neighbours).  Every other
+    row's prefill is independent of the others."""
+    return mesh is not None or any(
+        c is not None and c.has_moe
+        and not moe.groups_within_rows(prompt_len) for c in cfgs)
+
+
 class _Programs:
     """The engine programs for one (cfg, gcfg, P, n_reqs, draft cfg)."""
 
@@ -197,6 +212,8 @@ class _Programs:
         # (on a mesh the view is each rank's own slots' copy)
         self.identity = (self.paged and not gcfg.prefix_cache
                          and gcfg.pool_pages == 0 and mesh is None)
+        self.whole_wave = _admit_whole_wave((cfg, draft_cfg), prompt_len,
+                                            mesh)
 
     # -- shared pieces -----------------------------------------------------
     def view_of(self, st):
@@ -273,38 +290,51 @@ class _Programs:
         return res
 
     # -- one-shot admission ------------------------------------------------
-    def admit(self, params, dparams, st, prompts, admit_mask, admit_cpu,
-              rows, limits, gen):
-        """Prefill [W, P] prompts; install admitted slots; sample token 0."""
-        eos = self.gcfg.eos_token
-        out = T.forward(params, self.cfg, {"tokens": prompts},
+    def admit(self, params, dparams, st, prompts, slots, rows, limits, gen):
+        """Prefill the admitted prompts [n, P] into ``slots`` ([n] int64,
+        on the host); install them and sample each one's token 0.  Returns
+        the rows the prefill ran: n, or W where ``whole_wave``."""
+        eos, W = self.gcfg.eos_token, self.gcfg.wave
+        idx = slots.to(prompts.device)
+        if self.whole_wave:
+            # slots that admit nothing carry a copy of the first admitted
+            # prompt; only the admitted rows are kept
+            run = prompts[:1].repeat(W, 1)
+            run[idx] = prompts
+            mask = torch.zeros((W,), dtype=torch.bool)
+            mask[slots] = True
+            put = lambda dst, src: cache_mod.scatter_slots(dst, src, mask)
+        else:
+            run = prompts
+            put = lambda dst, src: cache_mod.put_slot_rows(dst, src, idx)
+        out = T.forward(params, self.cfg, {"tokens": run},
                         return_cache=True, max_cache_len=self.max_seq)
-        cache_mod.scatter_slots(st["cache"], out["cache"]["blocks"],
-                                admit_cpu)
+        put(st["cache"], out["cache"]["blocks"])
         with obs_trace.span("gen.sample"):
             tok0, lp0 = self.sample_lp(gen, out["logits"][:, -1])
-            alive0 = sampling.initial_alive(prompts, eos) & admit_mask
+            if self.whole_wave:
+                tok0, lp0 = tok0[idx], lp0[idx]
+            alive0 = sampling.initial_alive(prompts, eos)
             finished0 = limits <= 1
             if eos is not None:
                 finished0 |= tok0 == eos
-            buf_rows = torch.where(admit_mask, rows, self.dummy_row)
-            st["gen"][buf_rows, 0] = tok0
-            st["lp"][buf_rows, 0] = lp0
-            st["mask"][buf_rows, 0] = alive0.float()
-            st["pos"] = torch.where(admit_mask, self.P, st["pos"])
-            st["tok"] = torch.where(admit_mask, tok0, st["tok"])
-            st["ngen"] = torch.where(admit_mask, 1, st["ngen"])
-            st["req"] = torch.where(admit_mask, rows, st["req"])
-            st["limit"] = torch.where(admit_mask, limits, st["limit"])
-            st["occupied"] = torch.where(admit_mask, alive0 & ~finished0,
-                                         st["occupied"])
+            st["gen"][rows, 0] = tok0
+            st["lp"][rows, 0] = lp0
+            st["mask"][rows, 0] = alive0.float()
+            st["pos"] = st["pos"].index_fill(0, idx, self.P)
+            st["tok"] = st["tok"].index_copy(0, idx, tok0)
+            st["ngen"] = st["ngen"].index_fill(0, idx, 1)
+            st["req"] = st["req"].index_copy(0, idx, rows)
+            st["limit"] = st["limit"].index_copy(0, idx, limits)
+            st["occupied"] = st["occupied"].index_copy(
+                0, idx, alive0 & ~finished0)
         if self.spec:
-            # prime the draft's own cache on the same prompts: its cursor
+            # prime the draft's own cache on the same rows: its cursor
             # stays the target's
-            dout = T.forward(dparams, self.dcfg, {"tokens": prompts},
+            dout = T.forward(dparams, self.dcfg, {"tokens": run},
                              return_cache=True, max_cache_len=self.max_seq)
-            cache_mod.scatter_slots(st["dcache"], dout["cache"]["blocks"],
-                                    admit_cpu)
+            put(st["dcache"], dout["cache"]["blocks"])
+        return run.shape[0]
 
     # -- decode sub-rounds -------------------------------------------------
     def decode_substep(self, params, st, gen, protect: bool):
@@ -779,6 +809,7 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
     ttft: Dict[int, float] = {}
     queue_wait: Dict[int, float] = {}    # request admission wait (host)
     n_prefills = 0
+    prefill_rows = 0                     # rows the one-shot prefills ran
     round_idx = 0
     occupied = np.zeros((W,), bool)      # device occupancy, host view
     # host mirror of each slot's remaining prefill chunks — every mixed
@@ -868,25 +899,25 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
         free = table.free_slots()
         if free and len(queue):
             aspan = obs_trace.span("gen.install") if chunked else \
-                obs_trace.device_span("gen.admit", device, rows=W)
+                obs_trace.device_span("gen.admit", device)
             aspan.__enter__()
             reqs = queue.pop(len(free))
             slots = free[:len(reqs)]
-            # slots that admit nothing carry a broadcast of the first
-            # admitted prompt; only admitted rows are used
-            pb = np.broadcast_to(prompts_np[reqs[0].rid], (W, P)).copy()
-            admit_mask = np.zeros((W,), bool)
-            rows = np.full((W,), B, np.int64)
-            lim = np.ones((W,), np.int64)
-            pl = np.full((W,), P, np.int64)
-            for s, rq in zip(slots, reqs):
-                pb[s] = prompts_np[rq.rid]
-                admit_mask[s] = True
-                rows[s] = rq.rid
-                lim[s] = rq.max_new_tokens
-                pl[s] = plens_np[rq.rid]
-            admit_cpu = torch.as_tensor(admit_mask)
             if chunked:
+                # slots that admit nothing carry a broadcast of the first
+                # admitted prompt; only admitted rows are used
+                pb = np.broadcast_to(prompts_np[reqs[0].rid], (W, P)).copy()
+                admit_mask = np.zeros((W,), bool)
+                rows = np.full((W,), B, np.int64)
+                lim = np.ones((W,), np.int64)
+                pl = np.full((W,), P, np.int64)
+                for s, rq in zip(slots, reqs):
+                    pb[s] = prompts_np[rq.rid]
+                    admit_mask[s] = True
+                    rows[s] = rq.rid
+                    lim[s] = rq.max_new_tokens
+                    pl[s] = plens_np[rq.rid]
+                admit_cpu = torch.as_tensor(admit_mask)
                 pstarts = np.zeros((W,), np.int64)
                 btab_new = np.full((W, MP), NP, np.int64) if paged else None
                 if sharing:
@@ -948,12 +979,15 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
                               as_dev(pstarts) if paged else None,
                               as_dev(btab_new) if paged else None)
             else:
-                progs.admit(params, draft_params, state, as_dev(pb),
-                            as_dev(admit_mask), admit_cpu, as_dev(rows),
-                            as_dev(lim), gen)
+                rids = [rq.rid for rq in reqs]
+                n_rows = progs.admit(
+                    params, draft_params, state, as_dev(prompts_np[rids]),
+                    torch.as_tensor(slots, dtype=torch.int64), as_dev(rids),
+                    as_dev([rq.max_new_tokens for rq in reqs]), gen)
+                prefill_rows += n_rows
+                aspan.set("rows", n_rows)
                 if clock is not None:
-                    ttft_events.append((clock.record(),
-                                        [rq.rid for rq in reqs]))
+                    ttft_events.append((clock.record(), rids))
                 elif gcfg.measure_ttft:
                     # the CPU has run the admit by now
                     now = time.perf_counter()
@@ -1059,6 +1093,7 @@ def _serve(params, cfg: ModelConfig, prompts, gen: Optional[torch.Generator],
                  float(np.mean(np.ceil(plens_np / C))) if chunked else 0.0,
              "ttft": ttft, "queue_wait": queue_wait,
              "rounds": rounds, "prefills": n_prefills,
+             "prefill_rows": prefill_rows,
              "admitted": table.admitted, "retired": table.retired,
              "requeued": table.requeued, "cancelled": table.cancelled,
              "page_size": ps, "prefix_cache": sharing,

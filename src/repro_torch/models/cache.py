@@ -13,9 +13,9 @@ repeats dim ``[R]`` first and the batch (decode *slot*) dim at axis 1:
   mamba           ssm         [R, B, di, ds]      fp32
   rwkv_channel    cm_shift    [R, B, d]           cache dtype
 
-``gather_slots`` / ``scatter_slots`` / ``zero_slots`` work on any such
-tree: they move whole per-slot rows in and out, which is how the
-continuous-batching engine recycles decode slots.
+``gather_slots`` / ``scatter_slots`` / ``put_slot_rows`` / ``zero_slots``
+work on any such tree: they move whole per-slot rows in and out, which is
+how the continuous-batching engine recycles decode slots.
 
 Unlike the JAX functions, which return new arrays, the writers here
 update the cache **in place** (and return it): ``write_kv``,
@@ -157,6 +157,15 @@ def scatter_slots(dst_blocks, src_blocks, slot_mask):
     writes its own slots."""
     return tree_map(lambda d, s: _rows_in_place(_put_rows, d, slot_mask, s),
                     dst_blocks, src_blocks)
+
+
+def put_slot_rows(dst_blocks, src_blocks, slots):
+    """Overwrite (in place) slot ``slots[i]`` of ``dst_blocks`` with row i
+    of ``src_blocks`` (leaves [R, n, ...]; ``slots`` [n] int64): the index
+    form of ``scatter_slots`` for a prefill over the admitted rows alone.
+    Plain leaves only."""
+    return tree_map(lambda d, s: d.index_copy_(
+        1, slots.to(d.device), s.to(d.dtype)), dst_blocks, src_blocks)
 
 
 def _rows_in_place(fn, leaf, slot_mask, *others):

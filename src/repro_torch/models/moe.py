@@ -38,6 +38,12 @@ from repro_torch.parallel.sharding import (P, hint, is_dtensor,
 _GROUP = 512
 
 
+def groups_within_rows(seq_len: int) -> bool:
+    """Whether ``apply_moe``'s routing groups over rows of ``seq_len``
+    tokens lie inside single rows, so that each row routes alone."""
+    return seq_len % min(_GROUP, seq_len) == 0
+
+
 def init_moe(gen, cfg: ModelConfig, kind: FFN, dtype):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     names = (("w_gate", "w_up", "w_down") if kind in (FFN.SWIGLU, FFN.GEGLU)

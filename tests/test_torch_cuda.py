@@ -859,3 +859,52 @@ def test_device_spans_and_ttft_events_on_the_card(monkeypatch):
     assert len(by_admit) == len(stamps)
     for got, (_, _, host) in zip(by_admit, stamps):
         assert abs((got - by_admit[0]) - (host - stamps[0][2])) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_admit_over_the_admitted_rows_on_the_card(monkeypatch):
+    """The bf16 smoke qwen3-0.6b engine at wave 8, slots recycled: each
+    one-shot admit prefills its admitted rows alone, and its first tokens
+    are the whole-wave forward's greedy tokens for the same prompts (the
+    first prompt in the free slots), its slots' cache rows within the
+    bf16 tolerance."""
+    import dataclasses
+    from repro_torch.configs import archs
+    from repro_torch.genserve import decoder
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    dev = _cuda()
+    cfg = dataclasses.replace(archs.SMOKE["qwen3-0.6b"], dtype="bfloat16")
+    params = T.init_params(cfg, seed=0, device=dev)
+    W, P, N, B = 8, 32, 6, 20
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    seen = []
+    admit = decoder._Programs.admit
+
+    def spy(self, params, dparams, st, pb, slots, rows, limits, gen):
+        n = admit(self, params, dparams, st, pb, slots, rows, limits, gen)
+        idx = slots.to(dev)
+        seen.append((n, pb.clone(), idx, st["tok"][idx].clone(),
+                     [leaf[:, idx].clone()
+                      for leaf in tree_leaves(st["cache"])]))
+        return n
+    monkeypatch.setattr(decoder._Programs, "admit", spy)
+    with torch.no_grad():
+        _, stats = decoder.serve(
+            params, cfg, prompts, None, decoder.GenServeConfig(
+                wave=W, max_new_tokens=N, greedy=True),
+            gen_lens=[1 + i % N for i in range(B)])
+        assert len(seen) == stats["prefills"] >= 3
+        assert stats["prefill_rows"] == stats["admitted"] == B
+        for n, pb, idx, tok0, rows in seen:
+            assert n == len(pb) == len(idx)
+            wave = pb[:1].repeat(W, 1)
+            wave[idx] = pb
+            ref = T.forward(params, cfg, {"tokens": wave},
+                            return_cache=True, max_cache_len=P + N)
+            assert torch.equal(tok0, ref["logits"][idx, -1].argmax(-1))
+            for got, want in zip(rows, tree_leaves(ref["cache"]["blocks"])):
+                np.testing.assert_allclose(got.float().cpu(),
+                                           want[:, idx].float().cpu(),
+                                           **tol("bfloat16"))

@@ -20,11 +20,13 @@ from repro.rl.rollout import SamplerConfig as JSampler  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
 from repro_torch.genserve import adapter as tadapter  # noqa: E402
+from repro_torch.genserve import decoder as tdecoder  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import sampling as tsampling  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.rl.rollout import SamplerConfig as TSampler  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -95,6 +97,138 @@ def test_slice_matches_jax_engine(name, impl):
     for k in STATS:
         assert stats[k] == rstats[k], k
     assert stats["prefills"] >= 2                 # slots were recycled
+
+
+def _half_occupied_admit(name, draft=None):
+    """Two prompts admitted into slots 3 and 1 of a wave of 4 whose slots
+    0 and 2 are occupied (random cache rows), fp32, greedy: the state
+    after the admit, a copy of it from before, the rows the admit ran,
+    and the whole-wave forward over the same prompts (the first prompt
+    in the free slots) of the target and of ``draft``."""
+    W, P, N = 4, 10, 3
+    cfg = tarchs.SMOKE[name]
+    gcfg = tdecoder.GenServeConfig(wave=W, max_new_tokens=N, greedy=True,
+                                   spec_k=2 if draft else 0)
+    params = TT.init_params(cfg, seed=5)
+    dparams = TT.init_params(draft, seed=6) if draft else None
+    progs = tdecoder._Programs(cfg, gcfg, P, 3, draft)
+    assert not progs.whole_wave
+    st = tdecoder._init_state(cfg, gcfg, P, 3, torch.float32,
+                              torch.device("cpu"), draft,
+                              torch.float32 if draft else None)
+    g = torch.Generator().manual_seed(0)
+    for leaf in tree_leaves([st["cache"], st.get("dcache")]):
+        leaf.copy_(torch.randn(leaf.shape, generator=g))
+    st["occupied"][[0, 2]] = True
+    st["req"][[0, 2]] = torch.tensor([1, 1])
+    before = tree_map(torch.clone, dict(st))
+    prompts = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, P)))
+    slots = torch.tensor([3, 1])
+    n = progs.admit(params, dparams, st, prompts, slots, torch.tensor([0, 2]),
+                    torch.tensor([N, N]), None)
+    wave = prompts[:1].repeat(W, 1)
+    wave[slots] = prompts
+    with torch.no_grad():
+        ref = [TT.forward(p, c, {"tokens": wave}, return_cache=True,
+                          max_cache_len=P + N)
+               for p, c in ((params, cfg), (dparams, draft)) if c]
+    return st, before, n, ref
+
+
+def _same_slot_rows(after, before, ref, slots=(3, 1), kept=(0, 2)):
+    """Cache trees ``after`` / ``before`` the admit: the occupied slots'
+    rows bit for bit, the admitted slots' rows as ``ref``'s (the
+    whole-wave forward's cache) at the same slots."""
+    for a, b, r in zip(tree_leaves(after), tree_leaves(before),
+                       tree_leaves(ref)):
+        assert torch.equal(a[:, list(kept)], b[:, list(kept)])
+        torch.testing.assert_close(a[:, list(slots)], r[:, list(slots)],
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "rwkv6-3b"])
+def test_admit_into_a_half_occupied_wave(name):
+    """A one-shot admit prefills only its admitted rows: the occupied
+    slots keep their cache rows and state, and each admitted slot's
+    cache rows, first token and its log-prob are the whole-wave
+    forward's."""
+    st, before, n, [ref] = _half_occupied_admit(name)
+    assert n == 2
+    _same_slot_rows(st["cache"], before["cache"], ref["cache"]["blocks"])
+    last = ref["logits"][[3, 1], -1]
+    tok0 = last.argmax(-1)
+    assert torch.equal(st["tok"][[3, 1]], tok0)
+    assert torch.equal(st["gen"][[0, 2], 0], tok0)
+    torch.testing.assert_close(
+        st["lp"][[0, 2], 0],
+        torch.log_softmax(last, -1).gather(-1, tok0[:, None])[:, 0],
+        atol=1e-6, rtol=0)
+    assert st["pos"].tolist() == [0, 10, 0, 10]
+    assert st["ngen"].tolist() == [0, 1, 0, 1]
+    assert st["req"].tolist() == [1, 2, 1, 0]
+    assert st["limit"].tolist() == [1, 3, 1, 3]
+    assert st["occupied"].all()
+
+
+def test_speculative_admit_primes_the_draft_on_the_admitted_rows():
+    """With a draft the same admit primes the draft's cache on the same
+    rows: its admitted slots' rows are the draft's whole-wave forward's,
+    the occupied ones untouched."""
+    cfg = tarchs.SMOKE["qwen3-0.6b"]
+    draft = dataclasses.replace(cfg, name="draft", n_layers=1)
+    st, before, n, [ref, dref] = _half_occupied_admit("qwen3-0.6b", draft)
+    assert n == 2
+    _same_slot_rows(st["cache"], before["cache"], ref["cache"]["blocks"])
+    _same_slot_rows(st["dcache"], before["dcache"], dref["cache"]["blocks"])
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "jamba-1.5-large-398b"])
+def test_admit_over_the_admitted_rows_keeps_the_schedule(name, monkeypatch):
+    """An engine run with ragged budgets prefills one row per admitted
+    request, and admits, decodes and retires exactly as the same run
+    forced onto the whole-wave admit: the same tokens, slot-table stats
+    and rounds."""
+    cfg = tarchs.SMOKE[name]
+    params = TT.init_params(cfg, seed=7)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (7, 9)))
+    gcfg = tdecoder.GenServeConfig(wave=3, max_new_tokens=6, decode_chunk=2,
+                                   greedy=True)
+    lens = [6, 2, 5, 1, 4, 6, 3]
+    rows, rstats = tdecoder.serve(params, cfg, prompts, None, gcfg,
+                                  gen_lens=lens)
+    monkeypatch.setattr(tdecoder, "_admit_whole_wave", lambda *a: True)
+    wave, wstats = tdecoder.serve(params, cfg, prompts, None, gcfg,
+                                  gen_lens=lens)
+    assert rstats["prefill_rows"] == rstats["admitted"] == 7
+    assert wstats["prefill_rows"] == 3 * wstats["prefills"] > 7
+    for k in STATS + ("prefills",):
+        assert rstats[k] == wstats[k], k
+    assert len(rstats["rounds"]) == len(wstats["rounds"])
+    assert [r[3] for r in rstats["rounds"]] == \
+        [r[3] for r in wstats["rounds"]]
+    for k in ("gen_tokens", "mask"):
+        assert torch.equal(rows[k], wave[k]), k
+    torch.testing.assert_close(rows["logprobs"], wave["logprobs"],
+                               atol=1e-5, rtol=0)
+
+
+def test_whole_wave_admit_only_on_a_mesh_or_across_moe_groups():
+    """The whole wave is prefilled on a mesh and where an MoE layer's
+    routing groups of 512 tokens span rows (P = 768); every other smoke
+    config at every prompt length takes the admitted rows alone."""
+    for name, cfg in tarchs.SMOKE.items():
+        for P in (12, 512, 768, 1024):
+            assert tdecoder._admit_whole_wave((cfg, None), P, None) == \
+                (cfg.has_moe and P == 768), (name, P)
+        assert tdecoder._admit_whole_wave((cfg, None), 12, object())
+    moe = tarchs.SMOKE["granite-moe-3b-a800m"]
+    assert tdecoder._admit_whole_wave((tarchs.SMOKE["qwen3-0.6b"], moe),
+                                      768, None)
+    progs = tdecoder._Programs(moe, tdecoder.GenServeConfig(
+        wave=2, max_new_tokens=2), 768, 2)
+    assert progs.whole_wave
 
 
 def test_single_wave_fast_path_matches_engine():

@@ -294,8 +294,9 @@ def _parents():
 
 def test_serve_spans_on_the_cpu():
     """A tiny one-shot engine run with tracing on: ``gen.admit`` carries
-    the admitted requests and the wave's rows its prefill ran, and the
-    reads, sampling and model spans open inside their parents."""
+    the admitted requests and the rows its prefill ran (the admitted ones
+    alone), and the reads, sampling and model spans open inside their
+    parents."""
     import torch
     from repro_torch.configs import archs as tarchs
     from repro_torch.genserve.decoder import GenServeConfig, serve
@@ -314,7 +315,8 @@ def test_serve_spans_on_the_cpu():
     admits = [e["args"] for e in ttrace.TRACER.chrome_events()
               if e["ph"] == "B" and e["name"] == "gen.admit"]
     assert len(admits) == stats["prefills"] >= 3
-    assert all(a["rows"] == W for a in admits)
+    assert all(a["rows"] == a["admitted"] for a in admits)
+    assert sum(a["rows"] for a in admits) == stats["prefill_rows"]
     assert sum(a["admitted"] for a in admits) == stats["admitted"] == B
     assert sorted(stats["ttft"]) == list(range(B))
     parents = {}
